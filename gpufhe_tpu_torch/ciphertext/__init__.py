@@ -1,0 +1,1 @@
+"""ciphertext layer of gpufhe_tpu_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""golden layer of gpufhe_tpu_torch (see the package docstring)."""

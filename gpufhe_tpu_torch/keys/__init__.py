@@ -1,0 +1,1 @@
+"""keys layer of gpufhe_tpu_torch (see the package docstring)."""

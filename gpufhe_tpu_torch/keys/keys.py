@@ -1,0 +1,83 @@
+"""Device key material (Montgomery form, NTT domain) and the CKKS key chest.
+
+Counterpart of gpufhe_tpu/keys/keys.py. Keys are generated by the port's
+golden layer from an explicit numpy Generator (the reference's draws) and
+stored as x * 2^32 mod q, so each use inside an inner product is one
+ops/modops.mont_mul, and the values equal the reference's device keys.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gpufhe_tpu_torch.golden import ckks as gckks
+from gpufhe_tpu_torch.ops.context import Context
+from gpufhe_tpu_torch.ops.modops import mont_mul
+from gpufhe_tpu_torch.params.params import CKKSParams
+
+
+class DevicePublicKey(NamedTuple):
+    b_mont: torch.Tensor  # int64[L, N] NTT domain, Montgomery
+    a_mont: torch.Tensor  # int64[L, N]
+
+
+class DeviceKSKey(NamedTuple):
+    """Hybrid key-switch key: dnum gadget rows over the full Q+P chain."""
+
+    b_mont: torch.Tensor  # int64[dnum, L+alpha, N] NTT domain, Montgomery
+    a_mont: torch.Tensor  # int64[dnum, L+alpha, N]
+
+
+class DeviceSecretKey(NamedTuple):
+    s_mont: torch.Tensor  # int64[L+alpha, N] NTT domain over the full chain, Montgomery
+
+
+def mont_form(x: torch.Tensor, ctx: Context) -> torch.Tensor:
+    """Canonical int64[..., L, N] over the chain prefix -> x * 2^32 mod q."""
+    rows = range(x.shape[-2])
+    return mont_mul(x, ctx.col("r2", rows), ctx.col("q", rows), ctx.col("qinv_neg", rows))
+
+
+def upload_public_key(pk: gckks.PublicKey, ctx: Context) -> DevicePublicKey:
+    return DevicePublicKey(b_mont=mont_form(pk.b, ctx), a_mont=mont_form(pk.a, ctx))
+
+
+def upload_ks_key(ksk: gckks.KSKey, ctx: Context) -> DeviceKSKey:
+    return DeviceKSKey(b_mont=mont_form(ksk.b, ctx), a_mont=mont_form(ksk.a, ctx))
+
+
+def upload_secret_key(sk: gckks.SecretKey, params: CKKSParams, ctx: Context) -> DeviceSecretKey:
+    qp = params.q_primes + params.p_primes
+    return DeviceSecretKey(s_mont=mont_form(gckks.ntt_small(sk.s, qp, ctx), ctx))
+
+
+@dataclasses.dataclass
+class KeyChest:
+    """The key material of a CKKS multiply workload: host secret + device keys."""
+
+    params: CKKSParams
+    sk: gckks.SecretKey  # host only
+    pk: gckks.PublicKey
+    rlk: gckks.KSKey
+    device_sk: DeviceSecretKey
+    device_pk: DevicePublicKey
+    device_rlk: DeviceKSKey
+
+
+def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context) -> KeyChest:
+    """Secret, public and relinearisation keys (deterministic in rng)."""
+    sk, pk = gckks.keygen(params, rng, ctx)
+    rlk = gckks.make_relin_key(params, sk, rng, ctx)
+    return KeyChest(
+        params=params,
+        sk=sk,
+        pk=pk,
+        rlk=rlk,
+        device_sk=upload_secret_key(sk, params, ctx),
+        device_pk=upload_public_key(pk, ctx),
+        device_rlk=upload_ks_key(rlk, ctx),
+    )

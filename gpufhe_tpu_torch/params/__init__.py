@@ -1,0 +1,1 @@
+"""params layer of gpufhe_tpu_torch (see the package docstring)."""
