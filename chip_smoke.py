@@ -3,14 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc, holds each
-against its plain PyTorch version on the card, drives the CKKS multiply of
-the config5_boot preset (N=2^16, 30 q-limbs, 15 special primes, dnum=2)
-through the package's entry points, checks the result against the same path
-on the CPU and against the cleartext product, and times the kernels and the
-multiply with CUDA events. Every phase prints one line with its name, its
-result and its seconds. The run fails (non-zero exit, no result line) when
-no CUDA device is present, when a phase fails, or when it outlasts BUDGET_S.
+Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
+against its plain PyTorch version on the card: K1 (NTT), K3 (base
+conversion), K4 (key-switch MAC), and the two probes, the integer rate (P2)
+and the K1 ablation builds (P1). Then it drives three paths through the
+package's entry points, each with the launch counts set to 0 just before it
+and read just after:
+
+  mul     the CKKS multiply of config5_boot (N=2^16, 30 q-limbs, 15 special
+          primes, dnum=2): keygen (with the rotation keys of the third path),
+          encode, encrypt x2, ct_mul_full, decrypt;
+  dw      the double-word multiply of config5_boot_dw (N=2^16, 48 q-limbs,
+          10 special primes, dnum=5, scale_words=2, encapsulation keys);
+  rotate  at config5_boot: ct_rotate, ct_conjugate, ct_rotate_hoisted,
+          ct_mul_plain and ct_plain_mac.
+
+Each path's ciphertexts are checked == the same path on the CPU and decoded
+against the cleartext result; the kernels and stage leaves are timed with
+CUDA events, and every bound is restated with the integer rates measured in
+this run. Every phase prints one line with its name, its result and its
+seconds. The run fails (non-zero exit, no result line) when no CUDA device
+is present, when a phase fails, or when it outlasts BUDGET_S.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line {"ok": true, "device": {...}}.
@@ -25,12 +38,24 @@ import time
 import numpy as np
 import torch
 
-BUDGET_S = 300  # the whole run, builds included; it needs under a minute
+BUDGET_S = 300  # the whole run, builds included
 PRESET = "config5_boot"
+DW_PRESET = "config5_boot_dw"
 DEVICE = "cuda:0"
 SEED = 2024
+ROTATIONS = (1, 3)
+# The rotation path encrypts at 2^40, not at the preset's 2^28: a key switch
+# adds the ModDown error times the secret at the ciphertext's own scale, and
+# at N=2^16 that decodes to 0.068 at 2^28 in the reference's golden model as
+# in the port (tests/test_torch_rotation_noise.py), above DECODE_TOL for any
+# input; at 2^40 it is 2^12 times smaller, so the check tells a wrong
+# rotation from the scheme's noise. (The multiply's key switch runs at the
+# product's scale 2^56 and is rescaled away.)
+ROT_SCALE_BITS = 40
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-ALU_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores (float32 rate)
+# H100 SXM peak outside the tensor cores (float32 rate): the bound of the
+# integer-rate probe's own rows; the kernels' bounds use the measured rates
+ALU_OPS_PER_S = 67e12
 DECODE_TOL = 1e-2  # tests/test_pipeline.py:109
 
 T0 = time.perf_counter()
@@ -48,20 +73,6 @@ def card() -> tuple[str, str]:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     return line, torch.cuda.get_device_name(0)
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call, by CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def device_profile(fn, iters: int = 5) -> tuple[float, float, list]:
@@ -91,9 +102,27 @@ def device_profile(fn, iters: int = 5) -> tuple[float, float, list]:
 def exact(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
     """Max |a - b|; raises unless the two are equal element for element."""
     torch.cuda.synchronize()
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
     err = int((a - b).abs().max().item())
-    if a.shape != b.shape or err != 0:
+    if err != 0:
         raise AssertionError(f"{what}: kernel and plain version differ (max |diff| {err})")
+    return err
+
+
+def same_limbs(got, want, what: str) -> None:
+    """A card ciphertext == its CPU-path twin: level, scale and every limb."""
+    if got.level != want.level or got.scale != want.scale or len(got.c) != len(want.c):
+        raise AssertionError(f"{what}: level, scale or size differ from the CPU path")
+    for i, (g, c) in enumerate(zip(got.c, want.c)):
+        if not torch.equal(g.cpu(), c.cpu()):
+            raise AssertionError(f"{what}: component {i} differs from the CPU path")
+
+
+def decode_err(got: np.ndarray, want: np.ndarray, slots: int, what: str) -> float:
+    err = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or got.shape != (slots,) or err >= DECODE_TOL:
+        raise AssertionError(f"{what}: decoded result off by {err} (tolerance {DECODE_TOL})")
     return err
 
 
@@ -113,16 +142,27 @@ def main() -> None:
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     from gpufhe_tpu_torch.ciphertext import ct as dct
     from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.golden import ckks as gckks
     from gpufhe_tpu_torch.keys import keys as dkeys
-    from gpufhe_tpu_torch.ops import convert_cuda, cuda_build, ntt_cuda
+    from gpufhe_tpu_torch.ops import convert_cuda, cuda_build, mac_cuda, ntt_cuda, probes
     from gpufhe_tpu_torch.ops.context import make_context
-    from gpufhe_tpu_torch.ops.modops import mont_mac
     from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
     from gpufhe_tpu_torch.params.params import preset
     from gpufhe_tpu_torch.primitives import keyswitch, rns
 
+    cuda_ms = probes.cuda_ms
     dev = torch.device(DEVICE)
-    kernels = {"ntt": ntt_cuda.KERNEL, "convert": convert_cuda.KERNEL}
+    kernels = {"ntt": ntt_cuda.KERNEL, "convert": convert_cuda.KERNEL, "mac": mac_cuda.KERNEL}
+
+    def reset() -> None:
+        for k in kernels.values():
+            k.reset()
+
+    def counts() -> dict:
+        return {name: k.launches for name, k in kernels.items()}
+
+    def delta(before: dict) -> dict:
+        return {name: k.launches - before[name] for name, k in kernels.items()}
 
     # 0. the card
     t = time.perf_counter()
@@ -130,212 +170,487 @@ def main() -> None:
     print(smi, flush=True)
     say("card", f"{kind}; name, power.limit = {smi}", t)
 
-    # 1. build every kernel (one nvcc per source, all at once)
+    # 1. build every library (one nvcc per library, all at once)
     t = time.perf_counter()
     logs = cuda_build.build_all()
     for name, log in logs.items():
-        print(f"nvcc {name}.cu -Xptxas -v:\n{log.strip()}", flush=True)
+        print(f"nvcc {name} -Xptxas -v:\n{log.strip()}", flush=True)
     say("build", f"built {sorted(logs)} into {cuda_build.BUILD_DIR.name}/", t)
+
+    # 2. P2: the integer rates that every bound's operation side divides by
+    t = time.perf_counter()
+    rates, rate_rows = {}, {}
+    for mix in probes.MIXES:
+        small = (mix, 4, 16, dev)
+        err = exact(probes.int_rate_cuda(*small), probes.int_rate_plain(*small), f"int_rate {mix}")
+        probes.INT_RATE.reset()  # count the measurement's launches, not the check's
+        r = probes.int_rate(mix, dev)
+        n_launch = probes.INT_RATE.launches
+        work = (mix, r["blocks"], r["depth"], dev)
+        plain = cuda_ms(lambda: probes.int_rate_plain(*work), iters=1, warmup=0)
+        rates[mix] = r["rate"]
+        rate_rows[mix] = (r, err, plain, n_launch)
+        print(f"int_rate {mix}: {r['rate'] / 1e12:.4f} T steps/s ({r['blocks']} blocks x "
+              f"{probes.THREADS} threads x {probes.CHAINS} chains x ({r['depth']} - "
+              f"{r['floor_depth']}) steps in {r['ms'] - r['floor_ms']:.4f} ms; full "
+              f"{r['ms']:.4f}, floor {r['floor_ms']:.4f}; {n_launch} launches; plain "
+              f"{plain:.2f} ms)  [{smi}]", flush=True)
+    # a modular product of 30-bit residues at the card's best measured rate
+    mod_rate = max(rates["modmul"], rates["shoup32"])
+    say("int_rate", "== plain at depth 16; " + ", ".join(
+        f"{mix} {rates[mix] / 1e12:.4f} T/s" for mix in probes.MIXES), t)
 
     params = preset(PRESET)
     ctx = make_context(params, dev)
     n, L = params.n, params.num_limbs
     qp = L + len(params.p_primes)
+    dw = preset(DW_PRESET)
+    ctx_dw = make_context(dw, dev)
+    L_dw = dw.num_limbs
+    qp_dw = L_dw + len(dw.p_primes)
     rng = np.random.default_rng(SEED)
 
-    def rand_limbs(rows):
-        x = np.stack([rng.integers(0, ctx.primes[r], size=n, dtype=np.int64) for r in rows])
-        return torch.from_numpy(x).to(dev)
+    def rand_limbs(c, rows, lead=()):
+        q = np.asarray([c.primes[r] for r in rows], dtype=np.int64)[:, None]
+        x = rng.integers(0, q, size=(*lead, len(rows), c.n), dtype=np.int64)
+        return torch.from_numpy(x).to(c.device)
 
-    # 2. K1 against its plain version, exact, at N = 2^16, at every shape that
-    #    ct_mul_full launches it with (batches of 2, the rescale's L-1 limbs)
+    # 3. K1 against its plain version, exact, at N = 2^16, at every shape that
+    #    the paths launch it with: at config5_boot the Q+P chain (single, and
+    #    the dnum=2 raised digits), the level, the P limbs, both components at
+    #    the level and after the rescale; at config5_boot_dw the same with the
+    #    dnum=5 raised digits and both components after two rescales
     t = time.perf_counter()
     ntt_err = 0
-    ntt_cases = ((range(qp), 1), (range(L), 1), (range(L, qp), 1),
-                 (range(qp), 2), (range(L), 2), (range(L - 1), 2))
-    for sel, batch in ntt_cases:
-        idx = ctx.index(sel, torch.int32)
-        x = rand_limbs(list(sel) * batch)
-        what = f"NTT limbs {sel} x {batch}"
+    ntt_cases = (
+        [(ctx, sel, batch) for sel, batch in (
+            (range(qp), 1), (range(L), 1), (range(L, qp), 1),
+            (range(qp), 2), (range(L), 2), (range(L - 1), 2))]
+        + [(ctx_dw, sel, batch) for sel, batch in (
+            (range(qp_dw), 1), (range(L_dw), 1), (range(qp_dw), 2), (range(qp_dw), dw.dnum),
+            (range(L_dw), 2), (range(L_dw - 1), 2), (range(L_dw - 2), 2))]
+    )
+    for c, sel, batch in ntt_cases:
+        idx = c.index(sel, torch.int32)
+        x = rand_limbs(c, list(sel) * batch)
+        what = f"NTT N={c.n} limbs {sel} x {batch} of {len(c.primes)}"
         for inverse in (False, True):
-            got = ntt_cuda.fourstep_cuda(x, idx, ctx, inverse)
-            want = ntt_cuda.fourstep_plain(x, idx, ctx, inverse)
+            got = ntt_cuda.fourstep_cuda(x, idx, c, inverse)
+            want = ntt_cuda.fourstep_plain(x, idx, c, inverse)
             ntt_err = max(ntt_err, exact(got, want, f"{what} inverse={inverse}"))
-        back = ntt_cuda.fourstep_cuda(ntt_cuda.fourstep_cuda(x, idx, ctx, False), idx, ctx, True)
+        back = ntt_cuda.fourstep_cuda(ntt_cuda.fourstep_cuda(x, idx, c, False), idx, c, True)
         exact(back, x, f"{what} round trip")
     say("ntt_vs_plain", "== fwd, inv and round trip at (limbs x batch) "
-        + ", ".join(f"{len(sel)}x{b}" for sel, b in ntt_cases), t)
+        + ", ".join(f"{len(sel)}x{b}" for _, sel, b in ntt_cases), t)
 
-    # 3. K3 against its plain version, exact, at the ModUp and ModDown shapes
+    # 4. K3 against its plain version, exact, at every ModUp group and the
+    #    ModDown of both presets at their top level (config5_boot: 15->45 x2,
+    #    15->30; config5_boot_dw: 10->58 x4, 8->58, 10->48)
     t = time.perf_counter()
     ksc = rns.make_ks_context(params, L, dev)
+    ksc_dw = rns.make_ks_context(dw, L_dw, dev)
     conv_err = 0
-    shapes = {"modup": (ksc.modup[0], range(params.alpha)), "moddown": (ksc.p2q, range(L, qp))}
-    for what, (tabs, rows) in shapes.items():
-        x = rand_limbs(rows)
+    conv_cases = {}
+    for tag, pr, c, k in (("", params, ctx, ksc), ("_dw", dw, ctx_dw, ksc_dw)):
+        lv, top = pr.num_limbs, pr.num_limbs + len(pr.p_primes)
+        for g, (d0, d1) in enumerate(rns.ks_groups(pr, lv)):
+            conv_cases[f"modup{tag} {g}"] = (c, k.modup[g], range(d0, d1))
+        conv_cases[f"moddown{tag}"] = (c, k.p2q, range(lv, top))
+    for what, (c, tabs, rows) in conv_cases.items():
+        x = rand_limbs(c, rows)
         got = convert_cuda.base_convert_cuda(x, tabs)
         want = convert_cuda.base_convert_plain(x, tabs)
         conv_err = max(conv_err, exact(got, want, f"base conversion {what}"))
-    say("convert_vs_plain", f"== at ModUp {params.alpha}->{qp} and ModDown "
-        f"{len(params.p_primes)}->{L}", t)
+    say("convert_vs_plain", "== at " + ", ".join(
+        f"{k} {len(r)}->{tb.dq.numel()}" for k, (_, tb, r) in conv_cases.items()), t)
 
-    # 4. the main path, through the entry points, with launch counts
+    # 5. K4 against its plain version, exact, at the shapes the paths launch:
+    #    the relinearisation at config5_boot (a key stored at the level) and one
+    #    level down (stored above it), the dw key switch, a hoisted rotation's
+    #    (with the automorphism folded in), ct_plain_mac over 3 ciphertexts and
+    #    the single-output launch of ct_mul_plain on a third component
     t = time.perf_counter()
+    perm1 = dct.galois_perm(gckks.galois_exponent(1, n), ctx, torch.int32)
+
+    def mac_case(c, pr, level, d_dim, with_perm=False, plain_mac=False, one=False):
+        """Random canonical K4 operands; keys are stored over the full chain."""
+        if plain_mac:
+            rows = chain = c.index(range(level), torch.int32)
+            y_rows = range(level)
+        else:
+            rows = c.index(keyswitch.key_row_index(pr, level, c.num_total), torch.int32)
+            chain = c.index(keyswitch.qp_indices(pr, level), torch.int32)
+            y_rows = range(c.num_total)
+        x = rand_limbs(c, chain.tolist(), (d_dim,))
+        y0, y1 = rand_limbs(c, y_rows, (d_dim,)), rand_limbs(c, y_rows, (d_dim,))
+        return x, y0, None if one else y1, rows, chain, c, perm1 if with_perm else None
+
+    mac_cases = {
+        f"D=2 T={qp}": mac_case(ctx, params, L, 2),
+        f"D=2 T={qp - 1} (key stored above the level)": mac_case(ctx, params, L - 1, 2),
+        f"D=5 T={qp_dw}": mac_case(ctx_dw, dw, L_dw, 5),
+        f"D=2 T={qp} perm": mac_case(ctx, params, L, 2, with_perm=True),
+        f"D=3 T={L} (ct_plain_mac)": mac_case(ctx, params, L, 3, plain_mac=True),
+        f"D=1 T={L} one output (ct_mul_plain, c2)": mac_case(ctx, params, L, 1, plain_mac=True,
+                                                           one=True),
+    }
+    mac_err = 0
+    for what, args in mac_cases.items():
+        mac_err = max(mac_err, exact(mac_cuda.mac_cuda(*args), mac_cuda.mac_plain(*args),
+                                     f"K4 {what}"))
+    mac_inputs = {"mul": mac_cases[f"D=2 T={qp}"], "dw": mac_cases[f"D=5 T={qp_dw}"]}
+    say("mac_vs_plain", "== at " + "; ".join(mac_cases), t)
+
+    # 6. P1: K1 and its ablation builds at the 45-limb forward shape; the
+    #    copy_only build == its plain version (two bit-reversed transposes)
+    t = time.perf_counter()
+    idx45 = ctx.index(range(qp), torch.int32)
+    x45 = rand_limbs(ctx, range(qp))
+    copy_kernel = probes.ABLATION_KERNELS["copy_only"]
+    copy_err = exact(ntt_cuda.fourstep_cuda(x45, idx45, ctx, False, copy_kernel),
+                     probes.copy_only_plain(x45, ctx), "K1 copy_only build")
+    copy_kernel.reset()  # count the timing's launches, not the check's
+    ablation = probes.ntt_ablation(x45, idx45, ctx)
+    copy_launches = copy_kernel.launches
+    ablation["copy_only_plain"] = cuda_ms(lambda: probes.copy_only_plain(x45, ctx), iters=5)
+    print(f"ntt_ablation fwd x {qp} limbs, ms per call: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ablation.items()) + f"  [{smi}]", flush=True)
+    say("ntt_ablation", f"full {ablation['full']:.4f} ms, copy_only {ablation['copy_only']:.4f} "
+        f"ms (== its plain version)", t)
+
+    # 7. path "mul": the config5_boot multiply, through the entry points
     zr = np.random.default_rng(SEED + 1)
     za, zb = unit_disk(zr, params.slots), unit_disk(zr, params.slots)
 
-    def main_path(ctx_):
-        chest = dkeys.keygen(params, np.random.default_rng(SEED), ctx_)
-        ca = dct.encrypt(encoder.encode(za, params), params, chest.device_pk, ctx_,
-                         np.random.default_rng(SEED + 2), params.scale)
-        cb = dct.encrypt(encoder.encode(zb, params), params, chest.device_pk, ctx_,
-                         np.random.default_rng(SEED + 3), params.scale)
-        return chest, ca, cb
+    def mul_path(ctx_):
+        chest = dkeys.keygen(params, np.random.default_rng(SEED), ctx_, rotations=ROTATIONS,
+                             conjugation=True)
+        cts = [dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx_,
+                           np.random.default_rng(SEED + 2 + i), params.scale)
+               for i, z in enumerate((za, zb))]
+        before = counts()
+        prod = dct.ct_mul_full(cts[0], cts[1], params, ctx_, chest.device_rlk)
+        return chest, cts, prod, delta(before)
 
-    for k in kernels.values():
-        k.reset()
-    chest, ca, cb = main_path(ctx)
-    before = {name: k.launches for name, k in kernels.items()}
-    prod = dct.ct_mul_full(ca, cb, params, ctx, chest.device_rlk)
-    per_mul = {name: k.launches - before[name] for name, k in kernels.items()}
+    t = time.perf_counter()
+    reset()
+    chest, cts, prod, per_mul = mul_path(ctx)
     got = dct.decrypt_decode(prod, params, chest.device_sk, ctx)
-    launches = {name: k.launches for name, k in kernels.items()}
-    say("main_path", f"keygen, encode, encrypt x2, ct_mul_full, decrypt_decode at {PRESET}; "
-        f"launches {launches}, per ct_mul_full {per_mul}", t)
-
-    # 5. checks: (a) == the CPU path, (b) decodes to za * zb, (c) kernels ran
+    launches = {"mul": counts()}
+    say("mul_path", f"keygen (rlk, Galois {ROTATIONS}, conj), encode, encrypt x2, ct_mul_full, "
+        f"decrypt_decode at {PRESET}; launches {launches['mul']}, per ct_mul_full {per_mul}", t)
     t = time.perf_counter()
     ctx_cpu = make_context(params, "cpu")
-    chest_c, ca_c, cb_c = main_path(ctx_cpu)
-    prod_c = dct.ct_mul_full(ca_c, cb_c, params, ctx_cpu, chest_c.device_rlk)
-    if prod.level != prod_c.level or prod.scale != prod_c.scale:
-        raise AssertionError("level or scale differ from the CPU path")
-    for i, (g, c) in enumerate(zip(prod.c, prod_c.c)):
-        if not torch.equal(g.cpu(), c):
-            raise AssertionError(f"ct_mul_full component {i} differs from the CPU path")
-    say("check_vs_cpu", f"ct_mul_full limbs == the CPU path ({prod.level} limbs x 2)", t)
-    t = time.perf_counter()
-    err = float(np.abs(got - za * zb).max())
-    if not np.isfinite(got).all() or got.shape != (params.slots,) or err >= DECODE_TOL:
-        raise AssertionError(f"decoded product off by {err} (tolerance {DECODE_TOL})")
+    chest_c, _, prod_c, _ = mul_path(ctx_cpu)
+    same_limbs(prod, prod_c, "ct_mul_full")
+    err = decode_err(got, za * zb, params.slots, "ct_mul_full")
     if min(per_mul.values()) <= 0:
         raise AssertionError(f"a kernel did not run inside ct_mul_full: {per_mul}")
-    say("check_decode", f"max |dec - za*zb| = {err:.3e} < {DECODE_TOL}; launches in "
-        f"ct_mul_full {per_mul} > 0", t)
+    say("mul_check", f"ct_mul_full limbs == the CPU path ({prod.level} limbs x 2); max |dec - "
+        f"za*zb| = {err:.3e} < {DECODE_TOL}; launches in ct_mul_full {per_mul} > 0", t)
 
-    # 6. times on the card (CUDA events, after warm-up)
+    # 8. path "dw": the config5_boot_dw multiply
+    zd = np.random.default_rng(SEED + 5)
+    da, db = unit_disk(zd, dw.slots), unit_disk(zd, dw.slots)
+
+    def dw_path(ctx_):
+        chest_ = dkeys.keygen(dw, np.random.default_rng(SEED + 6), ctx_)
+        ca, cb = (dct.encrypt(encoder.encode(z, dw), dw, chest_.device_pk, ctx_,
+                              np.random.default_rng(SEED + 7 + i), dw.scale)
+                  for i, z in enumerate((da, db)))
+        before = counts()
+        out = dct.ct_mul_full(ca, cb, dw, ctx_, chest_.device_rlk)
+        return chest_, (ca, cb), out, delta(before)
+
     t = time.perf_counter()
-    idx = ctx.index(range(qp), torch.int32)
-    x45 = rand_limbs(range(qp))
-    times = {
-        "ntt": cuda_ms(lambda: ntt_cuda.fourstep_cuda(x45, idx, ctx, False)),
-        "ntt_plain": cuda_ms(lambda: ntt_cuda.fourstep_plain(x45, idx, ctx, False), iters=5),
+    reset()
+    chest_dw, cts_dw, prod_dw, per_dw = dw_path(ctx_dw)
+    got_dw = dct.decrypt_decode(prod_dw, dw, chest_dw.device_sk, ctx_dw)
+    launches["dw"] = counts()
+    if chest_dw.eph is None:
+        raise AssertionError("config5_boot_dw keygen drew no encapsulation keys")
+    say("dw_path", f"keygen (rlk + eph h={dw.eph_hamming_weight}), encode, encrypt x2, "
+        f"ct_mul_full, decrypt_decode at {DW_PRESET}; launches {launches['dw']}, per "
+        f"ct_mul_full {per_dw}", t)
+    t = time.perf_counter()
+    ctx_dw_cpu = make_context(dw, "cpu")
+    _, _, prod_dw_c, _ = dw_path(ctx_dw_cpu)
+    same_limbs(prod_dw, prod_dw_c, "dw ct_mul_full")
+    err_dw = decode_err(got_dw, da * db, dw.slots, "dw ct_mul_full")
+    if min(per_dw.values()) <= 0:
+        raise AssertionError(f"a kernel did not run inside the dw ct_mul_full: {per_dw}")
+    say("dw_check", f"ct_mul_full limbs == the CPU path ({prod_dw.level} limbs x 2, scale "
+        f"2^{np.log2(prod_dw.scale):.3f}); max |dec - za*zb| = {err_dw:.3e} < {DECODE_TOL}; "
+        f"launches in ct_mul_full {per_dw} > 0", t)
+
+    # 9. path "rotate" at config5_boot, on the mul path's keys: three fresh
+    #    ciphertexts at 2^ROT_SCALE_BITS and three plaintexts at the preset's scale
+    zr = np.random.default_rng(SEED + 9)
+    zs = [unit_disk(zr, params.slots) for _ in range(3)]
+    ws = [unit_disk(zr, params.slots) for _ in range(3)]
+    scale, rot_scale = params.scale, float(2**ROT_SCALE_BITS)
+
+    def rotate_path(ctx_, chest_):
+        cts_ = [dct.encrypt(encoder.encode(z, params, rot_scale), params, chest_.device_pk, ctx_,
+                            np.random.default_rng(SEED + 10 + i), rot_scale)
+                for i, z in enumerate(zs)]
+        ct = cts_[0]
+        pts = [encoder.encode_to_device(w, params, ctx_) for w in ws]
+        gks = {s: chest_.galois_key(s) for s in ROTATIONS}
+        ops = {
+            "ct_rotate 1": lambda: [dct.ct_rotate(ct, 1, params, ctx_, gks[1])],
+            "ct_conjugate": lambda: [dct.ct_conjugate(ct, params, ctx_, chest_.conj_key())],
+            f"ct_rotate_hoisted {list(ROTATIONS)}":
+                lambda: dct.ct_rotate_hoisted(ct, list(ROTATIONS), params, ctx_, gks),
+            "ct_mul_plain": lambda: [dct.ct_mul_plain(ct, pts[0], scale, ctx_)],
+            "ct_plain_mac x3": lambda: [dct.ct_plain_mac(cts_, pts, None, params, ctx_,
+                                                         rot_scale * scale)],
+        }
+        outs, per_op = {}, {}
+        for name, op in ops.items():
+            before = counts()
+            outs[name] = op()
+            per_op[name] = delta(before)
+        return outs, per_op
+
+    want_rot = {
+        "ct_rotate 1": [np.roll(zs[0], -1)],
+        "ct_conjugate": [np.conj(zs[0])],
+        f"ct_rotate_hoisted {list(ROTATIONS)}": [np.roll(zs[0], -s) for s in ROTATIONS],
+        "ct_mul_plain": [zs[0] * ws[0]],
+        "ct_plain_mac x3": [sum(z * w for z, w in zip(zs, ws))],
     }
-    for what, (tabs, rows) in shapes.items():
-        x = rand_limbs(rows)
+    # K4 launches per op: one per key switch, one per plaintext MAC or product
+    k4_launches = {name: 1 for name in want_rot}
+    k4_launches[f"ct_rotate_hoisted {list(ROTATIONS)}"] = len(ROTATIONS)
+    t = time.perf_counter()
+    reset()
+    outs, per_op = rotate_path(ctx, chest)
+    decoded = {name: [dct.decrypt_decode(o, params, chest.device_sk, ctx) for o in os_]
+               for name, os_ in outs.items()}
+    launches["rotate"] = counts()
+    say("rotate_path", f"encode, encrypt x3 at 2^{ROT_SCALE_BITS}, {', '.join(outs)} at {PRESET}; "
+        f"launches {launches['rotate']}; "
+        f"per op {per_op}", t)
+    t = time.perf_counter()
+    outs_c, _ = rotate_path(ctx_cpu, chest_c)
+    errs = {}
+    for name, os_ in outs.items():
+        for i, (o, oc) in enumerate(zip(os_, outs_c[name])):
+            same_limbs(o, oc, f"{name} [{i}]")
+        errs[name] = max(decode_err(g, w, params.slots, name)
+                         for g, w in zip(decoded[name], want_rot[name]))
+        if per_op[name]["mac"] != k4_launches[name]:
+            raise AssertionError(f"{name}: K4 launched {per_op[name]['mac']} times, not "
+                                 f"{k4_launches[name]}")
+    say("rotate_check", "limbs == the CPU path; max |dec - want| " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f" < {DECODE_TOL}; K4 launches per op "
+        + ", ".join(f"{k} {v['mac']}" for k, v in per_op.items()), t)
+
+    # 10. times on the card (CUDA events, after warm-up)
+    t = time.perf_counter()
+    times = {
+        "ntt": ablation["full"],
+        "ntt_plain": cuda_ms(lambda: ntt_cuda.fourstep_plain(x45, idx45, ctx, False), iters=5),
+    }
+    shapes = {"modup": (ctx, ksc.modup[0], range(params.alpha)),
+              "moddown": (ctx, ksc.p2q, range(L, qp)),
+              "modup_dw": (ctx_dw, ksc_dw.modup[0], range(dw.alpha))}
+    for what, (c, tabs, rows) in shapes.items():
+        x = rand_limbs(c, rows)
         times[f"convert_{what}"] = cuda_ms(lambda: convert_cuda.base_convert_cuda(x, tabs))
         times[f"convert_{what}_plain"] = cuda_ms(
             lambda: convert_cuda.base_convert_plain(x, tabs), iters=5)
+    for key, args in mac_inputs.items():
+        times[f"mac_{key}"] = cuda_ms(lambda: mac_cuda.mac_cuda(*args))
+        times[f"mac_{key}_plain"] = cuda_ms(lambda: mac_cuda.mac_plain(*args), iters=5)
 
-    qp_idx = keyswitch.qp_indices(params, L)
-    xk = rand_limbs(range(L))
-    xqp = rand_limbs(range(qp))
-    raised = torch.stack([xqp, xqp])
-    rlk = chest.device_rlk
-    qcol, qinv = ctx.col("q", qp_idx), ctx.col("qinv_neg", qp_idx)
-    leaves = {
-        "ntt_fwd_k": lambda: ntt_fwd(xk, ctx, limbs=range(L)),
-        "ntt_inv_qp": lambda: ntt_inv(xqp, ctx, limbs=qp_idx),
-        "mod_up": lambda: rns.mod_up(xk, params, L, ctx, ksc),
-        "ks_mac": lambda: [mont_mac([(r, k[d]) for d, r in enumerate(raised)], qcol, qinv)
-                           for k in (rlk.b_mont, rlk.a_mont)],
-        "mod_down": lambda: rns.mod_down(xqp, params, L, ctx, ksc),
-        "rescale": lambda: rns.rescale(torch.stack([xk, xk]), params, L, ctx, ksc),
-        "key_switch": lambda: keyswitch.key_switch_core(xk, params, L, ctx, ksc, rlk,
-                                                        eval_out=False),
-        "mul_full": lambda: dct.ct_mul_full(ca, cb, params, ctx, rlk),
-    }
+    def stage_leaves(pr, c, ch, a, b, tag):
+        level = pr.num_limbs
+        k_ctx = rns.make_ks_context(pr, level, c.device)
+        xk = rand_limbs(c, range(level))
+        xqp = rand_limbs(c, keyswitch.qp_indices(pr, level))
+        raised = keyswitch.hoist(xk, pr, level, c, k_ctx)
+        return {
+            f"ntt_fwd_k{tag}": lambda: ntt_fwd(xk, c, limbs=range(level)),
+            f"ntt_inv_qp{tag}": lambda: ntt_inv(xqp, c, limbs=keyswitch.qp_indices(pr, level)),
+            f"mod_up{tag}": lambda: rns.mod_up(xk, pr, level, c, k_ctx),
+            f"ks_mac{tag}": lambda: keyswitch.gadget_mac(raised, pr, level, c, ch.device_rlk),
+            f"mod_down{tag}": lambda: rns.mod_down(xqp, pr, level, c, k_ctx),
+            f"rescale{tag}": lambda: rns.rescale(torch.stack([xk, xk]), pr, level, c, k_ctx),
+            f"key_switch{tag}": lambda: keyswitch.key_switch_core(xk, pr, level, c, k_ctx,
+                                                                  ch.device_rlk, eval_out=False),
+            f"mul_full{tag}": lambda: dct.ct_mul_full(a, b, pr, c, ch.device_rlk),
+        }
+
+    leaves = stage_leaves(params, ctx, chest, cts[0], cts[1], "")
+    leaves.update(stage_leaves(dw, ctx_dw, chest_dw, *cts_dw, "_dw"))
+    gks = {s: chest.galois_key(s) for s in ROTATIONS}
+    ksc_l = rns.make_ks_context(params, L, dev)
+    leaves.update({
+        "ct_rotate": lambda: dct.ct_rotate(cts[0], 1, params, ctx, gks[1]),
+        "hoist": lambda: keyswitch.hoist(cts[0].c[1], params, L, ctx, ksc_l),
+        "ct_rotate_hoisted_x2": lambda: dct.ct_rotate_hoisted(cts[0], list(ROTATIONS), params,
+                                                              ctx, gks),
+    })
     for name, fn in leaves.items():
         times[name] = cuda_ms(fn, iters=10)
+    times["hoisted_per_step"] = (times["ct_rotate_hoisted_x2"] - times["hoist"]) / len(ROTATIONS)
     for name, ms in times.items():
         print(f"time {name}: {ms:.4f} ms  [{smi}]", flush=True)
-    busy, share, top = device_profile(leaves["mul_full"])
-    print(f"profile mul_full: device busy {busy:.4f} ms per call, {share:.1%} of the host "
-          f"wall clock under the profiler  [{smi}]", flush=True)
-    for ms, name in top[:12]:
-        print(f"profile mul_full kernel {ms:.4f} ms/call  {name[:90]}", flush=True)
-    say("timing", f"mul_full {times['mul_full']:.3f} ms, NTT[{qp}] {times['ntt']:.4f} ms, "
-        f"ModUp {times['convert_modup']:.4f} ms", t)
+    for tag in ("", "_dw"):
+        busy, share, top = device_profile(leaves[f"mul_full{tag}"])
+        print(f"profile mul_full{tag}: device busy {busy:.4f} ms per call, {share:.1%} of the "
+              f"host wall clock under the profiler  [{smi}]", flush=True)
+        for ms, name in top[:10]:
+            print(f"profile mul_full{tag} kernel {ms:.4f} ms/call  {name[:90]}", flush=True)
+    say("timing", f"mul_full {times['mul_full']:.3f} ms, mul_full_dw {times['mul_full_dw']:.3f} "
+        f"ms, ct_rotate {times['ct_rotate']:.3f} ms, hoisted {times['hoisted_per_step']:.3f} "
+        f"ms per step, K4 {times['mac_mul']:.4f} / {times['mac_dw']:.4f} ms", t)
 
     # bounds from this run's shapes: each input read once, each output written
-    # once. K1 needs its data and, per selected prime, q, mu, the n1/2 + n2/2
-    # roots of its two passes, the n1 psi1 twists and the n1 + 2 n2 twiddle
-    # factors; its modular products are the twist, the twiddle (two) and one
-    # per butterfly. K3 needs its data, its tables and two products per term.
+    # once, against the larger of that traffic at 3.35 TB/s and the operations
+    # the function needs: modular products of 30-bit residues (and reductions
+    # of a 64-bit sum) at the best modular rate measured above (shoup32), and
+    # 32 x 32 -> 64-bit multiply-adds at the muladd rate. Modular additions
+    # are not counted. Sums of products below 2^60 stay unreduced for up to
+    # 16 terms (below 2^64), so a sum of m terms needs ceil(m / 16)
+    # reductions.
+    # K1 needs its data and, per selected prime, q, mu, the n1/2 + n2/2 roots
+    # of its two passes, the n1 psi1 twists and the n1 + 2 n2 twiddle
+    # factors; a negacyclic NTT of N points needs N/2 log N products (the
+    # twist merged into the butterflies' roots, no four-step twiddle).
+    # K3 needs its data and tables; per coefficient, v_i = x_i Qhat_i^-1 once
+    # per source limb (S N products), then per destination S multiply-adds
+    # and ceil(S / 16) reductions.
+    # K4 needs x, its key stacks, its outputs and per row q, mu, qinv_neg and
+    # two indices (a permutation: N more words); per output, D multiply-adds,
+    # ceil(D / 16) reductions and one REDC.
     n1, n2 = ctx.n1, ctx.n2
     log_n = n.bit_length() - 1
+
+    def reductions(terms):
+        return -(-terms // 16)
 
     def ntt_work(rows, limbs):
         per_prime = 2 + n1 // 2 + n2 // 2 + n1 + n1 + 2 * n2
         nbytes = 8 * (2 * rows * n + limbs * per_prime) + 4 * limbs
-        return nbytes, rows * (3 * n + (n // 2) * log_n)
+        return nbytes, rows * (n // 2) * log_n, 0
 
     def conv_work(s_dim, t_dim):
         nbytes = 8 * (s_dim * n + t_dim * n + 3 * s_dim + 2 * t_dim + s_dim * t_dim)
-        return nbytes, 2 * s_dim * t_dim * n
+        return nbytes, s_dim * n + t_dim * n * reductions(s_dim), s_dim * t_dim * n
 
-    def bound(nbytes, nops):
-        b, o = nbytes / HBM_BYTES_PER_S * 1e3, nops / ALU_OPS_PER_S * 1e3
+    def mac_work(d_dim, t_dim, permuted=False, outs=2):
+        nbytes = (8 * n * ((1 + outs) * d_dim * t_dim + outs * t_dim) + 32 * t_dim
+                  + 4 * n * permuted)
+        return (nbytes, outs * t_dim * n * (reductions(d_dim) + 1),
+                outs * d_dim * t_dim * n)
+
+    def bound(nbytes, nmod, nmuladd):
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        o = (nmod / mod_rate + nmuladd / rates["muladd"]) * 1e3
         return (b, "bytes") if b >= o else (o, "operations")
 
-    # the shapes of one ct_mul_full's launches, recorded around the wrappers
-    seen = {"ntt": [], "convert": []}
-    real_ntt, real_conv = ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda
+    # the shapes of each path's launches, recorded around the wrappers
+    seen = {"ntt": [], "convert": [], "mac": []}
+    real = (ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda)
 
-    def ntt_rec(x, idx_, ctx_, inverse):
+    def ntt_rec(x, idx_, ctx_, inverse, kernel=ntt_cuda.KERNEL):
         seen["ntt"].append(ntt_work(x.shape[0], idx_.numel()))
-        return real_ntt(x, idx_, ctx_, inverse)
+        return real[0](x, idx_, ctx_, inverse, kernel)
 
     def conv_rec(x, tabs):
         seen["convert"].append(conv_work(x.shape[0], tabs.dq.numel()))
-        return real_conv(x, tabs)
+        return real[1](x, tabs)
 
-    ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda = ntt_rec, conv_rec
+    def mac_rec(x, y0, y1, rows, chain, ctx_, perm=None):
+        seen["mac"].append(mac_work(x.shape[0], x.shape[1], perm is not None,
+                                    1 if y1 is None else 2))
+        return real[2](x, y0, y1, rows, chain, ctx_, perm)
+
+    ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = (
+        ntt_rec, conv_rec, mac_rec)
+    per_call = {
+        "ct_mul_full": lambda: dct.ct_mul_full(cts[0], cts[1], params, ctx, chest.device_rlk),
+        "ct_mul_full_dw": lambda: dct.ct_mul_full(*cts_dw, dw, ctx_dw, chest_dw.device_rlk),
+        "ct_rotate": leaves["ct_rotate"],
+    }
     try:
-        dct.ct_mul_full(ca, cb, params, ctx, rlk)
+        for what, fn in per_call.items():
+            for v in seen.values():
+                v.clear()
+            fn()
+            for key, work in seen.items():
+                ms = sum(bound(*w)[0] for w in work)
+                print(f"bound per {what} {key}: {ms:.4f} ms over {len(work)} launches, "
+                      f"{sum(w[0] for w in work) / 1e6:.2f} MB, "
+                      f"{sum(w[1] for w in work) / 1e6:.1f} M modular products, "
+                      f"{sum(w[2] for w in work) / 1e6:.1f} M multiply-adds", flush=True)
     finally:
-        ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda = real_ntt, real_conv
-    for key, work in seen.items():
-        ms = sum(bound(nb, no)[0] for nb, no in work)
-        print(f"bound per ct_mul_full {key}: {ms:.4f} ms over {len(work)} launches, "
-              f"{sum(nb for nb, _ in work) / 1e6:.2f} MB", flush=True)
-    ntt_bytes, ntt_ops = ntt_work(qp, qp)
+        ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = real
+    ntt45 = ntt_work(qp, qp)
     s_up, t_up = params.alpha, qp
-    conv_bytes, conv_ops = conv_work(s_up, t_up)
+    conv_up = conv_work(s_up, t_up)
     s_dn, t_dn = len(params.p_primes), L
-    print(f"bound per call: ntt[{qp}] {bound(ntt_bytes, ntt_ops)[0]:.5f} ms, convert "
-          f"ModUp {s_up}->{t_up} {bound(conv_bytes, conv_ops)[0]:.5f} ms, ModDown "
-          f"{s_dn}->{t_dn} {bound(*conv_work(s_dn, t_dn))[0]:.5f} ms", flush=True)
+    mac_mul, mac_dw = mac_work(2, qp), mac_work(5, qp_dw)
+    def sides(work):
+        b, by = bound(*work)
+        nbytes, nmod, nmuladd = work
+        return (f"{b:.5f} ms ({by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.5f}, operations "
+                f"{(nmod / mod_rate + nmuladd / rates['muladd']) * 1e3:.5f})")
 
+    conv_dw = conv_work(dw.alpha, qp_dw)
+    print(f"bound per call (modular products at {mod_rate / 1e12:.4f} T/s, multiply-adds at "
+          f"{rates['muladd'] / 1e12:.4f} T/s): ntt[{qp}] {sides(ntt45)}; convert ModUp "
+          f"{s_up}->{t_up} {sides(conv_up)}; ModDown {s_dn}->{t_dn} "
+          f"{sides(conv_work(s_dn, t_dn))}; ModUp {dw.alpha}->{qp_dw} {sides(conv_dw)}; "
+          f"K4 D=2 T={qp} {sides(mac_mul)}; K4 D=5 T={qp_dw} {sides(mac_dw)}", flush=True)
+
+    total = {key: sum(launches[p][key] for p in launches) for key in kernels}
     rows = []
-    for name, key, src, repl, err, nb, no in (
+    for name, key, src, repl, err, work, ms, plain in (
         ("ntt_fourstep", "ntt", "gpufhe_tpu_torch/csrc/ntt.cu",
-         "gpufhe_tpu/ops/ntt_pallas.py:601", ntt_err, ntt_bytes, ntt_ops),
+         "gpufhe_tpu/ops/ntt_pallas.py:601", ntt_err, ntt45, times["ntt"], times["ntt_plain"]),
         ("base_convert", "convert", "gpufhe_tpu_torch/csrc/convert.cu",
-         "gpufhe_tpu/ops/convert_pallas.py:152", conv_err, conv_bytes, conv_ops),
+         "gpufhe_tpu/ops/convert_pallas.py:152", conv_err, conv_up, times["convert_modup"],
+         times["convert_modup_plain"]),
+        ("key_switch_mac", "mac", "gpufhe_tpu_torch/csrc/mac.cu",
+         "scripts/dw_mac_probe.py:112", mac_err, mac_mul, times["mac_mul"],
+         times["mac_mul_plain"]),
     ):
-        b_ms, b_by = bound(nb, no)
-        plain_key = "ntt_plain" if key == "ntt" else "convert_modup_plain"
-        ms_key = "ntt" if key == "ntt" else "convert_modup"
+        b_ms, b_by = bound(*work)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": launches[key], "max_abs_err": err, "ms": times[ms_key],
-            "plain_ms": times[plain_key], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "launches": total[key], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    print(f"# shapes: ntt_fourstep fwd {qp} x 2^{n.bit_length() - 1}; base_convert ModUp "
-          f"{s_up}->{t_up}; no single PyTorch call computes either function mod q, "
-          f"so library_ms is null; total {time.perf_counter() - T0:.1f} s", flush=True)
+    for mix in probes.MIXES:
+        r, err, plain, n_launch = rate_rows[mix]
+        ops = r["blocks"] * probes.THREADS * probes.CHAINS * r["depth"] * (2 if mix == "muladd" else 1)
+        rows.append({
+            "name": f"int_rate_{mix}", "route": "cuda", "source": "gpufhe_tpu_torch/csrc/int_rate.cu",
+            "replaces": "scripts/vpu_peak.py:84", "launches": n_launch, "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": plain, "bound_ms": ops / ALU_OPS_PER_S * 1e3,
+            "bound_by": "operations", "library_ms": None,
+        })
+    copy_bytes = 8 * 2 * qp * n
+    rows.append({
+        "name": "ntt_ablate_copy_only", "route": "cuda",
+        "source": "gpufhe_tpu_torch/csrc/ntt.cu", "replaces": "scripts/ntt_ablate.py:176",
+        "launches": copy_launches, "max_abs_err": copy_err, "ms": ablation["copy_only"],
+        "plain_ms": ablation["copy_only_plain"], "bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+    })
+    print(f"# launches per path {launches}; shapes: ntt_fourstep fwd {qp} x 2^{log_n}; "
+          f"base_convert ModUp {s_up}->{t_up}; key_switch_mac D=2 T={qp}; bounds with modular "
+          f"products at the shoup32 rate measured here; int_rate "
+          f"{probes.CHAINS} chains x {rate_rows['modmul'][0]['depth']} steps per thread (bound: "
+          f"one op per modular product, two per multiply-add, at {ALU_OPS_PER_S / 1e12:.0f} T/s); "
+          f"ntt_ablate_copy_only (-DNTT_ABLATE=3) fwd {qp} x 2^{log_n}. The probes lie on no "
+          f"path: their launches are those of their own timing phase (int_rate, ntt_ablation). "
+          f"No single PyTorch call computes any of these functions mod q, so library_ms is null; "
+          f"total {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,13 +1,21 @@
-"""Ciphertext operations of the CKKS multiply path.
+"""Ciphertext operations of the CKKS multiply and rotation paths.
 
 Counterpart of gpufhe_tpu/ciphertext/ct.py: encrypt (host draws in the
-reference's order), decrypt, add/sub, tensor, relinearize, rescale, ct_mul
-and the fused ct_mul_full (ct.py:244-308). Ciphertexts are int64[K, N]
-canonical residues per component in the NTT domain, K the level's active
-q-primes; every component equals the reference's limb for limb.
+reference's order), decrypt, add/sub, tensor, relinearize, rescale, ct_mul,
+the fused ct_mul_full (ct.py:244-308), key switching, rotations and
+conjugation (one-shot and hoisted), the plaintext multiply and the fused
+plaintext MAC. Ciphertexts are int64[K, N] canonical residues per component
+in the NTT domain, K the level's active q-primes; every component equals the
+reference's limb for limb.
+
+Every inner product runs through kernel K4 (ops/mac_cuda.py) on the card:
+the key switch's gadget MAC, the hoisted rotation's (with the automorphism
+folded into K4's loads), the plaintext MAC and the plaintext multiply (a MAC
+of one term).
 
 PyTorch runs eagerly, so the reference's jit cores become plain functions.
-The reference's XLA fences (optimization_barrier) have no counterpart.
+The reference's XLA fences (optimization_barrier) and GPUFHE_* switches
+have no counterpart.
 """
 
 from __future__ import annotations
@@ -20,10 +28,11 @@ import torch
 from gpufhe_tpu_torch.golden import ckks as gckks
 from gpufhe_tpu_torch.keys.keys import DeviceKSKey, DevicePublicKey, DeviceSecretKey
 from gpufhe_tpu_torch.ops.context import Context
+from gpufhe_tpu_torch.ops.mac_cuda import mac
 from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, mul_mod, sub_mod
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
-from gpufhe_tpu_torch.primitives.keyswitch import key_switch_core
+from gpufhe_tpu_torch.primitives.keyswitch import gadget_mac, hoist, key_switch_core, ks_finish
 from gpufhe_tpu_torch.primitives.rns import make_ks_context, rescale
 
 
@@ -162,11 +171,126 @@ def ct_mul_full(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
     ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
     cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
                  torch.stack([ks0, ks1]), q)
-    scale = a.scale * b.scale
-    lvl = level
-    for _ in range(params.scale_words):
-        cc = rescale(cc, params, lvl, ctx, make_ks_context(params, lvl, ctx.device))
-        scale = scale / params.q_primes[lvl - 1]
-        lvl -= 1
+    cc, lvl, scale = _rescale_chain(cc, params, level, ctx, a.scale * b.scale)
     out = ntt_fwd(cc, ctx, limbs=range(lvl))
     return Ciphertext(list(out), lvl, scale)
+
+
+def _rescale_chain(cc: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
+                   scale: float) -> tuple[torch.Tensor, int, float]:
+    """scale_words rescales of coefficient-domain int64[..., K, N], back to back."""
+    for _ in range(params.scale_words):
+        cc = rescale(cc, params, level, ctx, make_ks_context(params, level, ctx.device))
+        scale = scale / params.q_primes[level - 1]
+        level -= 1
+    return cc, level, scale
+
+
+def ct_plain_mac(cts: list, pt_monts: list, const_ntt, params: CKKSParams, ctx: Context,
+                 out_scale: float) -> Ciphertext:
+    """sum_i pt_i * ct_i, rescaled scale_words times, plus an optional constant.
+
+    Reference ct_plain_mac / _plain_mac_core (ct.py:312-389). pt_monts are
+    NTT-domain Montgomery plaintexts (encoding/encoder.py), all cts are
+    2-component and at one level; const_ntt (int64[K', N], K' the level
+    after the rescales, NTT domain, canonical) is added to c0. out_scale is
+    the product scale before the rescales. One K4 launch forms both
+    component sums; one batched transform each way around the rescales.
+    """
+    level = cts[0].level
+    if any(c.level != level or len(c.c) != 2 for c in cts) or len(pt_monts) != len(cts):
+        raise ValueError("ct_plain_mac takes 2-component ciphertexts at one level, one "
+                         "plaintext each")
+    rows = ctx.index(range(level), torch.int32)
+    acc = mac(torch.stack([pt[:level] for pt in pt_monts]), torch.stack([c.c[0] for c in cts]),
+              torch.stack([c.c[1] for c in cts]), rows, rows, ctx)
+    cc = ntt_inv(acc, ctx, limbs=range(level))
+    cc, lvl, scale = _rescale_chain(cc, params, level, ctx, out_scale)
+    out = list(ntt_fwd(cc, ctx, limbs=range(lvl)))
+    if const_ntt is not None:
+        out[0] = add_mod(out[0], const_ntt, ctx.col("q", range(lvl)))
+    return Ciphertext(out, lvl, scale)
+
+
+def ct_mul_plain(ct: Ciphertext, pt_mont: torch.Tensor, pt_scale: float,
+                 ctx: Context) -> Ciphertext:
+    """Multiply by an NTT-domain Montgomery plaintext (encoding/encoder.py):
+    c_k * pt for every component, by K4 launches of one term: one for (c0,
+    c1) and, for a 3-component ciphertext, one of a single output for c2."""
+    level = ct.level
+    rows = ctx.index(range(level), torch.int32)
+    x = pt_mont[:level].contiguous()[None]
+    comps = [c.contiguous()[None] for c in ct.c]
+    out = list(mac(x, comps[0], comps[1], rows, rows, ctx))
+    if len(comps) == 3:
+        out.extend(mac(x, comps[2], None, rows, rows, ctx))
+    return Ciphertext(out, level, ct.scale * pt_scale)
+
+
+def ct_key_switch(ct: Ciphertext, params: CKKSParams, ctx: Context,
+                  ksk: DeviceKSKey) -> Ciphertext:
+    """Re-encrypt under the secret that ksk switches to (reference
+    ct_key_switch; the sparse-secret encapsulation's to_eph / from_eph)."""
+    if len(ct.c) != 2:
+        raise ValueError("ct_key_switch takes a 2-component ciphertext")
+    ksc = make_ks_context(params, ct.level, ctx.device)
+    ks0, ks1 = key_switch_core(ct.c[1], params, ct.level, ctx, ksc, ksk)
+    q = ctx.col("q", range(ct.level))
+    return Ciphertext([add_mod(ct.c[0], ks0, q), ks1], ct.level, ct.scale)
+
+
+def galois_perm(g: int, ctx: Context, dtype=torch.int64) -> torch.Tensor:
+    """The eval-domain permutation of X -> X^g on the context's device (cached)."""
+    key = ("galois_perm", g, dtype)
+    if key not in ctx.cache:
+        perm = gckks.automorphism_perm_eval(g, ctx.n)
+        ctx.cache[key] = torch.from_numpy(perm).to(device=ctx.device, dtype=dtype)
+    return ctx.cache[key]
+
+
+def _galois(ct: Ciphertext, g: int, params: CKKSParams, ctx: Context,
+            key: DeviceKSKey) -> Ciphertext:
+    """Automorphism gather of both components, then the key switch of c1
+    (reference _galois_core)."""
+    if len(ct.c) != 2:
+        raise ValueError("a Galois automorphism takes a 2-component ciphertext")
+    perm = galois_perm(g, ctx)
+    c0g, c1g = ct.c[0][:, perm], ct.c[1][:, perm]
+    return ct_key_switch(Ciphertext([c0g, c1g], ct.level, ct.scale), params, ctx, key)
+
+
+def ct_rotate(ct: Ciphertext, steps: int, params: CKKSParams, ctx: Context,
+              gk: DeviceKSKey) -> Ciphertext:
+    """Rotate the slots left by `steps`: Galois automorphism + key switch."""
+    return _galois(ct, gckks.galois_exponent(steps, params.n), params, ctx, gk)
+
+
+def ct_conjugate(ct: Ciphertext, params: CKKSParams, ctx: Context,
+                 ck: DeviceKSKey) -> Ciphertext:
+    """Complex-conjugate the slots: the automorphism g = 2N - 1 + key switch."""
+    return _galois(ct, 2 * params.n - 1, params, ctx, ck)
+
+
+def ct_rotate_hoisted(ct: Ciphertext, steps_list, params: CKKSParams, ctx: Context,
+                      gks: dict) -> list:
+    """Rotate by many step counts, sharing one decomposition (reference
+    ct_rotate_hoisted, ct.py:500-582): one iNTT + ModUp + NTT of c1 for all
+    steps; per step one K4 launch reads the raised digits through the
+    step's automorphism and the key, then iNTT, ModDown, NTT, plus the
+    gathered c0. gks maps steps -> DeviceKSKey.
+    """
+    if len(ct.c) != 2:
+        raise ValueError("ct_rotate_hoisted takes a 2-component ciphertext")
+    level = ct.level
+    ksc = make_ks_context(params, level, ctx.device)
+    raised = hoist(ct.c[1], params, level, ctx, ksc)
+    q = ctx.col("q", range(level))
+    out = []
+    for steps in steps_list:
+        g = gckks.galois_exponent(steps, params.n)
+        acc = gadget_mac(raised, params, level, ctx, gks[steps],
+                         perm=galois_perm(g, ctx, torch.int32))
+        ks0, ks1 = ks_finish(acc, params, level, ctx, ksc)
+        c0g = ct.c[0][:, galois_perm(g, ctx)]
+        out.append(Ciphertext([add_mod(c0g, ks0, q), ks1], level, ct.scale))
+    return out

@@ -24,20 +24,11 @@
 // computing v_i once per coefficient instead of once per (t, c) is the
 // first step of later performance work.
 
-#include <cuda_runtime.h>
-
-typedef unsigned long long u64;
-typedef long long i64;
+#include "modarith.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ u64 mul_mod(u64 a, u64 b, u64 q, u64 mu) {
-  u64 t = a * b;  // a, b < q < 2^30
-  u64 r = t - __umul64hi(t, mu) * q;
-  return r >= q ? r - q : r;
-}
 
 __global__ void __launch_bounds__(kThreads)
 base_convert_kernel(const i64* __restrict__ x, i64* __restrict__ out, int S, int n,

@@ -34,14 +34,31 @@
 // done (later performance work): 32-bit storage, Shoup or Montgomery 32-bit
 // products, and fusing both passes for small N.
 
-#include <cuda_runtime.h>
+#include "modarith.cuh"
 
-typedef unsigned long long u64;
-typedef long long i64;
+// Timing-only variants for the K1 ablation probe (ops/probes.py, the
+// counterpart of scripts/ntt_ablate.py), selected at build time. Without
+// NTT_ABLATE (the production build) every switch below is off.
+//   1 no_modmul      every modular product of a pass (twist, twiddle,
+//                    butterfly) is one plain 64-bit multiply
+//   2 no_twiddle     the twist and twiddle products (and their tables'
+//                    loads into shared memory) are skipped
+//   3 copy_only      the bit-reversed load into shared memory and the
+//                    store only: no stages, no twist, no twiddle
+//   4 natural_store  shared-memory writes in natural order, not bit-reversed
+// The variants' outputs are wrong by design; only the production build is
+// checked.
+#ifndef NTT_ABLATE
+#define NTT_ABLATE 0
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr bool kModmul = NTT_ABLATE != 1;
+constexpr bool kTwists = NTT_ABLATE != 2 && NTT_ABLATE != 3;
+constexpr bool kStages = NTT_ABLATE != 3;
+constexpr bool kBitrevStore = NTT_ABLATE != 4;
 
 struct Pass {
   const i64* in;
@@ -63,11 +80,9 @@ struct Pass {
   const i64* thi;   // [chain, 2n/R]   psi^+-(R e)
 };
 
-__device__ __forceinline__ u64 mul_mod(u64 a, u64 b, u64 q, u64 mu) {
-  // a, b < q < 2^30: t < 2^60; the Barrett quotient is short by at most one
-  u64 t = a * b;
-  u64 r = t - __umul64hi(t, mu) * q;
-  return r >= q ? r - q : r;
+// the pass's modular product (modarith.cuh mul_mod, or the ablation's stand-in)
+__device__ __forceinline__ u64 pmul(u64 a, u64 b, u64 q, u64 mu) {
+  return kModmul ? mul_mod(a, b, q, mu) : a * b;
 }
 
 __global__ void __launch_bounds__(kThreads) ntt_pass(const Pass p) {
@@ -91,7 +106,8 @@ __global__ void __launch_bounds__(kThreads) ntt_pass(const Pass p) {
   const i64 wstride = (i64)(p.n / p.R);
   for (int e = threadIdx.x; e < half; e += blockDim.x)
     roots[e] = (u64)p.w[(i64)chain * (p.n >> 1) + e * wstride];
-  if (p.twist) {
+  const int twist = kTwists ? p.twist : 0;
+  if (twist) {
     for (int e = threadIdx.x; e < p.R; e += blockDim.x) {
       t1d[e] = (u64)p.t1d[(i64)chain * p.R + e];
       tlo[e] = (u64)p.tlo[(i64)chain * p.R + e];
@@ -104,7 +120,7 @@ __global__ void __launch_bounds__(kThreads) ntt_pass(const Pass p) {
   // psi^(+-lane (2 t + 1)), the four-step twiddle at (k1 = t, j2 = lane)
   auto twiddle = [&](int t, int lane) -> u64 {
     const unsigned e = ((unsigned)lane * (2u * t + 1u)) & emask;
-    return mul_mod(tlo[e & (p.R - 1)], thi[e >> p.logR], q, mu);
+    return pmul(tlo[e & (p.R - 1)], thi[e >> p.logR], q, mu);
   };
 
   const bool lane_fast_in = (p.in_ls == 1);
@@ -114,15 +130,15 @@ __global__ void __launch_bounds__(kThreads) ntt_pass(const Pass p) {
     else { t = i & (p.R - 1); lane = i >> p.logR; }
     const i64 gl = lane0 + lane;
     u64 v = (u64)p.in[rowoff + t * p.in_ts + gl * p.in_ls];
-    if (p.twist == 1) v = mul_mod(v, t1d[t], q, mu);
-    else if (p.twist == 2) v = mul_mod(v, twiddle(t, (int)gl), q, mu);
-    const int rt = (int)(__brev((unsigned)t) >> (32 - p.logR));
+    if (twist == 1) v = pmul(v, t1d[t], q, mu);
+    else if (twist == 2) v = pmul(v, twiddle(t, (int)gl), q, mu);
+    const int rt = kBitrevStore ? (int)(__brev((unsigned)t) >> (32 - p.logR)) : t;
     data[lane * p.R + rt] = v;
   }
   __syncthreads();
 
   // radix-2 DIT on bit-reversed input -> natural-order output
-  for (int logm = 0; logm < p.logR; ++logm) {
+  for (int logm = 0; kStages && logm < p.logR; ++logm) {
     const int m = 1 << logm;
     const int rshift = p.logR - 1 - logm;  // root index step R / (2m)
     for (int b = threadIdx.x; b < p.TL * half; b += blockDim.x) {
@@ -132,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) ntt_pass(const Pass p) {
       const int i0 = lane * p.R + ((j >> logm) << (logm + 1)) + k;
       const int i1 = i0 + m;
       const u64 u = data[i0];
-      const u64 v = mul_mod(data[i1], roots[k << rshift], q, mu);
+      const u64 v = pmul(data[i1], roots[k << rshift], q, mu);
       const u64 s = u + v;
       const u64 d = u + q - v;
       data[i0] = s >= q ? s - q : s;
@@ -148,8 +164,8 @@ __global__ void __launch_bounds__(kThreads) ntt_pass(const Pass p) {
     else { t = i & (p.R - 1); lane = i >> p.logR; }
     const i64 gl = lane0 + lane;
     u64 v = data[lane * p.R + t];
-    if (p.twist == 1) v = mul_mod(v, twiddle(t, (int)gl), q, mu);
-    else if (p.twist == 2) v = mul_mod(v, t1d[t], q, mu);
+    if (twist == 1) v = pmul(v, twiddle(t, (int)gl), q, mu);
+    else if (twist == 2) v = pmul(v, t1d[t], q, mu);
     p.out[rowoff + t * p.out_ts + gl * p.out_ls] = (i64)v;
   }
 }

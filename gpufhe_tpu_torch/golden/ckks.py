@@ -167,19 +167,83 @@ def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context):
     return SecretKey(s), PublicKey(b=b, a=a)
 
 
-def make_relin_key(params: CKKSParams, sk: SecretKey, rng: np.random.Generator,
-                   ctx: Context) -> KSKey:
-    """Key-switch key from s^2 to s (reference make_relin_key / make_kskey)."""
+def make_kskey(params: CKKSParams, s_target_fn, sk: SecretKey, rng: np.random.Generator,
+               ctx: Context) -> KSKey:
+    """Key-switch key from s' to sk.s, where s_target_fn(primes) gives s' in
+    the NTT domain over those primes (reference golden make_kskey, same draws:
+    per gadget factor, a uniform `a` and then a Gaussian error)."""
     qp = params.q_primes + params.p_primes
     q = ctx.col("q", range(len(qp)))
     s_ntt = ntt_small(sk.s, qp, ctx)
-    s2 = mul_mod(s_ntt, s_ntt, q)
+    s_target = s_target_fn(qp)
     bs, as_ = [], []
     for g in gadget_factors(params):
         a = torch.from_numpy(sample_uniform(rng, qp, params.n)).to(ctx.device)
         e = ntt_small(sample_gauss(rng, params.n, params.sigma), qp, ctx)
         g_rns = torch.tensor([g % p for p in qp], dtype=torch.int64, device=ctx.device)[:, None]
         b = add_mod(mul_mod(neg_mod(a, q), s_ntt, q), e, q)
-        bs.append(add_mod(b, mul_mod(g_rns, s2, q), q))
+        bs.append(add_mod(b, mul_mod(g_rns, s_target, q), q))
         as_.append(a)
     return KSKey(b=torch.stack(bs), a=torch.stack(as_))
+
+
+def make_relin_key(params: CKKSParams, sk: SecretKey, rng: np.random.Generator,
+                   ctx: Context) -> KSKey:
+    """Key-switch key from s^2 to s (reference make_relin_key)."""
+
+    def s2_ntt(primes):
+        s_ntt = ntt_small(sk.s, primes, ctx)
+        return mul_mod(s_ntt, s_ntt, ctx.col("q", range(len(primes))))
+
+    return make_kskey(params, s2_ntt, sk, rng, ctx)
+
+
+# ---------------------------------------------------------------------------
+# Galois automorphisms X -> X^g
+# ---------------------------------------------------------------------------
+
+
+def galois_exponent(steps: int, n: int) -> int:
+    """Automorphism X -> X^g rotating slots left by `steps`: g = 5^steps mod 2N."""
+    return pow(5, steps, 2 * n)
+
+
+def apply_automorphism_coeff(x: np.ndarray, g: int) -> np.ndarray:
+    """m(X) -> m(X^g) on signed or canonical coefficient vectors (last axis)."""
+    n = x.shape[-1]
+    out = np.zeros_like(x)
+    idx = np.arange(n) * g % (2 * n)
+    sign = np.where(idx >= n, -1, 1)
+    out[..., idx % n] = x * sign
+    return out
+
+
+def automorphism_perm_eval(g: int, n: int) -> np.ndarray:
+    """Permutation p with (sigma_g x)_eval[k] = x_eval[p[k]] in natural NTT order.
+
+    Point k holds m(psi^(2k+1)); sigma_g m there is m(psi^((2k+1) g)), the
+    input's point k' with 2k'+1 = (2k+1) g mod 2N.
+    """
+    kk = (np.arange(n) * 2 + 1) * g % (2 * n)
+    return (kk - 1) // 2
+
+
+def _automorphism_target(sk: SecretKey, g: int, ctx: Context):
+    def sg_ntt(primes):
+        return ntt_small(apply_automorphism_coeff(sk.s, g), primes, ctx)
+
+    return sg_ntt
+
+
+def make_galois_key(params: CKKSParams, steps: int, sk: SecretKey, rng: np.random.Generator,
+                    ctx: Context) -> KSKey:
+    """Key switching sigma_g(s) -> s for the rotation by `steps`."""
+    g = galois_exponent(steps, params.n)
+    return make_kskey(params, _automorphism_target(sk, g, ctx), sk, rng, ctx)
+
+
+def make_conj_key(params: CKKSParams, sk: SecretKey, rng: np.random.Generator,
+                  ctx: Context) -> KSKey:
+    """Key switching for complex conjugation, g = 2N - 1."""
+    g = 2 * params.n - 1
+    return make_kskey(params, _automorphism_target(sk, g, ctx), sk, rng, ctx)

@@ -9,11 +9,16 @@ converts.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from gpufhe_tpu_torch.ciphertext.ct import Ciphertext
-from gpufhe_tpu_torch.keys.keys import DeviceKSKey, DevicePublicKey, DeviceSecretKey
+from gpufhe_tpu_torch.golden import ckks as gckks
+from gpufhe_tpu_torch.keys.keys import (DeviceKSKey, DevicePublicKey, DeviceSecretKey,
+                                        KeyChest)
+from gpufhe_tpu_torch.params.params import CKKSParams
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -46,3 +51,37 @@ def ciphertext_from_numpy(components, level: int, scale: float, device="cuda") -
 def ciphertext_to_numpy(ct: Ciphertext) -> tuple[list[np.ndarray], int, float]:
     """Port Ciphertext -> (int64 limb arrays, level, scale) for the reference."""
     return [c.cpu().numpy() for c in ct.c], ct.level, ct.scale
+
+
+def params_from_reference(ref_params) -> CKKSParams:
+    """The port's CKKSParams with the reference's values for its fields."""
+    return CKKSParams(**{f.name: getattr(ref_params, f.name)
+                         for f in dataclasses.fields(CKKSParams)})
+
+
+def chest_from_reference(ref_chest, device="cuda") -> KeyChest:
+    """A reference KeyChest as the port's: sk, pk, rlk, every Galois key, the
+    conjugation key and the encapsulation keys, host and device halves,
+    carried as numpy arrays (np.asarray of the reference's arrays)."""
+
+    def ks(golden, dev) -> tuple:
+        return (gckks.KSKey(b=_tensor(golden.b, device), a=_tensor(golden.a, device)),
+                ks_key_from_numpy(np.asarray(dev.b_mont), np.asarray(dev.a_mont), device))
+
+    eph = None
+    if ref_chest.eph is not None:
+        eph = {"s_eph": np.asarray(ref_chest.eph["s_eph"]).astype(np.int64),
+               **{k: ks(*ref_chest.eph[k]) for k in ("to_eph", "from_eph")}}
+    pk, dpk = ref_chest.pk, ref_chest.device_pk
+    return KeyChest(
+        params=params_from_reference(ref_chest.params),
+        sk=gckks.SecretKey(np.asarray(ref_chest.sk.s).astype(np.int64)),
+        pk=gckks.PublicKey(b=_tensor(pk.b, device), a=_tensor(pk.a, device)),
+        rlk=ks(ref_chest.rlk, ref_chest.device_rlk)[0],
+        device_sk=secret_key_from_numpy(np.asarray(ref_chest.device_sk.s_mont), device),
+        device_pk=public_key_from_numpy(np.asarray(dpk.b_mont), np.asarray(dpk.a_mont), device),
+        device_rlk=ks(ref_chest.rlk, ref_chest.device_rlk)[1],
+        galois={s: ks(*pair) for s, pair in ref_chest.galois.items()},
+        conj=None if ref_chest.conj is None else ks(*ref_chest.conj),
+        eph=eph,
+    )

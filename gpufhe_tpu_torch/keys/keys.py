@@ -57,7 +57,7 @@ def upload_secret_key(sk: gckks.SecretKey, params: CKKSParams, ctx: Context) -> 
 
 @dataclasses.dataclass
 class KeyChest:
-    """The key material of a CKKS multiply workload: host secret + device keys."""
+    """The key material of a CKKS workload: host secret + device keys."""
 
     params: CKKSParams
     sk: gckks.SecretKey  # host only
@@ -66,12 +66,49 @@ class KeyChest:
     device_sk: DeviceSecretKey
     device_pk: DevicePublicKey
     device_rlk: DeviceKSKey
+    galois: dict = dataclasses.field(default_factory=dict)  # steps -> (KSKey, DeviceKSKey)
+    conj: tuple | None = None  # (KSKey, DeviceKSKey)
+    # sparse-secret encapsulation (params.eph_hamming_weight > 0):
+    # {"s_eph": int64[N], "to_eph": (KSKey, DeviceKSKey), "from_eph": (...)}
+    eph: dict | None = None
+
+    def galois_key(self, steps: int) -> DeviceKSKey:
+        return self.galois[steps][1]
+
+    def conj_key(self) -> DeviceKSKey:
+        if self.conj is None:
+            raise KeyError("no conjugation key was generated")
+        return self.conj[1]
 
 
-def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context) -> KeyChest:
-    """Secret, public and relinearisation keys (deterministic in rng)."""
+def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
+           rotations: tuple[int, ...] = (), conjugation: bool = False) -> KeyChest:
+    """The key chest, deterministic in rng, in the reference's draw order:
+    sk and pk, the relinearisation key, one Galois key per rotation step (in
+    the given order), the conjugation key, then the ephemeral sparse secret
+    and its two switching keys when params.eph_hamming_weight > 0."""
     sk, pk = gckks.keygen(params, rng, ctx)
     rlk = gckks.make_relin_key(params, sk, rng, ctx)
+
+    def pair(key: gckks.KSKey) -> tuple:
+        return key, upload_ks_key(key, ctx)
+
+    galois = {s: pair(gckks.make_galois_key(params, s, sk, rng, ctx)) for s in rotations}
+    conj = pair(gckks.make_conj_key(params, sk, rng, ctx)) if conjugation else None
+    eph = None
+    if params.eph_hamming_weight:
+        s_eph = gckks.sample_sparse_ternary(rng, params.n, params.eph_hamming_weight)
+        sk_eph = gckks.SecretKey(s_eph)
+
+        def target(secret):
+            return lambda primes: gckks.ntt_small(secret, primes, ctx)
+
+        eph = {
+            "s_eph": s_eph,
+            # decrypts under s_eph what decrypted under s, and back
+            "to_eph": pair(gckks.make_kskey(params, target(sk.s), sk_eph, rng, ctx)),
+            "from_eph": pair(gckks.make_kskey(params, target(s_eph), sk, rng, ctx)),
+        }
     return KeyChest(
         params=params,
         sk=sk,
@@ -80,4 +117,7 @@ def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context) -> KeyChe
         device_sk=upload_secret_key(sk, params, ctx),
         device_pk=upload_public_key(pk, ctx),
         device_rlk=upload_ks_key(rlk, ctx),
+        galois=galois,
+        conj=conj,
+        eph=eph,
     )

@@ -71,6 +71,10 @@ def mont_mac(pairs, q, qinv_neg):
     and summed with a conditional subtract, and one REDC (a Montgomery
     multiply by 1) applies the 2^-32 to the whole sum.
     Requirements: every a_i in [0, 2^32), every b_i in [0, q).
+
+    This is the plain version of kernel K4 (ops/mac_cuda.py mac_plain); the
+    package's inner products go through ops/mac_cuda.mac, which launches K4
+    for CUDA tensors.
     """
     acc = None
     for a, b in pairs:

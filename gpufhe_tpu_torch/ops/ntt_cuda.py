@@ -41,7 +41,9 @@ def fourstep(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: bool) ->
     return fourstep_cuda(x, idx, ctx, inverse)
 
 
-def fourstep_cuda(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: bool) -> torch.Tensor:
+def fourstep_cuda(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: bool,
+                  kernel: CudaKernel = KERNEL) -> torch.Tensor:
+    """`kernel` is K1 or one of its ablation builds (ops/probes.py)."""
     rows, n = x.shape
     L = idx.numel()
     if x.device.type != "cuda" or x.dtype != torch.int64 or not x.is_contiguous():
@@ -54,7 +56,7 @@ def fourstep_cuda(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: boo
     y = torch.empty_like(x)
     scratch = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    KERNEL.launch(
+    kernel.launch(
         x.data_ptr(), y.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
         L, rows, n, ctx.n1, ctx.n2, int(inverse),
         ctx.q.data_ptr(), ctx.mu.data_ptr(), t.w.data_ptr(),
@@ -64,7 +66,7 @@ def fourstep_cuda(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: boo
 
 
 @functools.lru_cache(maxsize=16)
-def _bitrev(r: int, device: torch.device) -> torch.Tensor:
+def bitrev(r: int, device: torch.device) -> torch.Tensor:
     bits = r.bit_length() - 1
     return torch.tensor(
         [int(f"{i:0{bits}b}"[::-1], 2) for i in range(r)], dtype=torch.int64, device=device
@@ -80,7 +82,7 @@ def _pass(y, q, w, n, pre=None, post=None):
     rows, lanes, r = y.shape
     if pre is not None:
         y = torch.remainder(y * pre, q)
-    y = y[..., _bitrev(r, y.device)]
+    y = y[..., bitrev(r, y.device)]
     m = 1
     while m < r:
         cols = torch.arange(m, device=y.device) * (n // (2 * m))  # w_R^(k R/2m)

@@ -3,7 +3,8 @@
 Counterpart of gpufhe_tpu/params/params.py. The presets draw the same primes
 in the same order, so a preset here and there names the same chain
 (tests/test_torch_params.py checks every prime). Only the CKKS presets of the
-multiply path are carried over.
+ported paths are carried over: the multiply and rotation presets and the
+double-word (scale_words = 2) ones with sparse-secret encapsulation.
 
 Word-size discipline: every prime is odd, q = 1 mod 2N and q < 2^30, so a
 product of two canonical residues is below 2^60 and fits an int64.
@@ -42,6 +43,22 @@ def gen_ntt_primes(bits: int, two_n: int, count: int, skip: int = 0) -> list[int
     return primes
 
 
+def balanced_prime_candidates(
+    scale_bits: int, two_n: int, exclude: tuple[int, ...] = ()
+) -> list[int]:
+    """NTT primes within 1.5x of 2^scale_bits, nearest first (the reference's order)."""
+    target = 1 << scale_bits
+    lo, hi = int(target / 1.5), int(target * 1.5)
+    cands = []
+    p = hi // two_n * two_n + 1
+    while p >= lo:
+        if p not in exclude and is_prime(p) and p < (1 << 30):
+            cands.append(p)
+        p -= two_n
+    cands.sort(key=lambda q: abs(math.log2(q / target)))
+    return cands
+
+
 @dataclasses.dataclass(frozen=True)
 class CKKSParams:
     """Static CKKS parameters (hashable, so usable as a cache key)."""
@@ -53,6 +70,9 @@ class CKKSParams:
     sigma: float = 3.2  # discrete gaussian error stddev
     hamming_weight: int = 0  # 0 -> dense uniform ternary secret
     scale_words: int = 1  # limbs dropped per rescale
+    # > 0: keygen also draws an ephemeral sparse secret of this weight and
+    # the key-switch keys to and from it (sparse-secret encapsulation)
+    eph_hamming_weight: int = 0
 
     def __post_init__(self):
         if self.n & (self.n - 1):
@@ -114,6 +134,37 @@ def _mk(n: int, n_q: int, n_p: int, scale_bits: int, q0_bits: int = 30,
                       scale_bits=scale_bits)
 
 
+def _dw_ci(**kw) -> CKKSParams:
+    """Double-word CI chain: N=2^7, two 30-bit base primes, 22 28-bit limbs,
+    4 special primes (dnum = 6), Delta = 2^56 over limb pairs."""
+    two_n = 2 * 2**7
+    q0 = gen_ntt_primes(30, two_n, 2)
+    pp = gen_ntt_primes(30, two_n, 4, skip=2)
+    qi = gen_ntt_primes(28, two_n, 22)
+    return CKKSParams(n=2**7, q_primes=tuple(q0 + qi), p_primes=tuple(pp),
+                      scale_bits=56, scale_words=2, **kw)
+
+
+def _config5_boot_dw() -> CKKSParams:
+    """N=2^16, Delta=2^56: 2 x 30-bit base primes + 46 balanced 28-bit limbs
+    (23 double levels), 10 special primes (dnum = 5), dense base secret and
+    an ephemeral sparse secret of weight 32."""
+    two_n = 2 * 2**16
+    q0 = gen_ntt_primes(30, two_n, 2)
+    pp = gen_ntt_primes(30, two_n, 10, skip=2)
+    picked = balanced_prime_candidates(28, two_n, exclude=tuple(q0 + pp))[:46]
+    if len(picked) < 46:
+        raise ValueError("not enough balanced 28-bit primes for config5_boot_dw")
+    # pair +e with -e so that every pair's product stays near 2^56 (each
+    # double rescale divides by one pair)
+    picked.sort(key=lambda q: math.log2(q / 2**28))
+    qi = []
+    for i in range(23):
+        qi.extend([picked[i], picked[45 - i]])
+    return CKKSParams(n=2**16, q_primes=tuple(q0 + qi), p_primes=tuple(pp),
+                      scale_bits=56, scale_words=2, eph_hamming_weight=32)
+
+
 _PRESETS = {
     "tiny": lambda: _mk(n=2**6, n_q=3, n_p=1, scale_bits=28),
     "tiny2": lambda: _mk(n=2**8, n_q=4, n_p=2, scale_bits=28),
@@ -125,6 +176,12 @@ _PRESETS = {
     # N=2^16, 30 q-limbs, alpha=15 special primes, dnum=2: the headline
     # multiply configuration
     "config5_boot": lambda: _mk(n=2**16, n_q=30, n_p=15, scale_bits=28),
+    # the double-word multiply configuration: N=2^16, 48 q-limbs, alpha=10,
+    # dnum=5, scale_words=2
+    "config5_boot_dw": _config5_boot_dw,
+    # its CI-scale mirrors: a sparse base secret, or encapsulation
+    "boot_dw_ci": lambda: _dw_ci(hamming_weight=16),
+    "boot_dw_ci_enc": lambda: _dw_ci(eph_hamming_weight=16),
 }
 
 

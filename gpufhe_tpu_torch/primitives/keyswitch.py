@@ -7,7 +7,9 @@ stage for stage, so every output limb equals the reference's:
      is False and it already is);
   2. ModUp each of the dnum decomposition groups to the active Q+P basis;
   3. NTT all raised groups (one batched transform) and take the inner
-     product with the gadget key rows (keys in Montgomery form, mont_mac);
+     product with the gadget key rows (keys in Montgomery form): one launch
+     of kernel K4 (ops/mac_cuda.py) for both key components, reading the
+     key's active rows in place;
   4. iNTT both accumulators (one batched transform), ModDown by P, and NTT
      back unless eval_out is False.
 """
@@ -18,7 +20,7 @@ import torch
 
 from gpufhe_tpu_torch.keys.keys import DeviceKSKey
 from gpufhe_tpu_torch.ops.context import Context
-from gpufhe_tpu_torch.ops.modops import mont_mac
+from gpufhe_tpu_torch.ops.mac_cuda import mac
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.rns import KSContext, mod_down, mod_up
@@ -30,18 +32,45 @@ def qp_indices(params: CKKSParams, level: int) -> list[int]:
     return list(range(level)) + list(range(params.num_limbs, params.num_limbs + alpha))
 
 
-def key_rows(comp: torch.Tensor, params: CKKSParams, level: int) -> torch.Tensor:
-    """Active Q+P rows of one gadget-key component [L_stored + alpha, N].
-
-    A key stored at exactly this level needs no row selection.
-    """
+def key_row_index(params: CKKSParams, level: int, stored_rows: int) -> list[int]:
+    """Rows of a gadget-key component stored with `stored_rows` rows
+    (L_stored + alpha) that hold the active Q+P limbs at `level`."""
     alpha = len(params.p_primes)
-    stored_l = comp.shape[0] - alpha
+    stored_l = stored_rows - alpha
     if stored_l < level:
         raise ValueError(f"key stored for level {stored_l}, used at {level}")
-    if stored_l == level:
-        return comp
-    return torch.cat([comp[:level], comp[stored_l:]])
+    return list(range(level)) + list(range(stored_l, stored_rows))
+
+
+def gadget_mac(raised: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
+               ksk: DeviceKSKey, perm: torch.Tensor | None = None):
+    """Inner products of the raised digits int64[D, K+alpha, N] (NTT domain)
+    with both components of the gadget key: one K4 launch, int64[2, K+alpha,
+    N]. `perm` gathers the digits' coefficients first (a hoisted rotation's
+    automorphism)."""
+    rows = ctx.index(key_row_index(params, level, ksk.b_mont.shape[1]), torch.int32)
+    chain = ctx.index(qp_indices(params, level), torch.int32)
+    return mac(raised, ksk.b_mont, ksk.a_mont, rows, chain, ctx, perm)
+
+
+def hoist(d2: torch.Tensor, params: CKKSParams, level: int, ctx: Context, ksc: KSContext,
+          eval_in: bool = True) -> torch.Tensor:
+    """Stages 1-2 and the NTT of 3: the raised digits int64[D, K+alpha, N]
+    (NTT domain over the active Q+P basis) of one polynomial int64[K, N].
+    A hoisted rotation computes them once for every step."""
+    d2_coeff = ntt_inv(d2, ctx, limbs=range(level)) if eval_in else d2
+    raised = torch.stack(mod_up(d2_coeff, params, level, ctx, ksc))
+    return ntt_fwd(raised, ctx, limbs=qp_indices(params, level))
+
+
+def ks_finish(acc: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
+              ksc: KSContext, eval_out: bool = True) -> torch.Tensor:
+    """Stage 4: iNTT both accumulators int64[2, K+alpha, N] (one batched
+    transform), ModDown by P, and NTT back (one batched transform) unless
+    eval_out is False. Returns int64[2, K, N]."""
+    coeff = ntt_inv(acc, ctx, limbs=qp_indices(params, level))
+    down = torch.stack([mod_down(c, params, level, ctx, ksc) for c in coeff])
+    return ntt_fwd(down, ctx, limbs=range(level)) if eval_out else down
 
 
 def key_switch_core(
@@ -60,16 +89,7 @@ def key_switch_core(
     eval_out is False). With eval_in False, d2 arrives in the coefficient
     domain.
     """
-    qp_idx = qp_indices(params, level)
-    q_idx = range(level)
-    d2_coeff = ntt_inv(d2, ctx, limbs=q_idx) if eval_in else d2
-    raised = ntt_fwd(torch.stack(mod_up(d2_coeff, params, level, ctx, ksc)), ctx, limbs=qp_idx)
-    q, qinv = ctx.col("q", qp_idx), ctx.col("qinv_neg", qp_idx)
-    accs = [
-        mont_mac([(r, key_rows(key[d], params, level)) for d, r in enumerate(raised)], q, qinv)
-        for key in (ksk.b_mont, ksk.a_mont)
-    ]
-    coeff = ntt_inv(torch.stack(accs), ctx, limbs=qp_idx)
-    down = torch.stack([mod_down(c, params, level, ctx, ksc) for c in coeff])
-    out = ntt_fwd(down, ctx, limbs=q_idx) if eval_out else down
+    raised = hoist(d2, params, level, ctx, ksc, eval_in)
+    out = ks_finish(gadget_mac(raised, params, level, ctx, ksk), params, level, ctx, ksc,
+                    eval_out)
     return out[0], out[1]

@@ -29,6 +29,8 @@ def test_scan_covers_the_port():
     assert "chip_smoke.py" in names
     assert "gpufhe_tpu_torch/ops/ntt_cuda.py" in names
     assert "gpufhe_tpu_torch/ops/convert_cuda.py" in names
+    assert "gpufhe_tpu_torch/ops/mac_cuda.py" in names
+    assert "gpufhe_tpu_torch/ops/probes.py" in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -14,10 +14,11 @@ import torch
 from gpufhe_tpu_torch.ciphertext import ct as dct
 from gpufhe_tpu_torch.encoding import encoder
 from gpufhe_tpu_torch.keys import keys as dkeys
-from gpufhe_tpu_torch.ops import convert_cuda, ntt_cuda
+from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda, probes
 from gpufhe_tpu_torch.ops.context import make_context
 from gpufhe_tpu_torch.ops.convert_cuda import make_convert_tables
 from gpufhe_tpu_torch.params.params import gen_ntt_primes, preset
+from gpufhe_tpu_torch.primitives import keyswitch
 
 pytestmark = pytest.mark.gpu
 
@@ -75,3 +76,72 @@ def test_mul_full_on_card_equals_cpu_path(cuda_device):
         outs.append(dct.ct_mul_full(ca, ca, params, ctx, chest.device_rlk))
     for g, c in zip(*(o.c for o in outs)):
         assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("name,d_dim,drop,with_perm", [
+    ("config5_boot", 2, 0, False),  # the relinearisation's MAC, D=2 T=45
+    ("config5_boot", 2, 1, False),  # a key stored above the level, T=44
+    ("config5_boot", 2, 0, True),  # a hoisted rotation's, automorphism folded in
+    ("config5_boot_dw", 5, 0, False),  # the dw key switch's, D=5 T=58
+    ("boot_dw_ci_enc", 6, 3, True),  # dnum=6: the Barrett step before the REDC
+])
+def test_mac_kernel_matches_plain(cuda_device, name, d_dim, drop, with_perm):
+    params = preset(name)
+    ctx = make_context(params, cuda_device)
+    level = params.num_limbs - drop
+    rows = ctx.index(keyswitch.key_row_index(params, level, ctx.num_total), torch.int32)
+    chain_rows = keyswitch.qp_indices(params, level)
+    chain = ctx.index(chain_rows, torch.int32)
+    x = torch.from_numpy(np.stack([_rand(ctx.primes, chain_rows, params.n, 10 + d)
+                                   for d in range(d_dim)])).to(cuda_device)
+    y0, y1 = (torch.from_numpy(np.stack([_rand(ctx.primes, range(ctx.num_total), params.n, s + d)
+                                         for d in range(d_dim)])).to(cuda_device)
+              for s in (20, 40))
+    perm = None
+    if with_perm:
+        perm = dct.galois_perm(5, ctx, torch.int32)
+    before = mac_cuda.KERNEL.launches
+    got = mac_cuda.mac_cuda(x, y0, y1, rows, chain, ctx, perm)
+    assert torch.equal(got, mac_cuda.mac_plain(x, y0, y1, rows, chain, ctx, perm))
+    assert mac_cuda.KERNEL.launches == before + 1
+
+
+def test_mac_kernel_single_output_matches_plain(cuda_device):
+    """ct_mul_plain's launch for a third component: y1 None, one output."""
+    params = preset("config5_boot")
+    ctx = make_context(params, cuda_device)
+    rows = list(range(params.num_limbs))
+    idx = ctx.index(rows, torch.int32)
+    x, y0 = (torch.from_numpy(_rand(ctx.primes, rows, params.n, s)[None]).to(cuda_device)
+             for s in (50, 51))
+    before = mac_cuda.KERNEL.launches
+    got = mac_cuda.mac_cuda(x, y0, None, idx, idx, ctx)
+    assert got.shape == (1, len(rows), params.n)
+    assert torch.equal(got, mac_cuda.mac_plain(x, y0, None, idx, idx, ctx))
+    assert mac_cuda.KERNEL.launches == before + 1
+
+
+def test_mac_kernel_refuses_bad_input(cuda_device):
+    ctx = make_context(preset("tiny"), cuda_device)
+    idx = ctx.index(range(ctx.num_total), torch.int32)
+    x = torch.zeros((1, ctx.num_total, ctx.n), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        mac_cuda.mac_cuda(x, x, x, idx.long(), idx, ctx)
+    with pytest.raises(ValueError):
+        mac_cuda.mac_cuda(x, x[:, :, :-1], x[:, :, :-1], idx, idx, ctx)
+
+
+@pytest.mark.parametrize("mix", probes.MIXES)
+def test_int_rate_kernel_matches_plain(cuda_device, mix):
+    got = probes.int_rate_cuda(mix, 2, 33, cuda_device)
+    assert torch.equal(got, probes.int_rate_plain(mix, 2, 33, cuda_device))
+
+
+def test_ntt_copy_only_build_matches_plain(cuda_device):
+    params = preset("ci_small")
+    ctx = make_context(params, cuda_device)
+    rows = list(range(ctx.num_total))
+    x = torch.from_numpy(_rand(ctx.primes, rows, params.n, 7)).to(cuda_device)
+    got = ntt_cuda.fourstep_cuda(x, ctx.index(rows, torch.int32), ctx, False,
+                                 probes.ABLATION_KERNELS["copy_only"])
+    assert torch.equal(got, probes.copy_only_plain(x, ctx))

@@ -7,6 +7,7 @@ import pytest
 from gpufhe_tpu.golden import ckks as gckks
 from gpufhe_tpu.keys import keys as rkeys
 from gpufhe_tpu.params.params import preset as ref_preset
+from gpufhe_tpu_torch import interop
 from gpufhe_tpu_torch.keys import keys as pkeys
 from gpufhe_tpu_torch.ops.context import make_context
 from gpufhe_tpu_torch.params.params import CKKSParams, preset
@@ -48,3 +49,52 @@ def test_sparse_secret_keygen_matches_golden():
     assert (chest.pk.b.numpy() == pk.b).all()
     assert (chest.rlk.b.numpy() == rlk.b).all() and (chest.rlk.a.numpy() == rlk.a).all()
     assert isinstance(params, CKKSParams)
+
+
+def _ks_equal(got, ref_pair):
+    """(port KSKey, DeviceKSKey) == the reference's (golden KSKey, DeviceKSKey)."""
+    (host, dev), (rhost, rdev) = got, ref_pair
+    assert (host.b.numpy() == rhost.b).all() and (host.a.numpy() == rhost.a).all()
+    assert (dev.b_mont.numpy() == _np(rdev.b_mont)).all()
+    assert (dev.a_mont.numpy() == _np(rdev.a_mont)).all()
+
+
+@pytest.mark.parametrize("name,eph", [("tiny2", 16), ("boot_dw_ci_enc", 0)])
+def test_keygen_with_galois_conj_and_eph_matches_reference(name, eph):
+    """Rotations, conjugation and encapsulation keys, drawn in the reference's
+    order, equal gpufhe_tpu.keys.keys.keygen limb for limb."""
+    import dataclasses
+
+    params, rparams = preset(name), ref_preset(name)
+    if eph:
+        params = dataclasses.replace(params, eph_hamming_weight=eph)
+        rparams = dataclasses.replace(rparams, eph_hamming_weight=eph)
+    steps = (1, 3, 5)
+    ctx = make_context(params, "cpu")
+    chest = pkeys.keygen(params, np.random.default_rng(21), ctx, rotations=steps,
+                         conjugation=True)
+    ref = rkeys.keygen(rparams, np.random.default_rng(21), rotations=steps, conjugation=True)
+    assert (chest.sk.s == ref.sk.s).all()
+    assert (chest.device_rlk.b_mont.numpy() == _np(ref.device_rlk.b_mont)).all()
+    assert list(chest.galois) == list(ref.galois) == list(steps)
+    for s in steps:
+        _ks_equal(chest.galois[s], ref.galois[s])
+        assert chest.galois_key(s) is chest.galois[s][1]
+    _ks_equal(chest.conj, ref.conj)
+    assert params.eph_hamming_weight > 0 and ref.eph is not None
+    assert (chest.eph["s_eph"] == ref.eph["s_eph"]).all()
+    assert np.count_nonzero(chest.eph["s_eph"]) == params.eph_hamming_weight
+    for k in ("to_eph", "from_eph"):
+        _ks_equal(chest.eph[k], ref.eph[k])
+    carried = interop.chest_from_reference(ref, "cpu")
+    assert carried.params == params
+    for k in ("to_eph", "from_eph"):
+        _ks_equal(carried.eph[k], ref.eph[k])
+
+
+def test_keygen_without_extras_has_none():
+    params = preset("tiny")
+    chest = pkeys.keygen(params, np.random.default_rng(1), make_context(params, "cpu"))
+    assert chest.galois == {} and chest.conj is None and chest.eph is None
+    with pytest.raises(KeyError):
+        chest.conj_key()

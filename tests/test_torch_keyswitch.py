@@ -37,8 +37,12 @@ def test_qp_indices_and_key_rows(stacks):
     params, rparams, _, _, _, rlk = stacks
     for level in (params.num_limbs, 2):
         assert pks.qp_indices(params, level) == rks.qp_indices(rparams, level)
-        rows = pks.key_rows(rlk.b_mont[0], params, level).numpy()
-        assert (rows == rlk.b_mont[0].numpy()[pks.qp_indices(params, level)]).all()
+        rows = pks.key_row_index(params, level, rlk.b_mont.shape[1])
+        assert rows == rks.qp_indices(rparams, level)  # a full-chain key: the chain rows
+        stored = level + len(params.p_primes)  # a key truncated to exactly this level
+        assert pks.key_row_index(params, level, stored) == list(range(stored))
+        with pytest.raises(ValueError):
+            pks.key_row_index(params, level + 1, stored)
 
 
 @pytest.mark.parametrize("eval_in,eval_out", [(True, True), (True, False), (False, True)])

@@ -6,7 +6,7 @@ from gpufhe_tpu.params import params as ref
 from gpufhe_tpu_torch.params import params as port
 
 PORTED = ["tiny", "tiny2", "ci_small", "config1_ntt", "config2_rns", "config3_ckks",
-          "config4_rotation", "config5_boot"]
+          "config4_rotation", "config5_boot", "config5_boot_dw", "boot_dw_ci", "boot_dw_ci_enc"]
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -18,11 +18,27 @@ def test_preset_primes_and_roots_match_reference(name):
     assert p.psi == r.psi
     assert (p.alpha, p.dnum, p.slots, p.scale_words) == (r.alpha, r.dnum, r.slots, r.scale_words)
     assert p.hamming_weight == r.hamming_weight
+    assert p.eph_hamming_weight == r.eph_hamming_weight
 
 
 @pytest.mark.parametrize("bits,two_n,count,skip", [(30, 2**17, 15, 1), (28, 2**11, 9, 0), (29, 512, 4, 3)])
 def test_gen_ntt_primes_matches_reference(bits, two_n, count, skip):
     assert port.gen_ntt_primes(bits, two_n, count, skip) == ref.gen_ntt_primes(bits, two_n, count, skip)
+
+
+@pytest.mark.parametrize("scale_bits,two_n", [(28, 2**17), (24, 2**12), (20, 2**11)])
+def test_balanced_prime_candidates_match_reference(scale_bits, two_n):
+    exclude = tuple(ref.gen_ntt_primes(30, two_n, 2))
+    assert (port.balanced_prime_candidates(scale_bits, two_n, exclude)
+            == ref.balanced_prime_candidates(scale_bits, two_n, exclude))
+
+
+def test_dw_preset_shapes():
+    p = port.preset("config5_boot_dw")
+    assert (p.n, p.num_limbs, p.alpha, p.dnum, p.scale_words, p.scale_bits) == (2**16, 48, 10, 5, 2, 56)
+    assert p.eph_hamming_weight == 32 and p.hamming_weight == 0
+    ci = port.preset("boot_dw_ci_enc")
+    assert (ci.n, ci.num_limbs, ci.alpha, ci.dnum, ci.scale_words) == (2**7, 24, 4, 6, 2)
 
 
 def test_config5_boot_shape():
