@@ -21,9 +21,12 @@ and read just after:
 Each path's ciphertexts are checked == the same path on the CPU and decoded
 against the cleartext result; the kernels and stage leaves are timed with
 CUDA events, and every bound is restated with the integer rates measured in
-this run. Every phase prints one line with its name, its result and its
-seconds. The run fails (non-zero exit, no result line) when no CUDA device
-is present, when a phase fails, or when it outlasts BUDGET_S.
+this run. K1 is also timed alone, forward and inverse, at config5_boot's Q+P
+chain (45 limbs) and at the dw key switch's raised digits (58 limbs x 5),
+beside its bound and its achieved bandwidth. Every phase prints one line
+with its name, its result and its seconds. The run fails (non-zero exit,
+no result line) when no CUDA device is present, when a phase fails, or
+when it outlasts BUDGET_S.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line {"ok": true, "device": {...}}.
@@ -32,6 +35,7 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import time
 
@@ -97,6 +101,14 @@ def device_profile(fn, iters: int = 5) -> tuple[float, float, list]:
             per.append((us / 1e3 / iters, ev.key))
     busy = sum(ms for ms, _ in per)
     return busy, busy * iters / wall_ms, sorted(per, reverse=True)
+
+
+def k1_passes(fn) -> tuple[float, str]:
+    """K1's device ms per call of `fn` (profiler kernel time, which no host
+    overhead enters), in all and per pass (kernel k1_pass<log2 R, kind>)."""
+    _, _, per = device_profile(fn, iters=20)
+    per = [(ms, m.group(0)) for ms, name in per if (m := re.search(r"k1_pass<[^>]*>", name))]
+    return sum(ms for ms, _ in per), ", ".join(f"{name} {ms:.4f}" for ms, name in per)
 
 
 def exact(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
@@ -302,21 +314,31 @@ def main() -> None:
     say("mac_vs_plain", "== at " + "; ".join(mac_cases), t)
 
     # 6. P1: K1 and its ablation builds at the 45-limb forward shape; the
-    #    copy_only build == its plain version (two bit-reversed transposes)
+    #    copy_only build == its plain version (two bit-reversed transposes),
+    #    the natural_store build (the unpadded exchange tile) == the NTT
     t = time.perf_counter()
     idx45 = ctx.index(range(qp), torch.int32)
     x45 = rand_limbs(ctx, range(qp))
     copy_kernel = probes.ABLATION_KERNELS["copy_only"]
     copy_err = exact(ntt_cuda.fourstep_cuda(x45, idx45, ctx, False, copy_kernel),
                      probes.copy_only_plain(x45, ctx), "K1 copy_only build")
+    exact(ntt_cuda.fourstep_cuda(x45, idx45, ctx, False, probes.ABLATION_KERNELS["natural_store"]),
+          ntt_cuda.fourstep_plain(x45, idx45, ctx, False), "K1 natural_store build")
     copy_kernel.reset()  # count the timing's launches, not the check's
     ablation = probes.ntt_ablation(x45, idx45, ctx)
     copy_launches = copy_kernel.launches
     ablation["copy_only_plain"] = cuda_ms(lambda: probes.copy_only_plain(x45, ctx), iters=5)
     print(f"ntt_ablation fwd x {qp} limbs, ms per call: " + ", ".join(
         f"{k} {v:.4f}" for k, v in ablation.items()) + f"  [{smi}]", flush=True)
-    say("ntt_ablation", f"full {ablation['full']:.4f} ms, copy_only {ablation['copy_only']:.4f} "
-        f"ms (== its plain version)", t)
+    ablation_dev = {}
+    for name, kernel in {"full": ntt_cuda.KERNEL, **probes.ABLATION_KERNELS}.items():
+        ablation_dev[name], passes = k1_passes(
+            lambda: ntt_cuda.fourstep_cuda(x45, idx45, ctx, False, kernel))
+        print(f"ntt_ablation {name}: device {ablation_dev[name]:.4f} ms per call; per pass "
+              f"(kind 0 = pass A, 1 = pass B): {passes}  [{smi}]", flush=True)
+    say("ntt_ablation", f"device ms per call: full {ablation_dev['full']:.4f}, copy_only "
+        f"{ablation_dev['copy_only']:.4f} (== its plain version), natural_store "
+        f"{ablation_dev['natural_store']:.4f} (== the NTT)", t)
 
     # 7. path "mul": the config5_boot multiply, through the entry points
     zr = np.random.default_rng(SEED + 1)
@@ -498,10 +520,17 @@ def main() -> None:
     times["hoisted_per_step"] = (times["ct_rotate_hoisted_x2"] - times["hoist"]) / len(ROTATIONS)
     for name, ms in times.items():
         print(f"time {name}: {ms:.4f} ms  [{smi}]", flush=True)
+    groups = {"K1": "k1_pass", "K3": "base_convert_kernel", "K4": "mac_kernel"}
     for tag in ("", "_dw"):
         busy, share, top = device_profile(leaves[f"mul_full{tag}"])
-        print(f"profile mul_full{tag}: device busy {busy:.4f} ms per call, {share:.1%} of the "
-              f"host wall clock under the profiler  [{smi}]", flush=True)
+        event_share = busy / times[f"mul_full{tag}"]
+        print(f"profile mul_full{tag}: device busy {busy:.4f} ms per call, {event_share:.1%} of "
+              f"the CUDA-event time, {share:.1%} of the host wall clock under the profiler  "
+              f"[{smi}]", flush=True)
+        per_group = {g: sum(ms for ms, name in top if key in name) for g, key in groups.items()}
+        print(f"profile mul_full{tag} per kernel, ms per call: " + ", ".join(
+            f"{g} {ms:.4f}" for g, ms in per_group.items())
+            + f", the rest {busy - sum(per_group.values()):.4f}", flush=True)
         for ms, name in top[:10]:
             print(f"profile mul_full{tag} kernel {ms:.4f} ms/call  {name[:90]}", flush=True)
     say("timing", f"mul_full {times['mul_full']:.3f} ms, mul_full_dw {times['mul_full_dw']:.3f} "
@@ -607,11 +636,44 @@ def main() -> None:
           f"{sides(conv_work(s_dn, t_dn))}; ModUp {dw.alpha}->{qp_dw} {sides(conv_dw)}; "
           f"K4 D=2 T={qp} {sides(mac_mul)}; K4 D=5 T={qp_dw} {sides(mac_dw)}", flush=True)
 
+    # 11. K1 alone, forward and inverse, at config5_boot's Q+P chain (45 x 1)
+    #     and the dw key switch's raised digits (58 x 5): the CUDA-event time
+    #     per call (host launch included) and the device time (profiler
+    #     kernel time, both passes), each beside the bound and the achieved
+    #     bandwidth, for the data in and out once (16 bytes per residue) and
+    #     for the two passes' traffic (int64 in, u32 scratch out and back in,
+    #     int64 out: 24 bytes per residue)
+    t = time.perf_counter()
+    k1_times = {}
+    for c, limbs, batch in ((ctx, qp, 1), (ctx_dw, qp_dw, dw.dnum)):
+        idx_k = c.index(range(limbs), torch.int32)
+        xk = rand_limbs(c, list(range(limbs)) * batch)
+        rows_k = limbs * batch
+        b_ms, b_by = bound(*ntt_work(rows_k, limbs))
+        once, passes = 16 * rows_k * n, 24 * rows_k * n
+        for inverse in (False, True):
+            call = lambda: ntt_cuda.fourstep_cuda(xk, idx_k, c, inverse)  # noqa: E731
+            tag = f"{'inv' if inverse else 'fwd'} {limbs}x{batch}"
+            event_ms = cuda_ms(call, iters=50)
+            dev_ms, per_pass = k1_passes(call)
+            k1_times[tag] = dev_ms
+            for what, ms in (("event", event_ms), ("device", dev_ms)):
+                print(f"K1 {tag} x 2^{n.bit_length() - 1} {what}: {ms:.4f} ms; bound "
+                      f"{b_ms:.5f} ms ({b_by}), {ms / b_ms:.2f}x; data in and out once "
+                      f"{once / 1e6:.1f} MB at {once / ms / 1e9:.3f} TB/s (floor "
+                      f"{once / HBM_BYTES_PER_S * 1e3:.5f} ms); two passes {passes / 1e6:.1f} MB "
+                      f"at {passes / ms / 1e9:.3f} TB/s (floor "
+                      f"{passes / HBM_BYTES_PER_S * 1e3:.5f} ms)  [{smi}]", flush=True)
+            print(f"K1 {tag} device per pass, ms per call: {per_pass}", flush=True)
+    say("ntt_timing", "device ms per call: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in k1_times.items()), t)
+
     total = {key: sum(launches[p][key] for p in launches) for key in kernels}
     rows = []
     for name, key, src, repl, err, work, ms, plain in (
         ("ntt_fourstep", "ntt", "gpufhe_tpu_torch/csrc/ntt.cu",
-         "gpufhe_tpu/ops/ntt_pallas.py:601", ntt_err, ntt45, times["ntt"], times["ntt_plain"]),
+         "gpufhe_tpu/ops/ntt_pallas.py:601", ntt_err, ntt45, k1_times[f"fwd {qp}x1"],
+         times["ntt_plain"]),
         ("base_convert", "convert", "gpufhe_tpu_torch/csrc/convert.cu",
          "gpufhe_tpu/ops/convert_pallas.py:152", conv_err, conv_up, times["convert_modup"],
          times["convert_modup_plain"]),
@@ -642,7 +704,8 @@ def main() -> None:
         "plain_ms": ablation["copy_only_plain"], "bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None,
     })
-    print(f"# launches per path {launches}; shapes: ntt_fourstep fwd {qp} x 2^{log_n}; "
+    print(f"# launches per path {launches}; shapes: ntt_fourstep fwd {qp} x 2^{log_n} (its ms "
+          f"the profiler's kernel time: at this size the host launch is as long as the kernel); "
           f"base_convert ModUp {s_up}->{t_up}; key_switch_mac D=2 T={qp}; bounds with modular "
           f"products at the shoup32 rate measured here; int_rate "
           f"{probes.CHAINS} chains x {rate_rows['modmul'][0]['depth']} steps per thread (bound: "

@@ -77,8 +77,12 @@ def encrypt(
     return Ciphertext([c0, c1], level, scale)
 
 
-def decrypt_to_coeff(ct: Ciphertext, sk: DeviceSecretKey, ctx: Context) -> np.ndarray:
-    """iNTT(sum_k c_k * s^k): canonical coefficient residues int64[K, N] (host)."""
+def decrypt_to_coeff(ct: Ciphertext, params: CKKSParams, sk: DeviceSecretKey,
+                     ctx: Context) -> np.ndarray:
+    """iNTT(sum_k c_k * s^k): canonical coefficient residues int64[K, N] (host).
+
+    `params` is the reference's parameter, unused: `ctx` holds the primes.
+    """
     rows = range(ct.level)
     q, qinv = ctx.col("q", rows), ctx.col("qinv_neg", rows)
     s_mont = sk.s_mont[: ct.level]
@@ -92,7 +96,7 @@ def decrypt_to_coeff(ct: Ciphertext, sk: DeviceSecretKey, ctx: Context) -> np.nd
 
 def decrypt_decode(ct: Ciphertext, params: CKKSParams, sk: DeviceSecretKey,
                    ctx: Context) -> np.ndarray:
-    coeff = decrypt_to_coeff(ct, sk, ctx)
+    coeff = decrypt_to_coeff(ct, params, sk, ctx)
     return gckks.decode(coeff, ct.scale, ct.primes(params), params.n)
 
 

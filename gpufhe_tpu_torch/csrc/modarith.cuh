@@ -1,11 +1,13 @@
 // Modular arithmetic shared by the port's kernels (ntt.cu, convert.cu,
 // mac.cu) and by the integer-rate probe (int_rate.cu), so that the probe's
-// "modmul" mix times the very instruction sequence the kernels run, and its
-// "shoup32" mix the cheapest product of two 30-bit residues that the card
-// offers (mul_mod_shoup32, which no kernel uses yet).
+// "modmul" mix times the 64-bit Barrett product that convert.cu and mac.cu
+// run, and its "shoup32" mix the 32-bit Shoup product (mul_mod_shoup32) that
+// ntt.cu's products are built from.
 //
 // Residues are canonical, below primes q < 2^30, stored as int64. mu is
-// floor(2^64 / q), the Barrett constant (ops/context.py Context.mu).
+// floor(2^64 / q), the Barrett constant (ops/context.py Context.mu). The
+// lazy 32-bit products below leave their result in [0, 2q); 4q < 2^32 keeps
+// every value of a lazy schedule in one 32-bit word.
 
 #pragma once
 
@@ -37,10 +39,26 @@ __device__ __forceinline__ u64 redc(u64 a, u64 q, unsigned qinv_neg) {
 // a * w mod q in 32-bit words (Shoup), for a < 2^32, w < q < 2^31 and wp =
 // floor(w * 2^32 / q): the quotient estimate umulhi(a, wp) is short of
 // floor(a w / q) by at most one, so a w - estimate * q, taken mod 2^32, is
-// below 2q and one conditional subtract makes it canonical. Three 32-bit
-// multiplies against mul_mod's 64-bit product and 64 x 64 high half.
+// in [0, 2q) (mul_shoup_lazy), and one conditional subtract makes it
+// canonical (mul_mod_shoup32). Three 32-bit multiplies against mul_mod's
+// 64-bit product and 64 x 64 high half.
+__device__ __forceinline__ unsigned mul_shoup_lazy(unsigned a, unsigned w, unsigned wp,
+                                                   unsigned q) {
+  return a * w - __umulhi(a, wp) * q;
+}
+
 __device__ __forceinline__ unsigned mul_mod_shoup32(unsigned a, unsigned w, unsigned wp,
                                                     unsigned q) {
-  const unsigned r = a * w - __umulhi(a, wp) * q;
+  const unsigned r = mul_shoup_lazy(a, w, wp, q);
   return r >= q ? r - q : r;
+}
+
+// a * w * 2^-32 mod q up to one q, in [0, 2q), for a * w < q 2^32 (one
+// 32 x 32 -> 64-bit product and a REDC with qinv_neg = -q^-1 mod 2^32):
+// (a w + m q) / 2^32 < (q 2^32 + 2^32 q) / 2^32.
+__device__ __forceinline__ unsigned mont_mul_lazy(unsigned a, unsigned w, unsigned q,
+                                                  unsigned qinv_neg) {
+  const u64 t = (u64)a * w;
+  const unsigned m = (unsigned)t * qinv_neg;
+  return (unsigned)((t + (u64)m * q) >> 32);
 }

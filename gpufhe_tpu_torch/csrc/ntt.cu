@@ -7,166 +7,318 @@
 // indices into FULL per-prime tables, so one build serves every limb
 // selection; canonical output in natural order; the inverse has 1/N folded in.
 //
-// Design. A limb of N = 2^16 int64 residues is 512 KB, more than a block's
-// shared memory, so the transform is the four-step split N = n1 * n2
-// (256 x 256), in two passes over device memory:
+// Split. A limb of N = 2^16 residues (512 KB as int64, 256 KB as u32) is
+// more than a block's shared memory, so the transform is the four-step split
+// N = n1 * n2 (256 x 256), in two passes over device memory:
 //   pass A: for each column j2, an n1-point transform over j1 (stride n2),
 //           with the psi1^j1 pre-twist and the four-step twiddle
 //           psi^(j2 (2 k1 + 1)) folded in;
 //   pass B: for each row k1, an n2-point transform over j2, written back in
 //           the transposed (natural) order.
 // The inverse runs the two passes the other way round with inverse roots.
-// Each block holds TL lanes x R points in shared memory, loads them in
-// bit-reversed order and runs log2(R) radix-2 Cooley-Tukey stages there.
-// The twiddle is not a table of N entries: with e = j2 (2 k1 + 1) mod 2N it
-// is psi^e = lo[e mod n1] * hi[e / n1], from two rows of n1 and 2 n2 powers
-// per prime held in shared memory, so every table the kernel reads is
-// O(n1 + n2) words per prime. The TPU kernel's int8 digit matmuls and
-// Shoup recombines have no counterpart: Hopper multiplies 64-bit integers
-// directly, and each modular product is one 64-bit product plus a Barrett
-// reduction (mu = 2^64 / q).
+// The interface is int64; the scratch between the passes is u32.
 //
-// What bounds it on the H100: each pass reads and writes every limb once
-// (16 bytes per residue), so the floor is device-memory bandwidth; the
-// 64-bit multiplies (emulated by several 32-bit IMADs) are the next limit.
-// The design keeps both passes at one read and one write of the data, with
-// lanes laid along the contiguous axis so loads and stores coalesce. Not yet
-// done (later performance work): 32-bit storage, Shoup or Montgomery 32-bit
-// products, and fusing both passes for small N.
+// What bounds it on the H100: each pass reads and writes every limb once,
+// so the floor is device-memory bandwidth (24 bytes per residue for the two
+// passes with a u32 scratch). The design keeps everything between one read
+// and one write in registers or in one conflict-free shared-memory exchange:
+//   * Registers. An R-point sub-transform (R = 2^LOGR, 8 to 256) belongs to
+//     T = 2^floor(LOGR/2) threads of P = R / T points each (16 x 16 for
+//     R = 256). Radix-2 Cooley-Tukey on bit-reversed input: thread i loads
+//     t = T brev_P(r) + brev_T(i) into register r, i.e. positions i P + r of
+//     the bit-reversed order, so the first log2 P stages are butterflies
+//     between its own registers (the bit reversal is in the register index,
+//     not a strided store). One exchange through shared memory gives thread
+//     j the positions i P + m, m = j + T g, for every i; the last log2 T
+//     stages run in registers again and thread j stores outputs i P + m.
+//     Two barriers per pass: tables loaded, exchange written.
+//   * The exchange tile. Column c, index i, register r live at
+//     c COL + i (P + 1) + r with COL = T (P + 1) + 1 (odd). A warp either
+//     takes 32 columns at one index (the lane-fast side: loads and stores
+//     along the contiguous axis) or T indices of 32 / T columns that lie T
+//     apart (the t-fast side of pass B); both hit 32 distinct banks on the
+//     write and on the read.
+//   * Arithmetic in 32-bit words (every prime below 2^30, so 4q < 2^32).
+//     Harvey's lazy butterflies keep values in [0, 4q) and multiply by a
+//     table root with its Shoup companion (modarith.cuh mul_shoup_lazy).
+//     The twist psi1^j1 is a table constant with its companion. The
+//     four-step twiddle psi^e = lo[e mod R] hi[e div R] is formed as
+//     mul_mod_shoup32(hi_mont, lo, lo') = lo hi 2^32 mod q from the
+//     Montgomery-form hi, and applied with one REDC (mont_mul_lazy), valid
+//     because v tw < 4q q < q 2^32. One canonical correction before each
+//     store. Every product is a 32-bit one.
+// Global access: lanes along the contiguous axis, a warp's 32 lanes one
+// segment of 256 bytes (int64) or 128 bytes (u32); on pass B's t-fast side
+// T threads read or write T consecutive words of one row.
+// Not done here: one pass per limb through a cluster's distributed shared
+// memory, and 32-bit storage at the interface.
+
+#include <type_traits>
 
 #include "modarith.cuh"
 
 // Timing-only variants for the K1 ablation probe (ops/probes.py, the
 // counterpart of scripts/ntt_ablate.py), selected at build time. Without
 // NTT_ABLATE (the production build) every switch below is off.
-//   1 no_modmul      every modular product of a pass (twist, twiddle,
-//                    butterfly) is one plain 64-bit multiply
+//   1 no_modmul      every modular product (butterfly, twist, twiddle) is
+//                    one plain 32-bit multiply
 //   2 no_twiddle     the twist and twiddle products (and their tables'
 //                    loads into shared memory) are skipped
-//   3 copy_only      the bit-reversed load into shared memory and the
-//                    store only: no stages, no twist, no twiddle
-//   4 natural_store  shared-memory writes in natural order, not bit-reversed
-// The variants' outputs are wrong by design; only the production build is
-// checked.
+//   3 copy_only      the loads, the exchange through shared memory and the
+//                    stores only: no stages, no twist, no twiddle
+//   4 natural_store  the exchange tile without padding and the t-fast side
+//                    without the column spread: the bank conflicts that the
+//                    production layout removes (its output is still the NTT)
+// The other variants' outputs are wrong by design; copy_only computes two
+// bit-reversed transposes (ops/probes.py copy_only_plain).
 #ifndef NTT_ABLATE
 #define NTT_ABLATE 0
 #endif
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr bool kModmul = NTT_ABLATE != 1;
 constexpr bool kTwists = NTT_ABLATE != 2 && NTT_ABLATE != 3;
 constexpr bool kStages = NTT_ABLATE != 3;
-constexpr bool kBitrevStore = NTT_ABLATE != 4;
+constexpr bool kPadded = NTT_ABLATE != 4;
+constexpr int kMaxLanes = 32;  // columns per block
+constexpr int kMinLogR = 3, kMaxLogR = 8;
 
-struct Pass {
-  const i64* in;
-  i64* out;
-  const int* idx;  // chain row of data row r is idx[r % L]
-  int L;
-  int n;            // limb length, the row stride of in/out
-  int R, logR;      // transform length
-  int TL, logTL;    // lanes per block
-  i64 in_ts, in_ls, out_ts, out_ls;  // element (t, lane) strides
-  const i64* q;
-  const i64* mu;
-  const i64* w;     // [chain, n/2] root powers; sub-transform root = w^(n/R)
-  // twist 1 (forward pass A): t1d[t] on load, twiddle(t, lane) on store;
-  // twist 2 (inverse pass A): twiddle(t, lane) on load, t1d[t] on store.
-  int twist;
-  const i64* t1d;   // [chain, R]
-  const i64* tlo;   // [chain, R]      psi^+-e, e < R (R = n1 in pass A)
-  const i64* thi;   // [chain, 2n/R]   psi^+-(R e)
+// The four passes: forward A and B, inverse B and A.
+//   kFwdA  in x int64 lane-fast, out scratch u32 lane-fast, twist 1
+//   kFwdB  in scratch u32 t-fast, out y int64 lane-fast
+//   kInvB  in x int64 lane-fast, out scratch u32 t-fast
+//   kInvA  in scratch u32 lane-fast, out y int64 lane-fast, twist 2
+// Twist 1: psi1^t pre-twist on load, four-step twiddle on store; twist 2:
+// the twiddle on load, psi1^-t / N on store. Lane-fast: element (t, lane)
+// at t * stride + lane; t-fast: at t + lane * stride.
+enum Kind { kFwdA, kFwdB, kInvB, kInvA };
+
+template <int LOGR>
+struct Geometry {
+  static constexpr int R = 1 << LOGR;
+  static constexpr int LOGT = LOGR / 2, LOGP = LOGR - LOGT;
+  static constexpr int T = 1 << LOGT, P = 1 << LOGP;
+  static constexpr int ROW = kPadded ? P + 1 : P;        // tile stride of index i
+  static constexpr int COL = kPadded ? T * ROW + 1 : R;  // tile stride of a column
 };
 
-// the pass's modular product (modarith.cuh mul_mod, or the ablation's stand-in)
-__device__ __forceinline__ u64 pmul(u64 a, u64 b, u64 q, u64 mu) {
-  return kModmul ? mul_mod(a, b, q, mu) : a * b;
+struct Pass {
+  const void* in;
+  void* out;
+  const int* idx;  // chain row of data row r is idx[r % L]
+  int L;
+  int n;          // limb length, the row stride of in/out
+  int lanes;      // columns per block (a power of two, at most kMaxLanes)
+  int log_lanes;
+  int in_st, out_st;  // the strided axis of each side (see Kind)
+  int tstride;        // row length of roots, t1d, lo tables (n1)
+  int nhi;            // row length of hi_mont (2 n / n1)
+  const i64* q;
+  const i64* qinv_neg;
+  const unsigned* roots;  // stage-ordered: roots[2^s + k] for butterfly k of stage s
+  const unsigned* roots_shoup;
+  const i64* t1d;
+  const unsigned* t1d_shoup;
+  const i64* lo;
+  const unsigned* lo_shoup;
+  const unsigned* hi_mont;
+};
+
+__host__ __device__ constexpr int brev(int x, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r |= ((x >> b) & 1) << (bits - 1 - b);
+  return r;
 }
 
-__global__ void __launch_bounds__(kThreads) ntt_pass(const Pass p) {
-  extern __shared__ u64 smem[];
-  u64* data = smem;                  // [TL][R]
-  u64* roots = data + p.TL * p.R;    // [R/2]
-  u64* t1d = roots + p.R / 2;        // [R]       (twist only)
-  u64* tlo = t1d + p.R;              // [R]
-  u64* thi = tlo + p.R;              // [2n/R]
+// Harvey's lazy Cooley-Tukey butterfly: x, y in [0, 4q) -> x + w y and
+// x - w y, both in [0, 4q); w y up to one q by Shoup's product.
+__device__ __forceinline__ void bfly(unsigned& x, unsigned& y, unsigned w, unsigned wp,
+                                     unsigned q) {
+  const unsigned q2 = 2 * q;
+  const unsigned a = x >= q2 ? x - q2 : x;
+  const unsigned t = kModmul ? mul_shoup_lazy(y, w, wp, q) : y * w;
+  x = a + t;
+  y = a - t + q2;
+}
+
+// the same with w = 1
+__device__ __forceinline__ void bfly1(unsigned& x, unsigned& y, unsigned q) {
+  const unsigned q2 = 2 * q;
+  const unsigned a = x >= q2 ? x - q2 : x;
+  const unsigned t = y >= q2 ? y - q2 : y;
+  x = a + t;
+  y = a - t + q2;
+}
+
+// Thread tid's column c and index i. Lane-fast: consecutive threads take
+// consecutive columns at one index. Index-fast: T consecutive threads take
+// the T indices of one column, and thread group g takes column
+// (g mod (lanes / T)) T + g div (lanes / T), so a warp's 32 / T columns lie
+// T apart and, with the tile's odd column stride, on distinct banks.
+template <bool INDEX_FAST, int LOGT>
+__device__ __forceinline__ void split(int tid, int lanes, int log_lanes, int& c, int& i) {
+  if (!INDEX_FAST) {
+    c = tid & (lanes - 1);
+    i = tid >> log_lanes;
+    return;
+  }
+  i = tid & ((1 << LOGT) - 1);
+  const int g = tid >> LOGT;
+  if (!kPadded) {
+    c = g;
+    return;
+  }
+  const int log_per = log_lanes - LOGT;
+  c = ((g & ((1 << log_per) - 1)) << LOGT) + (g >> log_per);
+}
+
+template <int LOGR, int KIND>
+__global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p) {
+  using G = Geometry<LOGR>;
+  constexpr int R = G::R, LOGT = G::LOGT, LOGP = G::LOGP, T = G::T, P = G::P;
+  constexpr bool IN_TFAST = KIND == kFwdB;
+  constexpr bool OUT_TFAST = KIND == kInvB;
+  constexpr int TWIST = !kTwists ? 0 : KIND == kFwdA ? 1 : KIND == kInvA ? 2 : 0;
+  using InT = typename std::conditional<KIND == kFwdA || KIND == kInvB, i64, unsigned>::type;
+  using OutT = typename std::conditional<KIND == kFwdB || KIND == kInvA, i64, unsigned>::type;
+
+  extern __shared__ unsigned smem[];
+  unsigned* tile = smem;                // [lanes][COL]
+  unsigned* rw = tile + p.lanes * G::COL;  // [R] stage-ordered roots
+  unsigned* rwp = rw + R;               // [R] their Shoup companions
+  unsigned* t1d = rwp + R;              // [R] psi1^+-t (twist only)
+  unsigned* t1dp = t1d + R;
+  unsigned* lo = t1dp + R;              // [R] psi^+-e, e < R
+  unsigned* lop = lo + R;
+  unsigned* him = lop + R;              // [2n/R] psi^+-(R e) 2^32 mod q
+
+  const int tid = threadIdx.x;
+  const int nthr = p.lanes << LOGT;
   const int row = blockIdx.y;
   const int chain = p.idx[row % p.L];
-  const u64 q = (u64)p.q[chain];
-  const u64 mu = (u64)p.mu[chain];
-  const int lane0 = blockIdx.x * p.TL;
-  const int half = p.R >> 1;
+  const unsigned q = (unsigned)p.q[chain];
+  const unsigned qinv = (unsigned)p.qinv_neg[chain];
   const i64 rowoff = (i64)row * p.n;
-  const int total = p.TL * p.R;
-  const int nhi = 2 * p.n / p.R;
+  const int lane0 = blockIdx.x * p.lanes;
   const unsigned emask = 2u * p.n - 1u;
+  int c_in, i_in, c_out, j_out;
+  split<IN_TFAST, LOGT>(tid, p.lanes, p.log_lanes, c_in, i_in);
+  split<OUT_TFAST, LOGT>(tid, p.lanes, p.log_lanes, c_out, j_out);
 
-  const i64 wstride = (i64)(p.n / p.R);
-  for (int e = threadIdx.x; e < half; e += blockDim.x)
-    roots[e] = (u64)p.w[(i64)chain * (p.n >> 1) + e * wstride];
-  const int twist = kTwists ? p.twist : 0;
-  if (twist) {
-    for (int e = threadIdx.x; e < p.R; e += blockDim.x) {
-      t1d[e] = (u64)p.t1d[(i64)chain * p.R + e];
-      tlo[e] = (u64)p.tlo[(i64)chain * p.R + e];
-    }
-    for (int e = threadIdx.x; e < nhi; e += blockDim.x)
-      thi[e] = (u64)p.thi[(i64)chain * nhi + e];
+  // 1. register r <- input t = T brev_P(r) + brev_T(i): position i P + r of
+  //    the bit-reversed order
+  const InT* in = static_cast<const InT*>(p.in);
+  const i64 lane_in = lane0 + c_in;
+  const int ib = (int)(__brev((unsigned)i_in) >> (32 - LOGT));
+  unsigned v[P];
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+    const i64 t = u * T + ib;
+    v[brev(u, LOGP)] = (unsigned)in[rowoff + (IN_TFAST ? t + lane_in * p.in_st
+                                                       : t * p.in_st + lane_in)];
   }
+  const i64 trow = (i64)chain * p.tstride;
+  for (int e = tid; e < R; e += nthr) {
+    rw[e] = p.roots[trow + e];
+    rwp[e] = p.roots_shoup[trow + e];
+    if (TWIST) {
+      t1d[e] = (unsigned)p.t1d[trow + e];
+      t1dp[e] = p.t1d_shoup[trow + e];
+      lo[e] = (unsigned)p.lo[trow + e];
+      lop[e] = p.lo_shoup[trow + e];
+    }
+  }
+  if (TWIST)
+    for (int e = tid; e < p.nhi; e += nthr) him[e] = p.hi_mont[(i64)chain * p.nhi + e];
   __syncthreads();
 
-  // psi^(+-lane (2 t + 1)), the four-step twiddle at (k1 = t, j2 = lane)
-  auto twiddle = [&](int t, int lane) -> u64 {
-    const unsigned e = ((unsigned)lane * (2u * t + 1u)) & emask;
-    return pmul(tlo[e & (p.R - 1)], thi[e >> p.logR], q, mu);
+  // psi^+-e 2^32 mod q for e = lane (2 t + 1) mod 2N: the four-step twiddle
+  // at (k1 = t, j2 = lane) in Montgomery form, canonical
+  auto twiddle = [&](unsigned t, unsigned lane) -> unsigned {
+    const unsigned e = (lane * (2u * t + 1u)) & emask;
+    const unsigned k = e & (R - 1);
+    return kModmul ? mul_mod_shoup32(him[e >> LOGR], lo[k], lop[k], q) : him[e >> LOGR] * lo[k];
   };
 
-  const bool lane_fast_in = (p.in_ls == 1);
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    int t, lane;
-    if (lane_fast_in) { lane = i & (p.TL - 1); t = i >> p.logTL; }
-    else { t = i & (p.R - 1); lane = i >> p.logR; }
-    const i64 gl = lane0 + lane;
-    u64 v = (u64)p.in[rowoff + t * p.in_ts + gl * p.in_ls];
-    if (twist == 1) v = pmul(v, t1d[t], q, mu);
-    else if (twist == 2) v = pmul(v, twiddle(t, (int)gl), q, mu);
-    const int rt = kBitrevStore ? (int)(__brev((unsigned)t) >> (32 - p.logR)) : t;
-    data[lane * p.R + rt] = v;
-  }
-  __syncthreads();
-
-  // radix-2 DIT on bit-reversed input -> natural-order output
-  for (int logm = 0; kStages && logm < p.logR; ++logm) {
-    const int m = 1 << logm;
-    const int rshift = p.logR - 1 - logm;  // root index step R / (2m)
-    for (int b = threadIdx.x; b < p.TL * half; b += blockDim.x) {
-      const int lane = b >> (p.logR - 1);
-      const int j = b & (half - 1);
-      const int k = j & (m - 1);
-      const int i0 = lane * p.R + ((j >> logm) << (logm + 1)) + k;
-      const int i1 = i0 + m;
-      const u64 u = data[i0];
-      const u64 v = pmul(data[i1], roots[k << rshift], q, mu);
-      const u64 s = u + v;
-      const u64 d = u + q - v;
-      data[i0] = s >= q ? s - q : s;
-      data[i1] = d >= q ? d - q : d;
+  // 2. twist on load: v < q, result in [0, 2q)
+  if (TWIST) {
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int t = u * T + ib;
+      unsigned& x = v[brev(u, LOGP)];
+      if (TWIST == 1)
+        x = kModmul ? mul_shoup_lazy(x, t1d[t], t1dp[t], q) : x * t1d[t];
+      else
+        x = kModmul ? mont_mul_lazy(x, twiddle(t, (unsigned)lane_in), q, qinv)
+                    : x * twiddle(t, (unsigned)lane_in);
     }
-    __syncthreads();
   }
 
-  const bool lane_fast_out = (p.out_ls == 1);
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    int t, lane;
-    if (lane_fast_out) { lane = i & (p.TL - 1); t = i >> p.logTL; }
-    else { t = i & (p.R - 1); lane = i >> p.logR; }
-    const i64 gl = lane0 + lane;
-    u64 v = data[lane * p.R + t];
-    if (twist == 1) v = pmul(v, twiddle(t, (int)gl), q, mu);
-    else if (twist == 2) v = pmul(v, t1d[t], q, mu);
-    p.out[rowoff + t * p.out_ts + gl * p.out_ls] = (i64)v;
+  // 3. stages 0 .. LOGP-1 between this thread's registers
+  if (kStages) {
+#pragma unroll
+    for (int s = 0; s < LOGP; ++s) {
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        if ((r >> s) & 1) continue;
+        const int k = r & ((1 << s) - 1);
+        if (k == 0)
+          bfly1(v[r], v[r + (1 << s)], q);
+        else
+          bfly(v[r], v[r + (1 << s)], rw[(1 << s) + k], rwp[(1 << s) + k], q);
+      }
+    }
+  }
+
+  // 4. the exchange: position i P + r of column c to c COL + i ROW + r;
+  //    thread (c_out, j_out) then holds positions i P + m, m = j_out + T g
+#pragma unroll
+  for (int r = 0; r < P; ++r) tile[c_in * G::COL + i_in * G::ROW + r] = v[r];
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < P / T; ++g) {
+#pragma unroll
+    for (int i = 0; i < T; ++i) v[g * T + i] = tile[c_out * G::COL + i * G::ROW + j_out + T * g];
+  }
+
+  // 5. stages LOGP .. LOGR-1: butterfly k = m + P (i mod 2^s) of stage LOGP + s
+  if (kStages) {
+#pragma unroll
+    for (int g = 0; g < P / T; ++g) {
+      const int m = j_out + T * g;
+#pragma unroll
+      for (int s = 0; s < LOGT; ++s) {
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          if ((i >> s) & 1) continue;
+          const int e = (1 << (LOGP + s)) + m + P * (i & ((1 << s) - 1));
+          bfly(v[g * T + i], v[g * T + i + (1 << s)], rw[e], rwp[e], q);
+        }
+      }
+    }
+  }
+
+  // 6. twist on store, one canonical correction, output k = i P + m
+  OutT* out = static_cast<OutT*>(p.out);
+  const i64 lane_out = lane0 + c_out;
+#pragma unroll
+  for (int g = 0; g < P / T; ++g) {
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      const int k = i * P + j_out + T * g;
+      unsigned x = v[g * T + i];
+      if (TWIST == 1) {  // x < 4q, twiddle < q: x tw < q 2^32
+        x = kModmul ? mont_mul_lazy(x, twiddle(k, (unsigned)lane_out), q, qinv)
+                    : x * twiddle(k, (unsigned)lane_out);
+      } else if (TWIST == 2) {
+        x = kModmul ? mul_shoup_lazy(x, t1d[k], t1dp[k], q) : x * t1d[k];
+      } else {
+        x = x >= 2 * q ? x - 2 * q : x;
+      }
+      x = x >= q ? x - q : x;
+      out[rowoff + (OUT_TFAST ? k + lane_out * p.out_st : (i64)k * p.out_st + lane_out)] = (OutT)x;
+    }
   }
 }
 
@@ -176,18 +328,27 @@ int ilog2(int v) {
   return r;
 }
 
-int launch(Pass p, int lanes, int rows, cudaStream_t stream) {
-  p.logR = ilog2(p.R);
-  p.TL = lanes < 16 ? lanes : 16;
-  p.logTL = ilog2(p.TL);
-  if (p.R < 2 || (1 << p.logR) != p.R || (1 << p.logTL) != p.TL || lanes % p.TL)
-    return (int)cudaErrorInvalidValue;
-  const int tables = p.twist ? 2 * p.R + 2 * p.n / p.R : 0;
-  const size_t smem = (size_t)(p.TL * p.R + p.R / 2 + tables) * sizeof(u64);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  dim3 grid(lanes / p.TL, rows);
-  ntt_pass<<<grid, kThreads, smem, stream>>>(p);
+template <int LOGR, int KIND>
+int launch_pass(const Pass& p, int lanes, int rows, cudaStream_t stream) {
+  using G = Geometry<LOGR>;
+  constexpr bool twist = KIND == kFwdA || KIND == kInvA;
+  if (p.lanes < G::T || lanes % p.lanes) return (int)cudaErrorInvalidValue;
+  const size_t words = (size_t)p.lanes * G::COL + 2 * G::R + (twist ? 4 * G::R + p.nhi : 0);
+  const size_t smem = words * sizeof(unsigned);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k1_pass<LOGR, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k1_pass<LOGR, KIND><<<dim3(lanes / p.lanes, rows), p.lanes * G::T, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int KIND, int LOGR = kMinLogR>
+int launch(int logR, const Pass& p, int lanes, int rows, cudaStream_t stream) {
+  if (logR == LOGR) return launch_pass<LOGR, KIND>(p, lanes, rows, stream);
+  if constexpr (LOGR < kMaxLogR) return launch<KIND, LOGR + 1>(logR, p, lanes, rows, stream);
+  return (int)cudaErrorInvalidValue;  // no instantiation for this transform length
 }
 
 }  // namespace
@@ -196,45 +357,63 @@ extern "C" const char* ntt_strerror(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// x, y, scratch: int64[rows, n] with rows = batch * L, canonical residues.
-// idx: int32[L] rows of the full tables. Per direction (ops/context.py
-// ntt_tables_np): w [chain, n/2], t1d [chain, n1], tlo [chain, n1] and
-// thi [chain, 2 n2].
-extern "C" int ntt_fourstep(const i64* x, i64* y, i64* scratch, const int* idx,
-                            int L, int rows, int n, int n1, int n2, int inverse,
-                            const i64* q, const i64* mu, const i64* w,
-                            const i64* t1d, const i64* tlo, const i64* thi,
-                            void* stream) {
+// x, y: int64[rows, n] with rows = batch * L, canonical residues below primes
+// q < 2^30; scratch: u32[rows, n]. idx: int32[L] rows of the full tables.
+// Per direction (ops/context.py ntt_tables_np): roots, roots_shoup, t1d,
+// t1d_shoup, lo and lo_shoup [chain, n1], hi_mont [chain, 2 n2]; q and
+// qinv_neg (-q^-1 mod 2^32) per chain row. n1 and n2 from 8 to 256.
+extern "C" int ntt_fourstep(const i64* x, i64* y, unsigned* scratch, const int* idx, int L,
+                            int rows, int n, int n1, int n2, int inverse, const i64* q,
+                            const i64* qinv_neg, const unsigned* roots,
+                            const unsigned* roots_shoup, const i64* t1d,
+                            const unsigned* t1d_shoup, const i64* lo, const unsigned* lo_shoup,
+                            const unsigned* hi_mont, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int log1 = ilog2(n1), log2 = ilog2(n2);
+  if ((1 << log1) != n1 || (1 << log2) != n2 || n1 * n2 != n || L <= 0 || rows % L)
+    return (int)cudaErrorInvalidValue;
   Pass base = {};
   base.idx = idx;
   base.L = L;
   base.n = n;
+  base.tstride = n1;
+  base.nhi = 2 * n2;
   base.q = q;
-  base.mu = mu;
-  base.w = w;
-  Pass a = base;  // pass A: transform over j1 (t) for each column j2
-  a.R = n1;
-  a.in_ts = n2; a.in_ls = 1; a.out_ts = n2; a.out_ls = 1;
-  a.twist = inverse ? 2 : 1;
-  a.t1d = t1d; a.tlo = tlo; a.thi = thi;
-  Pass b = base;  // pass B: transform over j2 for each row k1
-  b.R = n2;
+  base.qinv_neg = qinv_neg;
+  base.roots = roots;
+  base.roots_shoup = roots_shoup;
+  base.t1d = t1d;
+  base.t1d_shoup = t1d_shoup;
+  base.lo = lo;
+  base.lo_shoup = lo_shoup;
+  base.hi_mont = hi_mont;
+  Pass a = base;  // pass A: n2 columns j2, transform over j1 (stride n2)
+  a.lanes = n2 < kMaxLanes ? n2 : kMaxLanes;
+  a.log_lanes = ilog2(a.lanes);
+  a.in_st = a.out_st = n2;
+  Pass b = base;  // pass B: n1 rows k1, transform over j2
+  b.lanes = n1 < kMaxLanes ? n1 : kMaxLanes;
+  b.log_lanes = ilog2(b.lanes);
   if (!inverse) {
-    a.in = x; a.out = scratch;
-    int err = launch(a, n2, rows, s);
+    a.in = x;
+    a.out = scratch;  // [k1, j2]
+    int err = launch<kFwdA>(log1, a, n2, rows, s);
     if (err) return err;
-    // row k1 of [n1, n2] -> X[k2 * n1 + k1]
-    b.in = scratch; b.out = y;
-    b.in_ts = 1; b.in_ls = n2; b.out_ts = n1; b.out_ls = 1;
-    return launch(b, n1, rows, s);
+    b.in = scratch;  // row k1, t = j2
+    b.in_st = n2;
+    b.out = y;       // X[k2 * n1 + k1]
+    b.out_st = n1;
+    return launch<kFwdB>(log2, b, n1, rows, s);
   }
-  // inverse: X[k2 * n1 + k1] -> [k1, j2], then twiddle out on load,
-  // transform over k1, psi1^-j1 / N on store
-  b.in = x; b.out = scratch;
-  b.in_ts = n1; b.in_ls = 1; b.out_ts = 1; b.out_ls = n2;
-  int err = launch(b, n1, rows, s);
+  // inverse: X[k2 * n1 + k1] -> scratch [k1, j2], then the twiddle out on
+  // load, the transform over k1 and psi1^-j1 / N on store
+  b.in = x;
+  b.in_st = n1;
+  b.out = scratch;
+  b.out_st = n2;
+  int err = launch<kInvB>(log2, b, n1, rows, s);
   if (err) return err;
-  a.in = scratch; a.out = y;
-  return launch(a, n2, rows, s);
+  a.in = scratch;
+  a.out = y;
+  return launch<kInvA>(log1, a, n2, rows, s);
 }

@@ -29,8 +29,11 @@ def decode(pt_coeff: np.ndarray, params: CKKSParams, scale: float, level: int) -
     return gckks.decode(pt_coeff, scale, params.q_primes[:level], params.n)
 
 
-def plaintext_to_device(pt_coeff: np.ndarray, ctx: Context) -> torch.Tensor:
-    """Host coefficient-domain plaintext -> NTT-domain Montgomery int64[L, N]."""
+def plaintext_to_device(pt_coeff: np.ndarray, params: CKKSParams, ctx: Context) -> torch.Tensor:
+    """Host coefficient-domain plaintext -> NTT-domain Montgomery int64[L, N].
+
+    `params` is the reference's parameter, unused: `ctx` holds the tables.
+    """
     lvl = pt_coeff.shape[0]
     x = torch.from_numpy(np.asarray(pt_coeff, dtype=np.int64)).to(ctx.device)
     return mont_form(ntt_fwd(x, ctx, limbs=range(lvl)), ctx)
@@ -38,4 +41,4 @@ def plaintext_to_device(pt_coeff: np.ndarray, ctx: Context) -> torch.Tensor:
 
 def encode_to_device(z: np.ndarray, params: CKKSParams, ctx: Context,
                      scale: float | None = None) -> torch.Tensor:
-    return plaintext_to_device(encode(z, params, scale), ctx)
+    return plaintext_to_device(encode(z, params, scale), params, ctx)

@@ -20,6 +20,15 @@ inverse the psi1^-j1 / N post-scale), and two rows that give the twiddle
 psi^(+-e), e = j2 (2 k1 + 1) mod 2N, as lo[e mod n1] * hi[e div n1]: lo holds
 psi^(+-e) for e < n1 and hi holds psi^(+-n1 e) for e < 2 n2. No table has N
 entries per prime besides w.
+
+The kernel (csrc/ntt.cu) computes in 32-bit words (its wrapper takes
+primes below 2^30) and reads its own tables beside these, each a u32 value held in an
+int32 tensor: `roots`, the sub-transform roots in stage order
+(roots[2^s + k] = w^(k N / 2^(s+1)), the root of butterfly k at radix-2
+stage s, for any transform length; roots[0] = 1 is unused), and the Shoup
+companions floor(v * 2^32 / q) of `roots`, `tab1d` and `lo`
+(`roots_shoup`, `tab1d_shoup`, `lo_shoup`), and `hi_mont`, hi in Montgomery
+form (hi * 2^32 mod q). The plain version reads only the int64 tables.
 """
 
 from __future__ import annotations
@@ -49,6 +58,12 @@ class NTTTables:
     tab1d: torch.Tensor  # [L, n1]    psi1^j1 (fwd) | psi1^-j1 * N^-1 (inv)
     lo: torch.Tensor  # [L, n1]    psi^e (fwd) | psi^-e (inv), e < n1
     hi: torch.Tensor  # [L, 2*n2]  psi^(n1 e) (fwd) | psi^-(n1 e) (inv)
+    # the kernel's 32-bit tables (u32 values in int32 tensors)
+    roots: torch.Tensor  # [L, n1]  w^(k N / 2^(s+1)) at 2^s + k (w^-1 for inv)
+    roots_shoup: torch.Tensor  # [L, n1]  floor(roots * 2^32 / q)
+    tab1d_shoup: torch.Tensor  # [L, n1]  floor(tab1d * 2^32 / q)
+    lo_shoup: torch.Tensor  # [L, n1]  floor(lo * 2^32 / q)
+    hi_mont: torch.Tensor  # [L, 2*n2]  hi * 2^32 mod q
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +137,21 @@ def pow_table(base: np.ndarray, count: int, q: np.ndarray) -> np.ndarray:
     return out.reshape(base.shape[0], -1)[:, :count]
 
 
+def stage_root_exponents(n: int, r: int) -> np.ndarray:
+    """Exponents of w in stage order for transforms of up to r points:
+    entry 2^s + k is k N / 2^(s+1) (the root of butterfly k at stage s);
+    entry 0 is 0."""
+    e = np.zeros(r, dtype=np.int64)
+    for s in range(r.bit_length() - 1):
+        e[1 << s : 2 << s] = np.arange(1 << s) * (n >> (s + 1))
+    return e
+
+
+def shoup(v: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Shoup companions floor(v * 2^32 / q) of canonical v < q < 2^31 (rows of q)."""
+    return (v << 32) // q
+
+
 def ntt_tables_np(primes, psis, n: int) -> tuple[dict, dict]:
     """Host-side forward and inverse tables (int64 numpy) for a prime chain."""
     n1, n2 = fourstep_split(n)
@@ -140,6 +170,14 @@ def ntt_tables_np(primes, psis, n: int) -> tuple[dict, dict]:
         "lo": pp[:, neg(j1)],
         "hi": pp[:, neg(hi)],
     }
+    col = q[:, None]
+    stage = stage_root_exponents(n, n1)
+    for t, sign in ((fwd, 1), (inv, -1)):
+        t["roots"] = pp[:, (sign * 2 * stage) % two_n]
+        t["roots_shoup"] = shoup(t["roots"], col)
+        t["tab1d_shoup"] = shoup(t["tab1d"], col)
+        t["lo_shoup"] = shoup(t["lo"], col)
+        t["hi_mont"] = (t["hi"] << 32) % col
     return fwd, inv
 
 
@@ -155,6 +193,14 @@ def make_context(params: CKKSParams, device: str = "cuda") -> Context:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
 
+    def dev32(a):  # u32 values, stored bit for bit in int32
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64).astype(np.uint32)
+                                .view(np.int32)).to(device)
+
+    def tables(t):
+        return NTTTables(**{k: (dev(v) if k in ("w", "tab1d", "lo", "hi") else dev32(v))
+                            for k, v in t.items()})
+
     return Context(
         primes=primes,
         n=n,
@@ -164,6 +210,6 @@ def make_context(params: CKKSParams, device: str = "cuda") -> Context:
         qinv_neg=dev([c[0] for c in consts]),
         r2=dev([c[1] for c in consts]),
         mu=dev([(1 << 64) // q for q in primes]),
-        ntt_fwd=NTTTables(**{k: dev(v) for k, v in fwd.items()}),
-        ntt_inv=NTTTables(**{k: dev(v) for k, v in inv.items()}),
+        ntt_fwd=tables(fwd),
+        ntt_inv=tables(inv),
     )

@@ -5,7 +5,10 @@ Counterpart of gpufhe_tpu/ops/ntt_pallas.py fourstep_pallas_v3. `fourstep`
 takes int64[rows, N] canonical residues, rows = batch * L, and an int32
 index vector of the L chain rows into the context's full tables. A tensor on
 the CPU runs `fourstep_plain`; a CUDA tensor launches the kernel (one call of
-the C entry point = one transform of every row, as two kernel passes).
+the C entry point = one transform of every row, as two kernel passes). The
+kernel computes in 32-bit words, so it takes primes below 2^30 and
+transform lengths n1, n2 from 8 to 256 (N from 2^6 to 2^16); its scratch
+between the passes is u32 (an int32 tensor).
 
 `fourstep_plain` computes the same function with the same algorithm
 (ops/context.py docstring: pass A over columns with the psi twists folded in,
@@ -27,8 +30,11 @@ from gpufhe_tpu_torch.ops.modops import add_mod, sub_mod
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "ntt", "ntt_fourstep",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 )
+# transform lengths with an instantiation (csrc/ntt.cu kMinLogR .. kMaxLogR)
+LENGTHS = tuple(1 << k for k in range(3, 9))
+MAX_PRIME = 1 << 30  # 4q < 2^32: the lazy 32-bit schedule
 
 
 def fourstep(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: bool) -> torch.Tensor:
@@ -46,6 +52,11 @@ def fourstep_cuda(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: boo
     """`kernel` is K1 or one of its ablation builds (ops/probes.py)."""
     rows, n = x.shape
     L = idx.numel()
+    if ctx.n1 not in LENGTHS or ctx.n2 not in LENGTHS:
+        raise ValueError(f"no K1 build for N={ctx.n} ({ctx.n1} x {ctx.n2}); lengths {LENGTHS}")
+    # every prime of the chain, so every row idx can select (no device read)
+    if max(ctx.primes) >= MAX_PRIME:
+        raise ValueError("the K1 kernel's 32-bit arithmetic needs every prime below 2^30")
     if x.device.type != "cuda" or x.dtype != torch.int64 or not x.is_contiguous():
         raise ValueError("fourstep_cuda takes a contiguous int64 CUDA tensor")
     if idx.dtype != torch.int32 or idx.device != x.device or ctx.device != x.device:
@@ -54,13 +65,14 @@ def fourstep_cuda(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: boo
         raise ValueError(f"shape {tuple(x.shape)} does not fit N={ctx.n}, L={L}")
     t = ctx.ntt_inv if inverse else ctx.ntt_fwd
     y = torch.empty_like(x)
-    scratch = torch.empty_like(x)
+    scratch = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     kernel.launch(
         x.data_ptr(), y.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
         L, rows, n, ctx.n1, ctx.n2, int(inverse),
-        ctx.q.data_ptr(), ctx.mu.data_ptr(), t.w.data_ptr(),
-        t.tab1d.data_ptr(), t.lo.data_ptr(), t.hi.data_ptr(), stream,
+        ctx.q.data_ptr(), ctx.qinv_neg.data_ptr(), t.roots.data_ptr(), t.roots_shoup.data_ptr(),
+        t.tab1d.data_ptr(), t.tab1d_shoup.data_ptr(), t.lo.data_ptr(), t.lo_shoup.data_ptr(),
+        t.hi_mont.data_ptr(), stream,
     )
     return y
 

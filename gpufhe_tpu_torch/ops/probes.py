@@ -6,15 +6,18 @@ int_rate (csrc/int_rate.cu) times `depth` serial steps of one mix on 8
 independent chains per thread over a grid that fills every SM, subtracts a
 floor run at a small depth, and returns steps per second: `muladd` (v = v *
 c0 + c1 in 32 bits), `modmul` (csrc/modarith.cuh mul_mod, the 64-bit
-Barrett product that K1, K3 and K4 run) and `shoup32` (mul_mod_shoup32, the
-same product in 32-bit words against a precomputed constant: the card's
-rate for a modular product of 30-bit residues). `int_rate_plain` computes
-the same chains with int64 PyTorch ops, for the check.
+Barrett product that K3 and K4 run) and `shoup32` (mul_mod_shoup32, the
+same product in 32-bit words against a precomputed constant, the product
+K1 is built from: the card's rate for a modular product of 30-bit
+residues). `int_rate_plain` computes the same chains with int64 PyTorch
+ops, for the check.
 
 The K1 ablation times timing-only builds of csrc/ntt.cu (ops/cuda_build.py
 LIBS, -DNTT_ABLATE=k): no_modmul, no_twiddle, copy_only and natural_store,
-beside K1 itself (`full`). Only `full` computes the NTT; the others are
-wrong by design, as the TPU probe's are.
+beside K1 itself (`full`). natural_store is K1 with the exchange tile
+unpadded (its bank conflicts), so it still computes the NTT; copy_only
+computes two bit-reversed transposes (`copy_only_plain`); no_modmul and
+no_twiddle are wrong by design, as the TPU probe's are.
 """
 
 from __future__ import annotations
@@ -101,9 +104,10 @@ def ntt_ablation(x: torch.Tensor, idx: torch.Tensor, ctx, iters: int = 20) -> di
 
 
 def copy_only_plain(x: torch.Tensor, ctx) -> torch.Tensor:
-    """What the copy_only build computes for a forward call of int64[rows, N]:
-    pass A's bit-reversed load over j1, then pass B's over j2 with the
-    transposed store, y[k2 * n1 + k1] = x[bitrev(k1) * n2 + bitrev(k2)]."""
+    """What the copy_only build computes for a forward call of int64[rows, N]
+    of residues below 2^32 (the u32 scratch): pass A's bit-reversed order
+    over j1 (register and exchange positions), then pass B's over j2 with
+    the transposed store, y[k2 * n1 + k1] = x[bitrev(k1) * n2 + bitrev(k2)]."""
     rows, n1, n2 = x.shape[0], ctx.n1, ctx.n2
     b1, b2 = ntt_cuda.bitrev(n1, x.device), ntt_cuda.bitrev(n2, x.device)
     return x.view(rows, n1, n2)[:, b1][:, :, b2].transpose(1, 2).reshape(rows, n1 * n2)

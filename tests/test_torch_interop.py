@@ -56,7 +56,7 @@ def test_reference_ciphertexts_multiply_to_reference_result(stack):
     assert level == want.level and scale == want.scale
     for g, w in zip(limbs, want.c):
         assert (g == np.asarray(w).astype(np.int64)).all()
-    dec = pct.decrypt_to_coeff(prod, sk, ctx)
+    dec = pct.decrypt_to_coeff(prod, params, sk, ctx)
     assert (dec == rct.decrypt_to_coeff(want, rparams, rchest.device_sk, rctx)).all()
 
 

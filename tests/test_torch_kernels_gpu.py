@@ -35,7 +35,10 @@ def _rand(primes, rows, n, seed):
     return np.stack([rng.integers(0, primes[r], size=n, dtype=np.int64) for r in rows])
 
 
-@pytest.mark.parametrize("name", ["tiny", "tiny2", "ci_small", "config3_ckks"])
+# R = 8 .. 256: tiny 8 x 8, boot_dw_ci 16 x 8, tiny2 16 x 16, ci_small 32 x 32,
+# config3_ckks 256 x 128, config5_boot 256 x 256
+@pytest.mark.parametrize("name", ["tiny", "tiny2", "ci_small", "config3_ckks", "boot_dw_ci",
+                                  "config5_boot"])
 def test_ntt_kernel_matches_plain(cuda_device, name):
     params = preset(name)
     ctx = make_context(params, cuda_device)
@@ -48,6 +51,11 @@ def test_ntt_kernel_matches_plain(cuda_device, name):
         got = ntt_cuda.fourstep_cuda(x, idx, ctx, inverse)
         assert torch.equal(got, ntt_cuda.fourstep_plain(x, idx, ctx, inverse))
     assert ntt_cuda.KERNEL.launches == before + 2
+    top = x.clone()
+    for r, p in enumerate(sel * 2):
+        top[r] = primes[p] - 1  # the largest canonical residue everywhere
+    back = ntt_cuda.fourstep_cuda(ntt_cuda.fourstep_cuda(top, idx, ctx, False), idx, ctx, True)
+    assert torch.equal(back, top)
 
 
 @pytest.mark.parametrize("s_dim,t_dim", [(15, 45), (15, 30), (2, 6)])
@@ -135,6 +143,19 @@ def test_mac_kernel_refuses_bad_input(cuda_device):
 def test_int_rate_kernel_matches_plain(cuda_device, mix):
     got = probes.int_rate_cuda(mix, 2, 33, cuda_device)
     assert torch.equal(got, probes.int_rate_plain(mix, 2, 33, cuda_device))
+
+
+@pytest.mark.parametrize("name", ["ci_small", "config5_boot"])
+def test_ntt_natural_store_build_is_still_the_ntt(cuda_device, name):
+    """The ablation without the tile's padding changes the banks, not the function."""
+    params = preset(name)
+    ctx = make_context(params, cuda_device)
+    rows = list(range(ctx.num_total))
+    x = torch.from_numpy(_rand(ctx.primes, rows, params.n, 6)).to(cuda_device)
+    idx = ctx.index(rows, torch.int32)
+    for inverse in (False, True):
+        got = ntt_cuda.fourstep_cuda(x, idx, ctx, inverse, probes.ABLATION_KERNELS["natural_store"])
+        assert torch.equal(got, ntt_cuda.fourstep_plain(x, idx, ctx, inverse))
 
 
 def test_ntt_copy_only_build_matches_plain(cuda_device):

@@ -69,7 +69,7 @@ def test_encrypt_mul_full_decrypt_matches_reference(stack):
     prod = pct.ct_mul_full(a, b, params, ctx, chest.device_rlk)
     prod_ref = rct.ct_mul_full(ra, rb, rparams, rctx, rchest.device_rlk)
     _assert_ct_equal(prod, prod_ref)
-    coeff = pct.decrypt_to_coeff(prod, chest.device_sk, ctx)
+    coeff = pct.decrypt_to_coeff(prod, params, chest.device_sk, ctx)
     assert (coeff == rct.decrypt_to_coeff(prod_ref, rparams, rchest.device_sk, rctx)).all()
     got = pct.decrypt_decode(prod, params, chest.device_sk, ctx)
     assert np.abs(got - za * zb).max() < DECODE_TOL
@@ -97,7 +97,7 @@ def test_stagewise_ops_match_reference(stack):
         [c.numpy() for c in s.c], s.level, s.scale)]), rparams, rchest.rlk))
     got = pct.decrypt_decode(s2, params, chest.device_sk, ctx)
     assert np.abs(got - (za * zb) ** 2).max() < 1e-1
-    pt_dev = penc.plaintext_to_device(penc.encode(zb, params), ctx)
+    pt_dev = penc.plaintext_to_device(penc.encode(zb, params), params, ctx)
     assert (pt_dev.numpy() == np.asarray(renc.plaintext_to_device(
         renc.encode(zb, rparams), rparams, rctx)).astype(np.int64)).all()
 
@@ -135,7 +135,7 @@ def test_config3_vectors_limb_trace():
     for s in (pct.ct_rescale(r, params, ctx), pct.ct_mul_full(ca, cb, params, ctx, chest.device_rlk)):
         assert (s.c[0].numpy() == want["rescale_c0"]).all()
         assert (s.c[1].numpy() == want["rescale_c1"]).all()
-        assert (pct.decrypt_to_coeff(s, chest.device_sk, ctx) == want["decrypt_coeff"]).all()
+        assert (pct.decrypt_to_coeff(s, params, chest.device_sk, ctx) == want["decrypt_coeff"]).all()
 
 
 def test_config5_boot_decode_error_reference():

@@ -127,7 +127,7 @@ def test_mul_plain_matches_reference_and_golden(stack):
     z, w = _slots(params, rng), _slots(params, rng)
     ct, rc, gold = _encrypt_both(stack, z, 91)
     pt = penc.encode(w, params)
-    pt_dev = penc.plaintext_to_device(pt, ctx)
+    pt_dev = penc.plaintext_to_device(pt, params, ctx)
     got = pct.ct_mul_plain(ct, pt_dev, params.scale, ctx)
     _assert_ct_equal(got, rct.ct_mul_plain(rc, renc.plaintext_to_device(pt, rparams, rctx),
                                            params.scale, rctx))
@@ -156,14 +156,14 @@ def test_plain_mac_matches_reference(stack, scale_words):
     lvl = params.num_limbs - scale_words
     const = np.random.default_rng(12).integers(
         0, np.asarray(params.q_primes[:lvl])[:, None], size=(lvl, params.n), dtype=np.int64)
-    got = pct.ct_plain_mac(list(cts), [penc.plaintext_to_device(p, ctx) for p in pts],
+    got = pct.ct_plain_mac(list(cts), [penc.plaintext_to_device(p, params, ctx) for p in pts],
                            torch.from_numpy(const), params, ctx, params.scale ** 2)
     want = rct.ct_plain_mac(list(rcs), [renc.plaintext_to_device(p, rparams, rctx) for p in pts],
                             np.asarray(const, dtype=np.uint32), rparams, rctx,
                             params.scale ** 2)
     _assert_ct_equal(got, want)
-    plain = pct.ct_plain_mac(list(cts), [penc.plaintext_to_device(p, ctx) for p in pts], None,
-                             params, ctx, params.scale ** 2)
+    pts_dev = [penc.plaintext_to_device(p, params, ctx) for p in pts]
+    plain = pct.ct_plain_mac(list(cts), pts_dev, None, params, ctx, params.scale ** 2)
     if scale_words == 1:
         want_z = sum(z * w for z, w in zip(zs, ws))
         assert np.abs(_decode(stack, plain) - want_z).max() < DECODE_TOL
