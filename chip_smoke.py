@@ -20,10 +20,11 @@ and read just after:
 
 Each path's ciphertexts are checked == the same path on the CPU and decoded
 against the cleartext result; the kernels and stage leaves are timed with
-CUDA events, and every bound is restated with the integer rates measured in
-this run. K1 is also timed alone, forward and inverse, at config5_boot's Q+P
-chain (45 limbs) and at the dw key switch's raised digits (58 limbs x 5),
-beside its bound and its achieved bandwidth. Every phase prints one line
+CUDA events and the kernels also by the profiler's kernel time, and every
+bound is restated with the integer rates measured in this run. K1 is also
+timed alone, forward and inverse, at config5_boot's Q+P chain (45 limbs)
+and at the dw key switch's raised digits (58 limbs x 5), beside its bound
+and its achieved bandwidth. Every phase prints one line
 with its name, its result and its seconds. The run fails (non-zero exit,
 no result line) when no CUDA device is present, when a phase fails, or
 when it outlasts BUDGET_S.
@@ -35,6 +36,7 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import time
@@ -81,7 +83,8 @@ def card() -> tuple[str, str]:
 
 def device_profile(fn, iters: int = 5) -> tuple[float, float, list]:
     """Profile `iters` calls: (device-busy ms per call, busy share of the host
-    wall clock, [(device ms per call, kernel name)] largest first)."""
+    wall clock, [(device ms per call, kernel name, launches seen)] largest
+    first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -98,17 +101,37 @@ def device_profile(fn, iters: int = 5) -> tuple[float, float, list]:
         if ev.device_type == DeviceType.CUDA:
             us = getattr(ev, "self_device_time_total", None)
             us = ev.self_cuda_time_total if us is None else us
-            per.append((us / 1e3 / iters, ev.key))
-    busy = sum(ms for ms, _ in per)
+            per.append((us / 1e3 / iters, ev.key, ev.count))
+    busy = sum(ms for ms, _, _ in per)
     return busy, busy * iters / wall_ms, sorted(per, reverse=True)
 
 
-def k1_passes(fn) -> tuple[float, str]:
-    """K1's device ms per call of `fn` (profiler kernel time, which no host
-    overhead enters), in all and per pass (kernel k1_pass<log2 R, kind>)."""
-    _, _, per = device_profile(fn, iters=20)
-    per = [(ms, m.group(0)) for ms, name in per if (m := re.search(r"k1_pass<[^>]*>", name))]
-    return sum(ms for ms, _ in per), ", ".join(f"{name} {ms:.4f}" for ms, name in per)
+# the kernels' names as the profiler reports them
+K1_NAME, K3_NAME, K4_NAME = r"k1_pass<[^>]*>", r"base_convert_kernel", r"mac_kernel"
+
+
+def kernel_ms(fn, pattern: str, kinds: int = 1, iters: int = 20,
+              tries: int = 3) -> tuple[float, str]:
+    """Device ms per call of `fn` in the `kinds` kernels whose name matches
+    `pattern` (profiler kernel time, which no host overhead enters), in all
+    and per kernel (for K1 per pass: k1_pass<log2 R, kind>). Each matching
+    kernel launches once per call, so its time per call is its mean per
+    launch traced: the profiler has been seen to drop launches from a trace
+    (some, or all of a kernel's), which a division by `iters` would read as
+    a faster kernel. A trace that lacks a kernel is taken again; after
+    `tries` such traces the time is nan (null in the kernels line)."""
+    for _ in range(tries):
+        _, _, per = device_profile(fn, iters=iters)
+        per = [(ms * iters / seen, m.group(0), seen) for ms, name, seen in per
+               if (m := re.search(pattern, name))]
+        if len(per) == kinds:
+            return sum(ms for ms, _, _ in per), ", ".join(
+                f"{name} {ms:.4f} ({seen} of {iters} launches traced)" for ms, name, seen in per)
+    return math.nan, f"no complete trace of {pattern} in {tries} tries"
+
+
+def or_null(ms: float) -> float | None:
+    return None if math.isnan(ms) else ms
 
 
 def exact(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
@@ -315,15 +338,19 @@ def main() -> None:
 
     # 6. P1: K1 and its ablation builds at the 45-limb forward shape; the
     #    copy_only build == its plain version (two bit-reversed transposes),
-    #    the natural_store build (the unpadded exchange tile) == the NTT
+    #    the natural_store build (the unpadded exchange tile) and the
+    #    narrow_tfast build (one word per thread on pass B's t-fast side)
+    #    == the NTT, forward and inverse
     t = time.perf_counter()
     idx45 = ctx.index(range(qp), torch.int32)
     x45 = rand_limbs(ctx, range(qp))
     copy_kernel = probes.ABLATION_KERNELS["copy_only"]
     copy_err = exact(ntt_cuda.fourstep_cuda(x45, idx45, ctx, False, copy_kernel),
                      probes.copy_only_plain(x45, ctx), "K1 copy_only build")
-    exact(ntt_cuda.fourstep_cuda(x45, idx45, ctx, False, probes.ABLATION_KERNELS["natural_store"]),
-          ntt_cuda.fourstep_plain(x45, idx45, ctx, False), "K1 natural_store build")
+    for name in ("natural_store", "narrow_tfast"):
+        for inverse in (False, True):
+            exact(ntt_cuda.fourstep_cuda(x45, idx45, ctx, inverse, probes.ABLATION_KERNELS[name]),
+                  ntt_cuda.fourstep_plain(x45, idx45, ctx, inverse), f"K1 {name} build")
     copy_kernel.reset()  # count the timing's launches, not the check's
     ablation = probes.ntt_ablation(x45, idx45, ctx)
     copy_launches = copy_kernel.launches
@@ -331,14 +358,21 @@ def main() -> None:
     print(f"ntt_ablation fwd x {qp} limbs, ms per call: " + ", ".join(
         f"{k} {v:.4f}" for k, v in ablation.items()) + f"  [{smi}]", flush=True)
     ablation_dev = {}
+    # the inverse too where the t-fast side's width is what differs: there
+    # pass B writes the scratch t-fast (kind 2), forward pass B reads it (kind 1)
     for name, kernel in {"full": ntt_cuda.KERNEL, **probes.ABLATION_KERNELS}.items():
-        ablation_dev[name], passes = k1_passes(
-            lambda: ntt_cuda.fourstep_cuda(x45, idx45, ctx, False, kernel))
-        print(f"ntt_ablation {name}: device {ablation_dev[name]:.4f} ms per call; per pass "
-              f"(kind 0 = pass A, 1 = pass B): {passes}  [{smi}]", flush=True)
+        for inverse in (False, True) if name in ("full", "narrow_tfast") else (False,):
+            tag = f"{name} inv" if inverse else name
+            ablation_dev[tag], passes = kernel_ms(
+                lambda: ntt_cuda.fourstep_cuda(x45, idx45, ctx, inverse, kernel), K1_NAME, 2)
+            print(f"ntt_ablation {tag}: device {ablation_dev[tag]:.4f} ms per call; per pass "
+                  f"(kind 0 = fwd A, 1 = fwd B, 2 = inv B, 3 = inv A): {passes}  [{smi}]",
+                  flush=True)
     say("ntt_ablation", f"device ms per call: full {ablation_dev['full']:.4f}, copy_only "
         f"{ablation_dev['copy_only']:.4f} (== its plain version), natural_store "
-        f"{ablation_dev['natural_store']:.4f} (== the NTT)", t)
+        f"{ablation_dev['natural_store']:.4f}, narrow_tfast {ablation_dev['narrow_tfast']:.4f} "
+        f"/ inv {ablation_dev['narrow_tfast inv']:.4f} against full inv "
+        f"{ablation_dev['full inv']:.4f} (both == the NTT)", t)
 
     # 7. path "mul": the config5_boot multiply, through the entry points
     zr = np.random.default_rng(SEED + 1)
@@ -469,22 +503,26 @@ def main() -> None:
         f"{k} {v:.3e}" for k, v in errs.items()) + f" < {DECODE_TOL}; K4 launches per op "
         + ", ".join(f"{k} {v['mac']}" for k, v in per_op.items()), t)
 
-    # 10. times on the card (CUDA events, after warm-up)
+    # 10. times on the card (CUDA events, after warm-up; K3 and K4 also by
+    #     profiler kernel time, as `dev_times`)
     t = time.perf_counter()
     times = {
-        "ntt": ablation["full"],
         "ntt_plain": cuda_ms(lambda: ntt_cuda.fourstep_plain(x45, idx45, ctx, False), iters=5),
     }
+    dev_times = {}
     shapes = {"modup": (ctx, ksc.modup[0], range(params.alpha)),
               "moddown": (ctx, ksc.p2q, range(L, qp)),
               "modup_dw": (ctx_dw, ksc_dw.modup[0], range(dw.alpha))}
     for what, (c, tabs, rows) in shapes.items():
         x = rand_limbs(c, rows)
         times[f"convert_{what}"] = cuda_ms(lambda: convert_cuda.base_convert_cuda(x, tabs))
+        dev_times[f"convert_{what}"], _ = kernel_ms(
+            lambda: convert_cuda.base_convert_cuda(x, tabs), K3_NAME)
         times[f"convert_{what}_plain"] = cuda_ms(
             lambda: convert_cuda.base_convert_plain(x, tabs), iters=5)
     for key, args in mac_inputs.items():
         times[f"mac_{key}"] = cuda_ms(lambda: mac_cuda.mac_cuda(*args))
+        dev_times[f"mac_{key}"], _ = kernel_ms(lambda: mac_cuda.mac_cuda(*args), K4_NAME)
         times[f"mac_{key}_plain"] = cuda_ms(lambda: mac_cuda.mac_plain(*args), iters=5)
 
     def stage_leaves(pr, c, ch, a, b, tag):
@@ -520,18 +558,26 @@ def main() -> None:
     times["hoisted_per_step"] = (times["ct_rotate_hoisted_x2"] - times["hoist"]) / len(ROTATIONS)
     for name, ms in times.items():
         print(f"time {name}: {ms:.4f} ms  [{smi}]", flush=True)
-    groups = {"K1": "k1_pass", "K3": "base_convert_kernel", "K4": "mac_kernel"}
-    for tag in ("", "_dw"):
-        busy, share, top = device_profile(leaves[f"mul_full{tag}"])
+    for name, ms in dev_times.items():
+        print(f"device time {name}: {ms:.4f} ms  [{smi}]", flush=True)
+    groups = {"K1": "k1_pass", "K3": K3_NAME, "K4": K4_NAME}
+    for tag, per in (("", per_mul), ("_dw", per_dw)):
+        iters = 5
+        busy, share, top = device_profile(leaves[f"mul_full{tag}"], iters)
+        # a trace that dropped launches reads low: compare with the launch counts
+        want = {"K1": 2 * per["ntt"] * iters, "K3": per["convert"] * iters,
+                "K4": per["mac"] * iters}
+        seen = {g: sum(c for _, name, c in top if key in name) for g, key in groups.items()}
+        print(f"profile mul_full{tag} launches traced {seen}, expected {want}", flush=True)
         event_share = busy / times[f"mul_full{tag}"]
         print(f"profile mul_full{tag}: device busy {busy:.4f} ms per call, {event_share:.1%} of "
               f"the CUDA-event time, {share:.1%} of the host wall clock under the profiler  "
               f"[{smi}]", flush=True)
-        per_group = {g: sum(ms for ms, name in top if key in name) for g, key in groups.items()}
+        per_group = {g: sum(ms for ms, name, _ in top if key in name) for g, key in groups.items()}
         print(f"profile mul_full{tag} per kernel, ms per call: " + ", ".join(
             f"{g} {ms:.4f}" for g, ms in per_group.items())
             + f", the rest {busy - sum(per_group.values()):.4f}", flush=True)
-        for ms, name in top[:10]:
+        for ms, name, _ in top[:10]:
             print(f"profile mul_full{tag} kernel {ms:.4f} ms/call  {name[:90]}", flush=True)
     say("timing", f"mul_full {times['mul_full']:.3f} ms, mul_full_dw {times['mul_full_dw']:.3f} "
         f"ms, ct_rotate {times['ct_rotate']:.3f} ms, hoisted {times['hoisted_per_step']:.3f} "
@@ -644,7 +690,7 @@ def main() -> None:
     #     for the two passes' traffic (int64 in, u32 scratch out and back in,
     #     int64 out: 24 bytes per residue)
     t = time.perf_counter()
-    k1_times = {}
+    k1_times, k1_events = {}, {}
     for c, limbs, batch in ((ctx, qp, 1), (ctx_dw, qp_dw, dw.dnum)):
         idx_k = c.index(range(limbs), torch.int32)
         xk = rand_limbs(c, list(range(limbs)) * batch)
@@ -655,8 +701,8 @@ def main() -> None:
             call = lambda: ntt_cuda.fourstep_cuda(xk, idx_k, c, inverse)  # noqa: E731
             tag = f"{'inv' if inverse else 'fwd'} {limbs}x{batch}"
             event_ms = cuda_ms(call, iters=50)
-            dev_ms, per_pass = k1_passes(call)
-            k1_times[tag] = dev_ms
+            dev_ms, per_pass = kernel_ms(call, K1_NAME, 2)
+            k1_times[tag], k1_events[tag] = dev_ms, event_ms
             for what, ms in (("event", event_ms), ("device", dev_ms)):
                 print(f"K1 {tag} x 2^{n.bit_length() - 1} {what}: {ms:.4f} ms; bound "
                       f"{b_ms:.5f} ms ({b_by}), {ms / b_ms:.2f}x; data in and out once "
@@ -665,27 +711,27 @@ def main() -> None:
                       f"at {passes / ms / 1e9:.3f} TB/s (floor "
                       f"{passes / HBM_BYTES_PER_S * 1e3:.5f} ms)  [{smi}]", flush=True)
             print(f"K1 {tag} device per pass, ms per call: {per_pass}", flush=True)
-    say("ntt_timing", "device ms per call: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in k1_times.items()), t)
+    say("ntt_timing", "event / device ms per call: " + ", ".join(
+        f"{k} {k1_events[k]:.4f} / {v:.4f}" for k, v in k1_times.items()), t)
 
     total = {key: sum(launches[p][key] for p in launches) for key in kernels}
     rows = []
-    for name, key, src, repl, err, work, ms, plain in (
+    for name, key, src, repl, err, work, ms, dev_ms, plain in (
         ("ntt_fourstep", "ntt", "gpufhe_tpu_torch/csrc/ntt.cu",
-         "gpufhe_tpu/ops/ntt_pallas.py:601", ntt_err, ntt45, k1_times[f"fwd {qp}x1"],
-         times["ntt_plain"]),
+         "gpufhe_tpu/ops/ntt_pallas.py:601", ntt_err, ntt45, k1_events[f"fwd {qp}x1"],
+         k1_times[f"fwd {qp}x1"], times["ntt_plain"]),
         ("base_convert", "convert", "gpufhe_tpu_torch/csrc/convert.cu",
          "gpufhe_tpu/ops/convert_pallas.py:152", conv_err, conv_up, times["convert_modup"],
-         times["convert_modup_plain"]),
+         dev_times["convert_modup"], times["convert_modup_plain"]),
         ("key_switch_mac", "mac", "gpufhe_tpu_torch/csrc/mac.cu",
          "scripts/dw_mac_probe.py:112", mac_err, mac_mul, times["mac_mul"],
-         times["mac_mul_plain"]),
+         dev_times["mac_mul"], times["mac_mul_plain"]),
     ):
         b_ms, b_by = bound(*work)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": total[key], "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches": total[key], "max_abs_err": err, "ms": ms, "device_ms": or_null(dev_ms),
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     for mix in probes.MIXES:
         r, err, plain, n_launch = rate_rows[mix]
@@ -693,7 +739,8 @@ def main() -> None:
         rows.append({
             "name": f"int_rate_{mix}", "route": "cuda", "source": "gpufhe_tpu_torch/csrc/int_rate.cu",
             "replaces": "scripts/vpu_peak.py:84", "launches": n_launch, "max_abs_err": err,
-            "ms": r["ms"], "plain_ms": plain, "bound_ms": ops / ALU_OPS_PER_S * 1e3,
+            "ms": r["ms"], "device_ms": None, "plain_ms": plain,
+            "bound_ms": ops / ALU_OPS_PER_S * 1e3,
             "bound_by": "operations", "library_ms": None,
         })
     copy_bytes = 8 * 2 * qp * n
@@ -701,12 +748,13 @@ def main() -> None:
         "name": "ntt_ablate_copy_only", "route": "cuda",
         "source": "gpufhe_tpu_torch/csrc/ntt.cu", "replaces": "scripts/ntt_ablate.py:176",
         "launches": copy_launches, "max_abs_err": copy_err, "ms": ablation["copy_only"],
-        "plain_ms": ablation["copy_only_plain"], "bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None,
+        "device_ms": or_null(ablation_dev["copy_only"]), "plain_ms": ablation["copy_only_plain"],
+        "bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
     })
-    print(f"# launches per path {launches}; shapes: ntt_fourstep fwd {qp} x 2^{log_n} (its ms "
-          f"the profiler's kernel time: at this size the host launch is as long as the kernel); "
-          f"base_convert ModUp {s_up}->{t_up}; key_switch_mac D=2 T={qp}; bounds with modular "
+    print(f"# launches per path {launches}; ms: CUDA events per call (the host's launch "
+          f"included), as in earlier runs; device_ms: the profiler's kernel time per call (no "
+          f"host time; null for the int_rate probe, whose ms is its own event timing); shapes: "
+          f"ntt_fourstep fwd {qp} x 2^{log_n}; base_convert ModUp {s_up}->{t_up}; key_switch_mac D=2 T={qp}; bounds with modular "
           f"products at the shoup32 rate measured here; int_rate "
           f"{probes.CHAINS} chains x {rate_rows['modmul'][0]['depth']} steps per thread (bound: "
           f"one op per modular product, two per multiply-add, at {ALU_OPS_PER_S / 1e12:.0f} T/s); "

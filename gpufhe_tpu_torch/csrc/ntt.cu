@@ -48,8 +48,11 @@
 //     because v tw < 4q q < q 2^32. One canonical correction before each
 //     store. Every product is a 32-bit one.
 // Global access: lanes along the contiguous axis, a warp's 32 lanes one
-// segment of 256 bytes (int64) or 128 bytes (u32); on pass B's t-fast side
-// T threads read or write T consecutive words of one row.
+// segment of 256 bytes (int64) or 128 bytes (u32). On pass B's t-fast side
+// (the u32 scratch) a column's T threads take 2T consecutive words of one
+// row per access, two each (a uint2), and each trades one word of its pair
+// with the thread T/2 away by a warp shuffle: 128 bytes per row segment at
+// R = 256 (T = 16), where one word per thread would be 64.
 // Not done here: one pass per limb through a cluster's distributed shared
 // memory, and 32-bit storage at the interface.
 
@@ -69,6 +72,9 @@
 //   4 natural_store  the exchange tile without padding and the t-fast side
 //                    without the column spread: the bank conflicts that the
 //                    production layout removes (its output is still the NTT)
+//   5 narrow_tfast   the t-fast side one word per thread (T words, 4T
+//                    bytes, per row segment) and no shuffle: the segment
+//                    width that the pairs double (its output is the NTT)
 // The other variants' outputs are wrong by design; copy_only computes two
 // bit-reversed transposes (ops/probes.py copy_only_plain).
 #ifndef NTT_ABLATE
@@ -81,6 +87,7 @@ constexpr bool kModmul = NTT_ABLATE != 1;
 constexpr bool kTwists = NTT_ABLATE != 2 && NTT_ABLATE != 3;
 constexpr bool kStages = NTT_ABLATE != 3;
 constexpr bool kPadded = NTT_ABLATE != 4;
+constexpr bool kPairs = NTT_ABLATE != 5;
 constexpr int kMaxLanes = 32;  // columns per block
 constexpr int kMinLogR = 3, kMaxLogR = 8;
 
@@ -114,13 +121,14 @@ struct Pass {
   int in_st, out_st;  // the strided axis of each side (see Kind)
   int tstride;        // row length of roots, t1d, lo tables (n1)
   int nhi;            // row length of hi_mont (2 n / n1)
-  const i64* q;
-  const i64* qinv_neg;
+  // the tables (ops/context.py K1Tables), u32 like every value the kernel computes
+  const unsigned* q;
+  const unsigned* qinv_neg;
   const unsigned* roots;  // stage-ordered: roots[2^s + k] for butterfly k of stage s
   const unsigned* roots_shoup;
-  const i64* t1d;
+  const unsigned* t1d;
   const unsigned* t1d_shoup;
-  const i64* lo;
+  const unsigned* lo;
   const unsigned* lo_shoup;
   const unsigned* hi_mont;
 };
@@ -151,12 +159,25 @@ __device__ __forceinline__ void bfly1(unsigned& x, unsigned& y, unsigned q) {
   y = a - t + q2;
 }
 
+// The pairs of the t-fast side: thread s of a column's T (s < T/2 "low",
+// else "high") handles the residue class m = 2 (s mod T/2) + [s high] of
+// t mod T, and trades with thread s ^ T/2, whose class is m ^ 1.
+template <int LOGT>
+__device__ __forceinline__ int pair_class(int s) {
+  constexpr int h = 1 << (LOGT - 1);
+  return 2 * (s & (h - 1)) + (s >= h);
+}
+
 // Thread tid's column c and index i. Lane-fast: consecutive threads take
 // consecutive columns at one index. Index-fast: T consecutive threads take
 // the T indices of one column, and thread group g takes column
 // (g mod (lanes / T)) T + g div (lanes / T), so a warp's 32 / T columns lie
-// T apart and, with the tile's odd column stride, on distinct banks.
-template <bool INDEX_FAST, int LOGT>
+// T apart and, with the tile's odd column stride, on distinct banks. With
+// the pairs, the index of thread s of a group is brev_T(pair_class(s)) on
+// the input side (its inputs are t = u T + pair_class(s)) and
+// pair_class(s) on the output side (its outputs are k = m mod T of that
+// class): a permutation within the group, so the tile's banks stay distinct.
+template <bool INDEX_FAST, bool OUT, int LOGT>
 __device__ __forceinline__ void split(int tid, int lanes, int log_lanes, int& c, int& i) {
   if (!INDEX_FAST) {
     c = tid & (lanes - 1);
@@ -164,6 +185,7 @@ __device__ __forceinline__ void split(int tid, int lanes, int log_lanes, int& c,
     return;
   }
   i = tid & ((1 << LOGT) - 1);
+  if (kPairs) i = OUT ? pair_class<LOGT>(i) : brev(pair_class<LOGT>(i), LOGT);
   const int g = tid >> LOGT;
   if (!kPadded) {
     c = g;
@@ -197,14 +219,18 @@ __global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p)
   const int nthr = p.lanes << LOGT;
   const int row = blockIdx.y;
   const int chain = p.idx[row % p.L];
-  const unsigned q = (unsigned)p.q[chain];
-  const unsigned qinv = (unsigned)p.qinv_neg[chain];
+  const unsigned q = p.q[chain];
+  const unsigned qinv = p.qinv_neg[chain];
   const i64 rowoff = (i64)row * p.n;
   const int lane0 = blockIdx.x * p.lanes;
   const unsigned emask = 2u * p.n - 1u;
   int c_in, i_in, c_out, j_out;
-  split<IN_TFAST, LOGT>(tid, p.lanes, p.log_lanes, c_in, i_in);
-  split<OUT_TFAST, LOGT>(tid, p.lanes, p.log_lanes, c_out, j_out);
+  split<IN_TFAST, false, LOGT>(tid, p.lanes, p.log_lanes, c_in, i_in);
+  split<OUT_TFAST, true, LOGT>(tid, p.lanes, p.log_lanes, c_out, j_out);
+  // the pairs' partner is lane ^ T/2 of the same warp; a block of fewer than
+  // 32 threads (N = 2^6) is one partial warp
+  const unsigned warp_mask = nthr >= 32 ? 0xffffffffu : (1u << nthr) - 1u;
+  const bool high = (tid & ((1 << LOGT) - 1)) >= T / 2;
 
   // 1. register r <- input t = T brev_P(r) + brev_T(i): position i P + r of
   //    the bit-reversed order
@@ -212,20 +238,35 @@ __global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p)
   const i64 lane_in = lane0 + c_in;
   const int ib = (int)(__brev((unsigned)i_in) >> (32 - LOGT));
   unsigned v[P];
+  if constexpr (IN_TFAST && kPairs) {
+    // words 2 T w + 2 s and + 1 of the row (s: index in the group), i.e.
+    // t = (2 w + [s high]) T + 2 (s mod T/2) + {0, 1}; the low thread keeps
+    // its even class and sends the odd word, the high thread the reverse
+    const uint2* row2 = reinterpret_cast<const uint2*>(in + rowoff + lane_in * p.in_st);
+    const int s = tid & (T - 1);
 #pragma unroll
-  for (int u = 0; u < P; ++u) {
-    const i64 t = u * T + ib;
-    v[brev(u, LOGP)] = (unsigned)in[rowoff + (IN_TFAST ? t + lane_in * p.in_st
-                                                       : t * p.in_st + lane_in)];
+    for (int w = 0; w < P / 2; ++w) {
+      const uint2 a = row2[w * T + s];
+      const unsigned got = __shfl_xor_sync(warp_mask, high ? a.x : a.y, T / 2);
+      v[brev(2 * w, LOGP)] = high ? got : a.x;
+      v[brev(2 * w + 1, LOGP)] = high ? a.y : got;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const i64 t = u * T + ib;
+      v[brev(u, LOGP)] = (unsigned)in[rowoff + (IN_TFAST ? t + lane_in * p.in_st
+                                                         : t * p.in_st + lane_in)];
+    }
   }
   const i64 trow = (i64)chain * p.tstride;
   for (int e = tid; e < R; e += nthr) {
     rw[e] = p.roots[trow + e];
     rwp[e] = p.roots_shoup[trow + e];
     if (TWIST) {
-      t1d[e] = (unsigned)p.t1d[trow + e];
+      t1d[e] = p.t1d[trow + e];
       t1dp[e] = p.t1d_shoup[trow + e];
-      lo[e] = (unsigned)p.lo[trow + e];
+      lo[e] = p.lo[trow + e];
       lop[e] = p.lo_shoup[trow + e];
     }
   }
@@ -302,22 +343,42 @@ __global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p)
   // 6. twist on store, one canonical correction, output k = i P + m
   OutT* out = static_cast<OutT*>(p.out);
   const i64 lane_out = lane0 + c_out;
+  auto finish = [&](unsigned x, int k) -> unsigned {
+    if (TWIST == 1) {  // x < 4q, twiddle < q: x tw < q 2^32
+      x = kModmul ? mont_mul_lazy(x, twiddle(k, (unsigned)lane_out), q, qinv)
+                  : x * twiddle(k, (unsigned)lane_out);
+    } else if (TWIST == 2) {
+      x = kModmul ? mul_shoup_lazy(x, t1d[k], t1dp[k], q) : x * t1d[k];
+    } else {
+      x = x >= 2 * q ? x - 2 * q : x;
+    }
+    return x >= q ? x - q : x;
+  };
+  if constexpr (OUT_TFAST && kPairs) {
+    // output k = d T + j_out holds register (d mod (P / T)) T + d div (P / T);
+    // thread s writes words 2 T w + 2 s and + 1, i.e. classes 2 (s mod T/2)
+    // and + 1 at d = 2 w + [s high]: the low thread sends its d = 2 w + 1,
+    // the high thread its d = 2 w
+    constexpr int PT = P / T;
+    uint2* row2 = reinterpret_cast<uint2*>(out + rowoff + lane_out * p.out_st);
+    const int s = tid & (T - 1);
 #pragma unroll
-  for (int g = 0; g < P / T; ++g) {
+    for (int w = 0; w < P / 2; ++w) {
+      const int d0 = 2 * w, d1 = 2 * w + 1;
+      const unsigned even = finish(v[(d0 % PT) * T + d0 / PT], d0 * T + j_out);
+      const unsigned odd = finish(v[(d1 % PT) * T + d1 / PT], d1 * T + j_out);
+      const unsigned got = __shfl_xor_sync(warp_mask, high ? even : odd, T / 2);
+      row2[w * T + s] = high ? make_uint2(got, odd) : make_uint2(even, got);
+    }
+  } else {
 #pragma unroll
-    for (int i = 0; i < T; ++i) {
-      const int k = i * P + j_out + T * g;
-      unsigned x = v[g * T + i];
-      if (TWIST == 1) {  // x < 4q, twiddle < q: x tw < q 2^32
-        x = kModmul ? mont_mul_lazy(x, twiddle(k, (unsigned)lane_out), q, qinv)
-                    : x * twiddle(k, (unsigned)lane_out);
-      } else if (TWIST == 2) {
-        x = kModmul ? mul_shoup_lazy(x, t1d[k], t1dp[k], q) : x * t1d[k];
-      } else {
-        x = x >= 2 * q ? x - 2 * q : x;
+    for (int g = 0; g < P / T; ++g) {
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        const int k = i * P + j_out + T * g;
+        out[rowoff + (OUT_TFAST ? k + lane_out * p.out_st : (i64)k * p.out_st + lane_out)] =
+            (OutT)finish(v[g * T + i], k);
       }
-      x = x >= q ? x - q : x;
-      out[rowoff + (OUT_TFAST ? k + lane_out * p.out_st : (i64)k * p.out_st + lane_out)] = (OutT)x;
     }
   }
 }
@@ -359,15 +420,16 @@ extern "C" const char* ntt_strerror(int code) {
 
 // x, y: int64[rows, n] with rows = batch * L, canonical residues below primes
 // q < 2^30; scratch: u32[rows, n]. idx: int32[L] rows of the full tables.
-// Per direction (ops/context.py ntt_tables_np): roots, roots_shoup, t1d,
-// t1d_shoup, lo and lo_shoup [chain, n1], hi_mont [chain, 2 n2]; q and
-// qinv_neg (-q^-1 mod 2^32) per chain row. n1 and n2 from 8 to 256.
+// The tables, u32, per direction (ops/context.py K1Tables, in this order):
+// q and qinv_neg (-q^-1 mod 2^32) per chain row; roots, roots_shoup, t1d,
+// t1d_shoup, lo and lo_shoup [chain, n1]; hi_mont [chain, 2 n2]. n1 and n2
+// from 8 to 256.
 extern "C" int ntt_fourstep(const i64* x, i64* y, unsigned* scratch, const int* idx, int L,
-                            int rows, int n, int n1, int n2, int inverse, const i64* q,
-                            const i64* qinv_neg, const unsigned* roots,
-                            const unsigned* roots_shoup, const i64* t1d,
-                            const unsigned* t1d_shoup, const i64* lo, const unsigned* lo_shoup,
-                            const unsigned* hi_mont, void* stream) {
+                            int rows, int n, int n1, int n2, int inverse, const unsigned* q,
+                            const unsigned* qinv_neg, const unsigned* roots,
+                            const unsigned* roots_shoup, const unsigned* t1d,
+                            const unsigned* t1d_shoup, const unsigned* lo,
+                            const unsigned* lo_shoup, const unsigned* hi_mont, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int log1 = ilog2(n1), log2 = ilog2(n2);
   if ((1 << log1) != n1 || (1 << log2) != n2 || n1 * n2 != n || L <= 0 || rows % L)

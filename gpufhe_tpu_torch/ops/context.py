@@ -21,14 +21,17 @@ psi^(+-e), e = j2 (2 k1 + 1) mod 2N, as lo[e mod n1] * hi[e div n1]: lo holds
 psi^(+-e) for e < n1 and hi holds psi^(+-n1 e) for e < 2 n2. No table has N
 entries per prime besides w.
 
-The kernel (csrc/ntt.cu) computes in 32-bit words (its wrapper takes
-primes below 2^30) and reads its own tables beside these, each a u32 value held in an
-int32 tensor: `roots`, the sub-transform roots in stage order
-(roots[2^s + k] = w^(k N / 2^(s+1)), the root of butterfly k at radix-2
-stage s, for any transform length; roots[0] = 1 is unused), and the Shoup
-companions floor(v * 2^32 / q) of `roots`, `tab1d` and `lo`
-(`roots_shoup`, `tab1d_shoup`, `lo_shoup`), and `hi_mont`, hi in Montgomery
-form (hi * 2^32 mod q). The plain version reads only the int64 tables.
+The kernel (csrc/ntt.cu) computes in 32-bit words and reads only its own
+tables (`K1Tables`, one set per direction, each a u32 value held in an int32
+tensor, in the order of its entry point): q and -q^-1 mod 2^32; `roots`,
+the sub-transform roots in stage order (roots[2^s + k] = w^(k N / 2^(s+1)),
+the root of butterfly k at radix-2 stage s, for any transform length;
+roots[0] = 1 is unused); `tab1d` and `lo`; the Shoup companions
+floor(v * 2^32 / q) of these three (`roots_shoup`, `tab1d_shoup`,
+`lo_shoup`); and `hi_mont`, hi in Montgomery form (hi * 2^32 mod q). It
+takes transform lengths n1, n2 from 8 to 256 and primes below 2^30; a
+context outside those limits carries the reason in `k1_refusal`. The plain
+version reads only the int64 tables.
 """
 
 from __future__ import annotations
@@ -50,20 +53,51 @@ def fourstep_split(n: int) -> tuple[int, int]:
     return n1, n // n1
 
 
+# what the NTT kernel takes: csrc/ntt.cu kMinLogR .. kMaxLogR, and 4q < 2^32
+# for its lazy 32-bit schedule
+K1_LENGTHS = tuple(1 << k for k in range(3, 9))
+K1_MAX_PRIME = 1 << 30
+
+
+def k1_refusal(primes, n: int, n1: int, n2: int) -> str | None:
+    """Why the NTT kernel cannot run this chain and split, or None."""
+    if n1 not in K1_LENGTHS or n2 not in K1_LENGTHS:
+        return f"no K1 build for N={n} ({n1} x {n2}); lengths {K1_LENGTHS}"
+    if max(primes) >= K1_MAX_PRIME:
+        return "the K1 kernel's 32-bit arithmetic needs every prime below 2^30"
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Tables:
+    """The NTT kernel's tables for one direction: u32 values in int32 tensors,
+    stacked over the full prime chain, in the order of csrc/ntt.cu
+    ntt_fourstep's parameters."""
+
+    q: torch.Tensor  # [L]
+    qinv_neg: torch.Tensor  # [L]  -q^-1 mod 2^32
+    roots: torch.Tensor  # [L, n1]  w^(k N / 2^(s+1)) at 2^s + k (w^-1 for inv)
+    roots_shoup: torch.Tensor  # [L, n1]  floor(roots * 2^32 / q)
+    tab1d: torch.Tensor  # [L, n1]  as NTTTables.tab1d
+    tab1d_shoup: torch.Tensor  # [L, n1]  floor(tab1d * 2^32 / q)
+    lo: torch.Tensor  # [L, n1]  as NTTTables.lo
+    lo_shoup: torch.Tensor  # [L, n1]  floor(lo * 2^32 / q)
+    hi_mont: torch.Tensor  # [L, 2*n2]  hi * 2^32 mod q
+
+    def pointers(self) -> list[int]:
+        return [getattr(self, f.name).data_ptr() for f in dataclasses.fields(self)]
+
+
 @dataclasses.dataclass(frozen=True)
 class NTTTables:
-    """One direction's tables, int64, stacked over the full prime chain."""
+    """One direction's tables, stacked over the full prime chain: int64 for
+    the plain version, u32 for the kernel."""
 
     w: torch.Tensor  # [L, N/2]   w^e (forward) or w^-e (inverse), w = psi^2
     tab1d: torch.Tensor  # [L, n1]    psi1^j1 (fwd) | psi1^-j1 * N^-1 (inv)
     lo: torch.Tensor  # [L, n1]    psi^e (fwd) | psi^-e (inv), e < n1
     hi: torch.Tensor  # [L, 2*n2]  psi^(n1 e) (fwd) | psi^-(n1 e) (inv)
-    # the kernel's 32-bit tables (u32 values in int32 tensors)
-    roots: torch.Tensor  # [L, n1]  w^(k N / 2^(s+1)) at 2^s + k (w^-1 for inv)
-    roots_shoup: torch.Tensor  # [L, n1]  floor(roots * 2^32 / q)
-    tab1d_shoup: torch.Tensor  # [L, n1]  floor(tab1d * 2^32 / q)
-    lo_shoup: torch.Tensor  # [L, n1]  floor(lo * 2^32 / q)
-    hi_mont: torch.Tensor  # [L, 2*n2]  hi * 2^32 mod q
+    k1: K1Tables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +115,11 @@ class Context:
     ntt_fwd: NTTTables
     ntt_inv: NTTTables
     cache: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+    # set from primes, n, n1 and n2 (so dataclasses.replace recomputes it)
+    k1_refusal: str | None = dataclasses.field(init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "k1_refusal", k1_refusal(self.primes, self.n, self.n1, self.n2))
 
     @property
     def device(self) -> torch.device:
@@ -197,9 +236,13 @@ def make_context(params: CKKSParams, device: str = "cuda") -> Context:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64).astype(np.uint32)
                                 .view(np.int32)).to(device)
 
+    per_prime = {"q": primes, "qinv_neg": [c[0] for c in consts]}
+
     def tables(t):
-        return NTTTables(**{k: (dev(v) if k in ("w", "tab1d", "lo", "hi") else dev32(v))
-                            for k, v in t.items()})
+        src = {**t, **per_prime}
+        k1 = K1Tables(**{f.name: dev32(src[f.name]) for f in dataclasses.fields(K1Tables)})
+        return NTTTables(w=dev(t["w"]), tab1d=dev(t["tab1d"]), lo=dev(t["lo"]), hi=dev(t["hi"]),
+                         k1=k1)
 
     return Context(
         primes=primes,

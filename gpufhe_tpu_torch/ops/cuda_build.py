@@ -35,7 +35,8 @@ LIBS = {
     "mac": ("mac", ()),
     "int_rate": ("int_rate", ()),
     **{f"ntt_{variant}": ("ntt", (f"-DNTT_ABLATE={k}",))
-       for k, variant in enumerate(("no_modmul", "no_twiddle", "copy_only", "natural_store"), 1)},
+       for k, variant in enumerate(("no_modmul", "no_twiddle", "copy_only", "natural_store",
+                                    "narrow_tfast"), 1)},
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",

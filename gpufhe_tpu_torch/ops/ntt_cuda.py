@@ -19,22 +19,21 @@ elementwise int64 ops so that it also runs on the card for the comparison.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
-from gpufhe_tpu_torch.ops.context import Context
+from gpufhe_tpu_torch.ops.context import Context, K1Tables
 from gpufhe_tpu_torch.ops.cuda_build import CudaKernel
 from gpufhe_tpu_torch.ops.modops import add_mod, sub_mod
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# x, y, scratch, idx, L, rows, n, n1, n2, inverse, the K1Tables pointers, stream
 KERNEL = CudaKernel(
     "ntt", "ntt_fourstep",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    [_P] * 4 + [_I] * 6 + [_P] * len(dataclasses.fields(K1Tables)) + [_P],
 )
-# transform lengths with an instantiation (csrc/ntt.cu kMinLogR .. kMaxLogR)
-LENGTHS = tuple(1 << k for k in range(3, 9))
-MAX_PRIME = 1 << 30  # 4q < 2^32: the lazy 32-bit schedule
 
 
 def fourstep(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: bool) -> torch.Tensor:
@@ -52,11 +51,8 @@ def fourstep_cuda(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: boo
     """`kernel` is K1 or one of its ablation builds (ops/probes.py)."""
     rows, n = x.shape
     L = idx.numel()
-    if ctx.n1 not in LENGTHS or ctx.n2 not in LENGTHS:
-        raise ValueError(f"no K1 build for N={ctx.n} ({ctx.n1} x {ctx.n2}); lengths {LENGTHS}")
-    # every prime of the chain, so every row idx can select (no device read)
-    if max(ctx.primes) >= MAX_PRIME:
-        raise ValueError("the K1 kernel's 32-bit arithmetic needs every prime below 2^30")
+    if ctx.k1_refusal:  # the split and every prime of the chain, checked once per context
+        raise ValueError(ctx.k1_refusal)
     if x.device.type != "cuda" or x.dtype != torch.int64 or not x.is_contiguous():
         raise ValueError("fourstep_cuda takes a contiguous int64 CUDA tensor")
     if idx.dtype != torch.int32 or idx.device != x.device or ctx.device != x.device:
@@ -69,10 +65,7 @@ def fourstep_cuda(x: torch.Tensor, idx: torch.Tensor, ctx: Context, inverse: boo
     stream = torch.cuda.current_stream(x.device).cuda_stream
     kernel.launch(
         x.data_ptr(), y.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
-        L, rows, n, ctx.n1, ctx.n2, int(inverse),
-        ctx.q.data_ptr(), ctx.qinv_neg.data_ptr(), t.roots.data_ptr(), t.roots_shoup.data_ptr(),
-        t.tab1d.data_ptr(), t.tab1d_shoup.data_ptr(), t.lo.data_ptr(), t.lo_shoup.data_ptr(),
-        t.hi_mont.data_ptr(), stream,
+        L, rows, n, ctx.n1, ctx.n2, int(inverse), *t.k1.pointers(), stream,
     )
     return y
 

@@ -13,9 +13,11 @@ residues). `int_rate_plain` computes the same chains with int64 PyTorch
 ops, for the check.
 
 The K1 ablation times timing-only builds of csrc/ntt.cu (ops/cuda_build.py
-LIBS, -DNTT_ABLATE=k): no_modmul, no_twiddle, copy_only and natural_store,
-beside K1 itself (`full`). natural_store is K1 with the exchange tile
-unpadded (its bank conflicts), so it still computes the NTT; copy_only
+LIBS, -DNTT_ABLATE=k): no_modmul, no_twiddle, copy_only, natural_store and
+narrow_tfast, beside K1 itself (`full`). natural_store is K1 with the
+exchange tile unpadded (its bank conflicts) and narrow_tfast K1 with pass
+B's t-fast side one u32 word per thread (64-byte row segments, not 128), so
+both still compute the NTT; copy_only
 computes two bit-reversed transposes (`copy_only_plain`); no_modmul and
 no_twiddle are wrong by design, as the TPU probe's are.
 """
@@ -41,7 +43,7 @@ W = 998244353 % Q
 MU = (1 << 64) // Q
 WP = (W << 32) // Q  # Shoup's w' for shoup32
 
-ABLATIONS = ("no_modmul", "no_twiddle", "copy_only", "natural_store")
+ABLATIONS = ("no_modmul", "no_twiddle", "copy_only", "natural_store", "narrow_tfast")
 ABLATION_KERNELS = {v: CudaKernel(f"ntt_{v}", "ntt_fourstep", ntt_cuda.KERNEL.argtypes)
                     for v in ABLATIONS}
 

@@ -158,6 +158,20 @@ def test_ntt_natural_store_build_is_still_the_ntt(cuda_device, name):
         assert torch.equal(got, ntt_cuda.fourstep_plain(x, idx, ctx, inverse))
 
 
+@pytest.mark.parametrize("name", ["tiny", "ci_small", "config3_ckks", "config5_boot"])
+def test_ntt_narrow_tfast_build_is_still_the_ntt(cuda_device, name):
+    """The ablation with one word per thread on pass B's t-fast side (no
+    pairs, no shuffle) changes the segment width, not the function."""
+    params = preset(name)
+    ctx = make_context(params, cuda_device)
+    rows = list(range(ctx.num_total))
+    x = torch.from_numpy(_rand(ctx.primes, rows, params.n, 5)).to(cuda_device)
+    idx = ctx.index(rows, torch.int32)
+    for inverse in (False, True):
+        got = ntt_cuda.fourstep_cuda(x, idx, ctx, inverse, probes.ABLATION_KERNELS["narrow_tfast"])
+        assert torch.equal(got, ntt_cuda.fourstep_plain(x, idx, ctx, inverse))
+
+
 def test_ntt_copy_only_build_matches_plain(cuda_device):
     params = preset("ci_small")
     ctx = make_context(params, cuda_device)

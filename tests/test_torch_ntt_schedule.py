@@ -12,8 +12,13 @@ version `fourstep_plain` (the oracle that tests/test_torch_ntt.py holds ==
 the reference) at tiny, tiny2, ci_small and on config5_boot primes at
 N = 2^16; the tables are checked against their definitions; the exchange
 tile's addresses are checked to be a bijection and free of bank conflicts
-for every warp access of the production layout.
+for every warp access of the production layout, and the pairs of pass B's
+t-fast side (two words per thread, one traded by a warp shuffle) are
+checked to give each thread the inputs of the layout above and to write
+every output word once.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -265,11 +270,15 @@ def test_tables_against_their_definitions():
     u32 = lambda t: t.numpy().view(np.uint32).astype(object)  # noqa: E731
     n, n1 = params.n, ctx.n1
     for t, sign in ((ctx.ntt_fwd, 1), (ctx.ntt_inv, -1)):
-        for v, vp in ((t.roots, t.roots_shoup), (t.tab1d, t.tab1d_shoup), (t.lo, t.lo_shoup)):
-            vals = v.numpy().astype(object) if v.dtype == torch.int64 else u32(v)
-            assert (u32(vp) == vals * (1 << 32) // q).all()
-        assert (u32(t.hi_mont) == t.hi.numpy().astype(object) * (1 << 32) % q).all()
-        roots = u32(t.roots)
+        k = t.k1
+        assert all(getattr(k, f.name).dtype == torch.int32 for f in dataclasses.fields(k))
+        assert (u32(k.q) == q[:, 0]).all()
+        assert (u32(k.qinv_neg) * q[:, 0] % (1 << 32) == (1 << 32) - 1).all()
+        assert (u32(k.tab1d) == t.tab1d.numpy()).all() and (u32(k.lo) == t.lo.numpy()).all()
+        for v, vp in ((k.roots, k.roots_shoup), (k.tab1d, k.tab1d_shoup), (k.lo, k.lo_shoup)):
+            assert (u32(vp) == u32(v) * (1 << 32) // q).all()
+        assert (u32(k.hi_mont) == t.hi.numpy().astype(object) * (1 << 32) % q).all()
+        roots = u32(k.roots)
         w = t.w.numpy().astype(object)  # w^e for e < N/2
         for s in range(n1.bit_length() - 1):
             for k in range(1 << s):
@@ -277,7 +286,7 @@ def test_tables_against_their_definitions():
         assert (roots[:, 0] == 1).all()
         # the roots of the inverse are the forward's inverses
         if sign < 0:
-            fr = u32(ctx.ntt_fwd.roots)
+            fr = u32(ctx.ntt_fwd.k1.roots)
             assert ((fr * roots) % q == 1).all()
 
 
@@ -291,12 +300,19 @@ def _geometry(logr, padded=True):
     return T, P, row, col
 
 
-def _split(tid, lanes, logt, index_fast, padded=True):
+def _pair_class(s, logt):
+    """csrc/ntt.cu pair_class: the class of t mod T that thread s of a group takes."""
+    h = 1 << (logt - 1)
+    return 2 * (s & (h - 1)) + (s >= h)
+
+
+def _split(tid, lanes, logt, index_fast, padded=True, out=False):
     """csrc/ntt.cu split: (column, index) of thread tid."""
     log_lanes = lanes.bit_length() - 1
     if not index_fast:
         return tid & (lanes - 1), tid >> log_lanes
     i, g = tid & ((1 << logt) - 1), tid >> logt
+    i = _pair_class(i, logt) if out else _brev(_pair_class(i, logt), logt)
     if not padded:
         return g, i
     log_per = log_lanes - logt
@@ -310,7 +326,7 @@ def _warps(logr, lanes, index_fast, write, padded=True):
     nthr = lanes * T
     out = []
     for w0 in range(0, nthr, 32):
-        threads = [_split(t, lanes, logt, index_fast, padded)
+        threads = [_split(t, lanes, logt, index_fast, padded, out=not write)
                    for t in range(w0, min(w0 + 32, nthr))]
         if write:  # thread (c, i) writes registers r at c COL + i ROW + r
             regs = [[c * col + i * row + r for c, i in threads] for r in range(P)]
@@ -331,7 +347,61 @@ def test_exchange_is_a_bijection(logr):
             read = sorted(a for w in _warps(logr, lanes, out_fast, False) for reg in w for a in reg)
             assert wrote == read and len(set(wrote)) == lanes * T * P
     for fast in (False, True):  # each side's thread map is a bijection
-        assert len({_split(t, lanes, logr // 2, fast) for t in range(lanes * T)}) == lanes * T
+        for out in (False, True):
+            assert len({_split(t, lanes, logr // 2, fast, out=out)
+                        for t in range(lanes * T)}) == lanes * T
+
+
+@pytest.mark.parametrize("logr", range(3, 9))
+def test_tfast_pairs_load_and_store_the_layout(logr):
+    """Pass B's t-fast side, one column: thread s loads words 2 T w + 2 s, +1
+    (a uint2: the group's 2T words, 8T bytes, 128 at R = 256) and trades one
+    with thread s ^ T/2; it then holds t = u T + m in register brev_P(u),
+    m = pair_class(s), as the kernel's layout needs. On the way out, thread
+    s of class m holds outputs k = d T + m in register (d mod P/T) T +
+    d div (P/T); after the trade every word of the row is written once, with
+    its own value."""
+    logt, logp = logr // 2, logr - logr // 2
+    T, P = 1 << logt, 1 << logp
+    h, PT = T // 2, P // T
+    row = np.arange(1 << logr) + 1000  # word t holds 1000 + t
+
+    def high(s):
+        return s >= h
+
+    if logr == 8:
+        assert 8 * T == 128  # bytes per uint2 access of a group
+    loaded = {s: [row[2 * T * w + 2 * s: 2 * T * w + 2 * s + 2] for w in range(P // 2)]
+              for s in range(T)}
+    for s in range(T):
+        m, partner = _pair_class(s, logt), s ^ h
+        assert _pair_class(partner, logt) == m ^ 1
+        v = [None] * P
+        for w in range(P // 2):
+            a, b = loaded[s][w], loaded[partner][w]
+            got = b[0] if high(partner) else b[1]  # what the partner sends
+            v[_brev(2 * w, logp)] = got if high(s) else a[0]
+            v[_brev(2 * w + 1, logp)] = a[1] if high(s) else got
+        assert v == [row[_brev(r, logp) * T + m] for r in range(P)]
+    regs = {s: [None] * P for s in range(T)}  # outputs k = d T + class, value k
+    for s in range(T):
+        for d in range(P):
+            regs[s][(d % PT) * T + d // PT] = d * T + _pair_class(s, logt)
+    written = {}
+    for s in range(T):
+        partner = s ^ h
+        for w in range(P // 2):
+            even = regs[s][((2 * w) % PT) * T + (2 * w) // PT]
+            odd = regs[s][((2 * w + 1) % PT) * T + (2 * w + 1) // PT]
+            pe = regs[partner][((2 * w) % PT) * T + (2 * w) // PT]
+            po = regs[partner][((2 * w + 1) % PT) * T + (2 * w + 1) // PT]
+            got = pe if high(partner) else po
+            pair = (got, odd) if high(s) else (even, got)
+            for j, val in enumerate(pair):
+                word = 2 * T * w + 2 * s + j
+                assert word not in written
+                written[word] = val
+    assert written == {k: k for k in range(1 << logr)}
 
 
 @pytest.mark.parametrize("logr", range(3, 9))
