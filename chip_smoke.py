@@ -24,7 +24,9 @@ CUDA events and the kernels also by the profiler's kernel time, and every
 bound is restated with the integer rates measured in this run. K1 is also
 timed alone, forward and inverse, at config5_boot's Q+P chain (45 limbs)
 and at the dw key switch's raised digits (58 limbs x 5), beside its bound
-and its achieved bandwidth. Every phase prints one line
+and its achieved bandwidth; K3 alone at ModUp 15->45, ModDown 15->30 and
+ModUp 10->58 likewise, with a sweep of its launch (destinations per block,
+coefficients per thread) and its registers and spills. Every phase prints one line
 with its name, its result and its seconds. The run fails (non-zero exit,
 no result line) when no CUDA device is present, when a phase fails, or
 when it outlasts BUDGET_S.
@@ -128,6 +130,21 @@ def kernel_ms(fn, pattern: str, kinds: int = 1, iters: int = 20,
             return sum(ms for ms, _, _ in per), ", ".join(
                 f"{name} {ms:.4f} ({seen} of {iters} launches traced)" for ms, name, seen in per)
     return math.nan, f"no complete trace of {pattern} in {tries} tries"
+
+
+def ptxas_summary(log: str, pattern: str) -> list[str]:
+    """'(template arguments): registers, spills' for each entry function of
+    an nvcc -Xptxas -v log whose mangled name matches `pattern`."""
+    rows, args, spill = [], None, ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            args = (m2 := re.search(pattern, m.group(1))) and m2.groups()
+        elif args and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spill = f"spills {m.group(1)}/{m.group(2)} bytes"
+        elif args and (m := re.search(r"Used (\d+) registers", line)):
+            rows.append(f"({', '.join(args)}) {m.group(1)} registers, {spill}")
+            args = None
+    return rows
 
 
 def or_null(ms: float) -> float | None:
@@ -296,8 +313,16 @@ def main() -> None:
         got = convert_cuda.base_convert_cuda(x, tabs)
         want = convert_cuda.base_convert_plain(x, tabs)
         conv_err = max(conv_err, exact(got, want, f"base conversion {what}"))
+    worst = ("modup 0", "modup_dw 0")  # 15->45 and 10->58 at the largest residues, q - 1
+    for what in worst:
+        c, tabs, rows = conv_cases[what]
+        top = (tabs.sq[:, None] - 1).expand(len(rows), c.n).contiguous()
+        conv_err = max(conv_err, exact(convert_cuda.base_convert_cuda(top, tabs),
+                                       convert_cuda.base_convert_plain(top, tabs),
+                                       f"base conversion {what} at q - 1"))
     say("convert_vs_plain", "== at " + ", ".join(
-        f"{k} {len(r)}->{tb.dq.numel()}" for k, (_, tb, r) in conv_cases.items()), t)
+        f"{k} {len(r)}->{tb.dq.numel()}" for k, (_, tb, r) in conv_cases.items())
+        + f"; and at x = q - 1 at {', '.join(worst)}", t)
 
     # 5. K4 against its plain version, exact, at the shapes the paths launch:
     #    the relinearisation at config5_boot (a key stored at the level) and one
@@ -713,6 +738,42 @@ def main() -> None:
             print(f"K1 {tag} device per pass, ms per call: {per_pass}", flush=True)
     say("ntt_timing", "event / device ms per call: " + ", ".join(
         f"{k} {k1_events[k]:.4f} / {v:.4f}" for k, v in k1_times.items()), t)
+
+    # 12. K3 alone at ModUp 15->45, ModDown 15->30 and ModUp 10->58: the
+    #     event and device time per call at the wrapper's defaults (phase 10),
+    #     the bound, the bandwidth on the data in and out once (8 (S + T) N
+    #     bytes), a sweep of the launch (destinations per block, coefficients
+    #     per thread; the group of all T destinations at one coefficient per
+    #     thread is the kernel without either), each launch == the plain
+    #     version, and each instantiation's registers and spills from the
+    #     -Xptxas -v log
+    t = time.perf_counter()
+    for key, (c, tabs, rows) in shapes.items():
+        s_dim, t_dim = len(rows), tabs.dq.numel()
+        b_ms, b_by = bound(*conv_work(s_dim, t_dim))
+        once = 8 * (s_dim + t_dim) * n
+        for what, ms in (("event", times[f"convert_{key}"]), ("device", dev_times[f"convert_{key}"])):
+            print(f"K3 {s_dim}->{t_dim} x 2^{log_n} {what}: {ms:.4f} ms (group "
+                  f"{convert_cuda.GROUP}, cpt {convert_cuda.CPT}); bound {b_ms:.5f} ms ({b_by}), "
+                  f"{ms / b_ms:.2f}x; data in and out once {once / 1e6:.1f} MB at "
+                  f"{once / ms / 1e9:.3f} TB/s  [{smi}]", flush=True)
+        x = rand_limbs(c, rows)
+        want = convert_cuda.base_convert_plain(x, tabs)
+        sweep = {}
+        for group in dict.fromkeys(g for g in (t_dim, 16, 8, 4) if g <= t_dim):
+            for cpt in (1, 2):
+                call = lambda: convert_cuda.base_convert_cuda(x, tabs, group, cpt)  # noqa: E731
+                exact(call(), want, f"K3 {s_dim}->{t_dim} at group {group}, cpt {cpt}")
+                sweep[group, cpt], _ = kernel_ms(call, K3_NAME)
+        print(f"K3 {s_dim}->{t_dim} sweep, device ms per call by (group, cpt): " + ", ".join(
+            f"({g}, {k}) {ms:.4f}" for (g, k), ms in sweep.items())
+            + f"; best {min(sweep, key=sweep.get)}  [{smi}]", flush=True)
+    spills = ptxas_summary(logs.get("convert", ""), r"base_convert_kernelILi(\d+)ELi(\d+)E")
+    print("K3 -Xptxas -v (s4, cpt): " + ("; ".join(spills) or "not rebuilt in this run"),
+          flush=True)
+    say("convert_timing", "event / device ms per call: " + ", ".join(
+        f"{len(r)}->{tb.dq.numel()} {times[f'convert_{k}']:.4f} / {dev_times[f'convert_{k}']:.4f}"
+        for k, (_, tb, r) in shapes.items()), t)
 
     total = {key: sum(launches[p][key] for p in launches) for key in kernels}
     rows = []

@@ -1,0 +1,253 @@
+"""A CPU model of kernel K3's 32-bit schedule (gpufhe_tpu_torch/csrc/convert.cu).
+
+The kernel runs only on the card. This file emulates, in numpy uint64, what
+each of its threads computes: v_i formed once per coefficient and source
+limb by a 32-bit Shoup product against qhinv_shoup, the destination sums
+of 32 x 32 -> 64-bit products over chunks of 4 s4 source limbs
+(zero-padded), one Barrett step by dmu per 16 products and one at the end,
+and a chunk's canonical partial sum carried through the output when there
+are more than 32 source limbs; the blocks' destination groups and the
+coefficients each thread owns. Every sum is checked to stay below 2^64 and
+every Barrett remainder below 2p before its correction. The model is held
+== the plain version `base_convert_plain` (which tests/test_torch_convert.py
+holds == the reference) at the ModUp and ModDown tables of tiny2, ci_small,
+config5_boot and config5_boot_dw, and at worst-case inputs: residues q - 1,
+conv = p - 1, primes just below 2^30, and 16, 17 and 33 source limbs. The
+kernel's tables are checked against their definitions and against the
+entry point's parameter order, and the refusal of a prime >= 2^30 where the
+tables are built.
+"""
+
+import dataclasses
+import math
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from gpufhe_tpu_torch.ops import convert_cuda
+from gpufhe_tpu_torch.ops.convert_cuda import (
+    K3Tables, base_convert_plain, k3_refusal, make_convert_tables,
+)
+from gpufhe_tpu_torch.ops.cuda_build import CSRC
+from gpufhe_tpu_torch.params.params import gen_ntt_primes, is_prime, preset
+from gpufhe_tpu_torch.primitives import rns as prns
+
+M32 = (1 << 32) - 1
+THREADS = 128  # csrc/convert.cu kThreads
+UNREDUCED = 16  # kUnreduced
+SMEM = 48 * 1024  # kDefaultSmem
+N = 1024
+
+
+def _u64(t: torch.Tensor) -> np.ndarray:
+    """A table tensor's values as the kernel reads them (u32 or u64 words)."""
+    a = t.numpy()
+    return a.view(np.uint32).astype(np.uint64) if a.dtype == np.int32 else a.view(np.uint64)
+
+
+# --- csrc/modarith.cuh ------------------------------------------------------
+
+def shoup32(a, w, wp, q):
+    """mul_mod_shoup32: a w - umulhi(a, w') q mod 2^32, then one subtract."""
+    assert (a <= M32).all()
+    r = (((a * w) & M32) + (1 << 32) - ((((a * wp) >> 32) * q) & M32)) & M32
+    assert (r < 2 * q).all()
+    return np.where(r >= q, r - q, r)
+
+
+def mulhi64(a, b):
+    """__umul64hi for uint64 arrays, from 32-bit halves."""
+    a0, a1, b0, b1 = a & M32, a >> 32, b & M32, b >> 32
+    p01, p10 = a0 * b1, a1 * b0
+    mid = ((a0 * b0) >> 32) + (p01 & M32) + (p10 & M32)
+    return a1 * b1 + (p01 >> 32) + (p10 >> 32) + (mid >> 32)
+
+
+def barrett(t, p, mu):
+    """barrett_reduce: t - umulhi(t, mu) p (mod 2^64) is in [0, 2p), exact."""
+    r = t - mulhi64(t, mu) * p  # numpy uint64 wraps mod 2^64, as the kernel does
+    assert (r < 2 * p).all(), "a Barrett quotient was short by more than one"
+    return np.where(r >= p, r - p, r)
+
+
+# --- the kernel -------------------------------------------------------------
+
+def launch_shape(S, T, tg):
+    """The entry point's chunk width, conv row stride and group size."""
+    s4 = 8 if S >= 32 else (S + 3) // 4
+    W = 4 * s4
+    stride = W * -(-S // W)
+    tg = min(tg, T, max(1, SMEM // (4 * stride)))
+    return s4, stride, tg
+
+
+def k3_model(x: np.ndarray, k3: K3Tables, tg: int, stats: dict | None = None) -> np.ndarray:
+    """out[t, c] as the kernel computes it, for x uint64[S, n] (every
+    coefficient at once: each is one thread's lane)."""
+    S, n = x.shape
+    sq, w, wp, conv, dq, dmu = (_u64(getattr(k3, f.name)) for f in dataclasses.fields(K3Tables))
+    T = dq.size
+    s4, stride, tg = launch_shape(S, T, tg)
+    W = 4 * s4
+    out = np.zeros((T, n), dtype=np.uint64)
+    peak = 0
+    for t0 in range(0, T, tg):  # blockIdx.y
+        rows = min(tg, T - t0)
+        conv_s = np.zeros((rows, stride), dtype=np.uint64)  # staged, zero past S
+        conv_s[:, :S] = conv.reshape(T, S)[t0:t0 + rows]
+        for i0 in range(0, S, W):  # chunks
+            v = np.zeros((W, n), dtype=np.uint64)
+            for i in range(min(W, S - i0)):
+                v[i] = shoup32(x[i0 + i], w[i0 + i], wp[i0 + i], sq[i0 + i])
+            for r in range(rows):
+                t = t0 + r
+                p, mu = dq[t], dmu[t]
+                acc = out[t].copy() if i0 > 0 else np.zeros(n, dtype=np.uint64)
+                for j in range(W):  # the unrolled uint4 broadcasts, term by term
+                    prod = v[j] * conv_s[r, i0 + j]
+                    assert (prod < 1 << 60).all()
+                    new = acc + prod
+                    assert (new >= acc).all(), "a sum passed 2^64"
+                    acc = new
+                    peak = max(peak, int(acc.max()))
+                    if (j + 1) % UNREDUCED == 0 and j + 1 < W:
+                        acc = barrett(acc, p, mu)
+                out[t] = barrett(acc, p, mu)
+    if stats is not None:
+        stats["peak"] = peak
+    return out
+
+
+def _check(x: np.ndarray, tabs, tg=convert_cuda.GROUP, stats=None):
+    got = k3_model(x.astype(np.uint64), tabs.k3, tg, stats).astype(np.int64)
+    want = base_convert_plain(torch.from_numpy(x), tabs).numpy()
+    assert (got == want).all()
+
+
+def _rand(primes, n, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, q, size=n, dtype=np.int64) for q in primes])
+
+
+# --- the model against the plain version ------------------------------------
+
+@pytest.mark.parametrize("name", ["tiny2", "ci_small", "config5_boot", "config5_boot_dw"])
+def test_model_equals_plain_at_the_key_switch_tables(name):
+    """Every ModUp group and the ModDown at the top level, with the preset's
+    own primes, at N = 2^10 (the tables do not depend on N)."""
+    params = preset(name)
+    level = params.num_limbs
+    ksc = prns.make_ks_context(params, level, "cpu")
+    for g, (d0, d1) in enumerate(prns.ks_groups(params, level)):
+        _check(_rand(params.q_primes[d0:d1], N, g), ksc.modup[g])
+    _check(_rand(params.p_primes, N, 99), ksc.p2q)
+
+
+@pytest.mark.parametrize("tg", [1, 7, 16, 64])
+def test_destination_groups_do_not_change_the_result(tg):
+    params = preset("ci_small")
+    ksc = prns.make_ks_context(params, params.num_limbs, "cpu")
+    _check(_rand(params.q_primes[:2], N, tg), ksc.modup[0], tg=tg)
+
+
+def _worst_tables(S, T):
+    """Primes just below 2^30 and conv = p - 1 everywhere."""
+    primes = gen_ntt_primes(30, 2**11, S + T)
+    tabs = make_convert_tables(primes[:S], primes[S:], "cpu")
+    p = np.asarray(primes[S:], dtype=np.int64)[:, None]
+    conv = np.broadcast_to(p - 1, (T, S))
+    return primes[:S], dataclasses.replace(
+        tabs, conv=torch.from_numpy(conv.copy()),
+        k3=dataclasses.replace(tabs.k3, conv=torch.from_numpy(
+            conv.astype(np.uint32).view(np.int32).copy())))
+
+
+@pytest.mark.parametrize("s_dim", [1, 15, 16, 17, 32, 33])
+@pytest.mark.parametrize("largest", ["x", "v"])
+def test_model_at_worst_case_inputs(s_dim, largest):
+    """x = q - 1, or x with v_i = q_i - 1 (the largest products), against
+    conv = p - 1 and primes just below 2^30: 16 products and a carried
+    residue come within 2^-3 of 2^64 and no sum passes it."""
+    src, tabs = _worst_tables(s_dim, 5)
+    q = np.asarray(src, dtype=np.int64)[:, None]
+    if largest == "x":
+        x = np.broadcast_to(q - 1, (s_dim, 64)).copy()
+    else:  # x_i = -Qhat_i mod q_i gives v_i = x_i Qhat_i^-1 = q_i - 1
+        big = math.prod(src)
+        x = np.array([[(-(big // qi)) % qi] * 64 for qi in src], dtype=np.int64)
+    stats = {}
+    _check(x, tabs, stats=stats)
+    if largest == "v":
+        x_v = shoup32(x.astype(np.uint64), _u64(tabs.k3.qhinv)[:, None],
+                      _u64(tabs.k3.qhinv_shoup)[:, None], q.astype(np.uint64))
+        assert (x_v == q - 1).all()
+        if s_dim >= UNREDUCED:
+            assert stats["peak"] > 15 << 60  # the 16-term sum is near 2^64
+
+
+def test_thread_layout_covers_every_coefficient_once():
+    """Block b, thread i, coefficient k of cpt: c = b THREADS cpt + k THREADS
+    + i (warps coalesce along c), masked at c >= n; a ragged n included."""
+    for n in (64, 1000, 2**16):
+        for cpt in (1, 2):
+            per = THREADS * cpt
+            blocks = -(-n // per)
+            c = (np.arange(blocks)[:, None, None] * per + np.arange(cpt)[None, :, None] * THREADS
+                 + np.arange(THREADS)[None, None, :]).ravel()
+            live = c[c < n]
+            assert np.array_equal(np.sort(live), np.arange(n))
+
+
+def test_shared_memory_and_grid_stay_within_limits():
+    for S in (1, 10, 15, 31, 32, 33, 100, convert_cuda.K3_MAX_S):
+        for T in (1, 45, 58, convert_cuda.K3_MAX_T):
+            s4, stride, tg = launch_shape(S, T, convert_cuda.GROUP)
+            assert stride % (4 * s4) == 0 and stride >= S and 4 * stride * tg <= SMEM
+            assert -(-T // tg) <= 65535
+
+
+# --- tables and refusals ------------------------------------------------------
+
+def test_tables_against_their_definitions():
+    params = preset("config5_boot")
+    src, dst = params.p_primes, params.q_primes
+    tabs = make_convert_tables(src, dst, "cpu")
+    k3 = tabs.k3
+    big = math.prod(src)
+    qhinv = [pow(big // q, -1, q) for q in src]
+    assert tabs.k3_refusal is None
+    assert _u64(k3.sq).tolist() == list(src) and _u64(k3.dq).tolist() == list(dst)
+    assert _u64(k3.qhinv).tolist() == qhinv == tabs.qhinv.tolist()
+    assert _u64(k3.qhinv_shoup).tolist() == [(w << 32) // q for w, q in zip(qhinv, src)]
+    assert _u64(k3.conv).reshape(len(dst), len(src)).tolist() == [
+        [(big // q) % p for q in src] for p in dst] == tabs.conv.tolist()
+    assert _u64(k3.dmu).tolist() == [(1 << 64) // p for p in dst]
+    assert [getattr(k3, f.name).dtype for f in dataclasses.fields(K3Tables)] == [torch.int32] * 5 + [
+        torch.int64]
+
+
+def test_table_order_is_the_entry_points():
+    """K3Tables' fields, and so the ctypes argtypes, follow base_convert's parameters."""
+    src = (CSRC / "convert.cu").read_text()
+    sig = re.search(r'extern "C" int base_convert\((.*?)\)', src, re.S).group(1)
+    names = [p.split()[-1].lstrip("*") for p in sig.split(",")]
+    fields = [f.name for f in dataclasses.fields(K3Tables)]
+    assert names == ["x", "out", "S", "T", "n", "tg", "cpt", *fields, "stream"]
+    assert len(convert_cuda.KERNEL.argtypes) == len(names)
+
+
+def test_refusals_are_set_where_the_tables_are_built():
+    big = next(p for p in range((1 << 30) + 1, (1 << 30) + 10**4, 2) if is_prime(p))
+    tabs = make_convert_tables((97, big), (193, 257), "cpu")
+    assert "below 2^30" in tabs.k3_refusal
+    assert "below 2^30" in make_convert_tables((97,), (big,), "cpu").k3_refusal
+    assert make_convert_tables((97,), tuple(gen_ntt_primes(30, 2**11, 1)), "cpu").k3_refusal is None
+    assert k3_refusal(tuple(range(3, 3 + convert_cuda.K3_MAX_S + 1)), (5,))
+    assert k3_refusal((3,), tuple(range(5, 5 + convert_cuda.K3_MAX_T + 1)))
+    assert k3_refusal((), (5,))
+    before = convert_cuda.KERNEL.launches
+    with pytest.raises(ValueError, match="below 2"):
+        convert_cuda.base_convert_cuda(torch.zeros((2, 8), dtype=torch.int64), tabs)
+    assert convert_cuda.KERNEL.launches == before

@@ -7,6 +7,8 @@ that has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
     python3 -m pytest -q -p no:cacheprovider --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ from gpufhe_tpu_torch.keys import keys as dkeys
 from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda, probes
 from gpufhe_tpu_torch.ops.context import make_context
 from gpufhe_tpu_torch.ops.convert_cuda import make_convert_tables
-from gpufhe_tpu_torch.params.params import gen_ntt_primes, preset
+from gpufhe_tpu_torch.params.params import gen_ntt_primes, is_prime, preset
 from gpufhe_tpu_torch.primitives import keyswitch
 
 pytestmark = pytest.mark.gpu
@@ -58,16 +60,34 @@ def test_ntt_kernel_matches_plain(cuda_device, name):
     assert torch.equal(back, top)
 
 
-@pytest.mark.parametrize("s_dim,t_dim", [(15, 45), (15, 30), (2, 6)])
+@pytest.mark.parametrize("s_dim,t_dim", [(15, 45), (15, 30), (2, 6), (1, 3), (16, 45), (17, 45),
+                                         (33, 40), (10, 58), (8, 58)])
 def test_convert_kernel_matches_plain(cuda_device, s_dim, t_dim):
+    """Random and worst-case residues (x = q - 1) against primes just below
+    2^30, one launch per call; S = 1, 16, 17 and 33 cross the kernel's
+    chunk and reduction boundaries."""
     src = tuple(gen_ntt_primes(30, 2**17, s_dim))
     dst = tuple(gen_ntt_primes(28, 2**17, t_dim))
-    x = torch.from_numpy(_rand(src, range(s_dim), 2**16, 9)).to(cuda_device)
     tabs = make_convert_tables(src, dst, cuda_device)
+    x = torch.from_numpy(_rand(src, range(s_dim), 2**16, 9)).to(cuda_device)
+    top = (tabs.sq[:, None] - 1).expand(s_dim, 2**16).contiguous()
+    for data in (x, top):
+        before = convert_cuda.KERNEL.launches
+        got = convert_cuda.base_convert_cuda(data, tabs)
+        assert convert_cuda.KERNEL.launches == before + 1
+        assert torch.equal(got, convert_cuda.base_convert_plain(data, tabs))
+
+
+def test_convert_kernel_raises_its_refusal(cuda_device):
+    """Tables with a prime >= 2^30: the wrapper raises the reason recorded
+    when they were built, and launches nothing."""
+    big = next(p for p in range((1 << 30) + 1, (1 << 30) + 10**4, 2) if is_prime(p))
+    tabs = make_convert_tables((97, big), (193, 257), cuda_device)
+    x = torch.ones((2, 1024), dtype=torch.int64, device=cuda_device)
     before = convert_cuda.KERNEL.launches
-    got = convert_cuda.base_convert_cuda(x, tabs)
-    assert torch.equal(got, convert_cuda.base_convert_plain(x, tabs))
-    assert convert_cuda.KERNEL.launches == before + 1
+    with pytest.raises(ValueError, match=re.escape(tabs.k3_refusal)):
+        convert_cuda.base_convert_cuda(x, tabs)
+    assert convert_cuda.KERNEL.launches == before
 
 
 def test_mul_full_on_card_equals_cpu_path(cuda_device):
