@@ -6,7 +6,7 @@
 Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
 against its plain PyTorch version on the card: K1 (NTT), K3 (base
 conversion), K4 (key-switch MAC), and the two probes, the integer rate (P2)
-and the K1 ablation builds (P1). Then it drives three paths through the
+and the K1 ablation builds (P1). Then it drives five paths through the
 package's entry points, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -16,7 +16,27 @@ and read just after:
   dw      the double-word multiply of config5_boot_dw (N=2^16, 48 q-limbs,
           10 special primes, dnum=5, scale_words=2, encapsulation keys);
   rotate  at config5_boot: ct_rotate, ct_conjugate, ct_rotate_hoisted,
-          ct_mul_plain and ct_plain_mac.
+          ct_mul_plain and ct_plain_mac;
+  boot_ci the whole CKKS bootstrap at boot_dw_ci_enc (N=2^7, factored
+          transforms at radix_log 3, Chebyshev EvalMod, encapsulation), on
+          the card and on the CPU with the same keys and draws: every phase
+          output (mod_raise, coeff_to_slot t0/t1, evalmod y0/y1,
+          slot_to_coeff) == limb for limb, which holds K1, K3 and K4 at the
+          bootstrap's shapes against their plain versions;
+  boot    the flagship bootstrap at config5_boot_dw, as the reference's
+          scripts/bootstrap_n16_dw.py drives it: keygen (rlk, eph h=32, the
+          63 Galois keys of the factored transforms at radix_log 3, conj),
+          Bootstrapper(factored, radix 3, cheb, k_bound 10), per-step key
+          truncation, then one first call and five steady calls on
+          z = 0.2 (N(0,1) + i N(0,1)) encrypted at level 2, each decoded
+          within BOOT_TOL; its ModRaise stage (to_eph, ct_mod_raise2,
+          from_eph) == the CPU path at full width; per-phase times, the
+          steady calls' CUDA-event times (median and spread), the
+          device-busy share of one profiled call over its own event time,
+          launches per phase, host encodes per call and peak device
+          memory. After its counts are read, K4 is held == its plain
+          version at every shape the fans give it, on the path's own
+          plaintext stacks and truncated keys (boot_mac_check).
 
 Each path's ciphertexts are checked == the same path on the CPU and decoded
 against the cleartext result; the kernels and stage leaves are timed with
@@ -65,6 +85,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # integer-rate probe's own rows; the kernels' bounds use the measured rates
 ALU_OPS_PER_S = 67e12
 DECODE_TOL = 1e-2  # tests/test_pipeline.py:109
+BOOT_PRESET = "config5_boot_dw"
+BOOT_CI_PRESET = "boot_dw_ci_enc"
+BOOT_RADIX = 3
+BOOT_K_BOUND = 10.0  # the reference flagship's (scripts/bootstrap_n16_dw.py)
+BOOT_CI_K_BOUND = 5.0  # the reference's at CI size (tests/test_fftboot.py)
+BOOT_TOL = 1e-3  # tests/test_fftboot.py:193, the dw bootstrap's tolerance
+BOOT_STEADY = 5
 
 T0 = time.perf_counter()
 
@@ -84,28 +111,30 @@ def card() -> tuple[str, str]:
 
 
 def device_profile(fn, iters: int = 5) -> tuple[float, float, list]:
-    """Profile `iters` calls: (device-busy ms per call, busy share of the host
-    wall clock, [(device ms per call, kernel name, launches seen)] largest
-    first)."""
+    """Profile `iters` calls: (device-busy ms per call, the profiled calls'
+    own CUDA-event ms per call, [(device ms per call, kernel name, launches
+    seen)] largest first). Busy over span is the device's busy share of
+    those very calls, the profiler's own host cost included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+        start.record()
         for _ in range(iters):
             fn()
+        stop.record()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+    span_ms = start.elapsed_time(stop) / iters
     per = []
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
             us = getattr(ev, "self_device_time_total", None)
             us = ev.self_cuda_time_total if us is None else us
             per.append((us / 1e3 / iters, ev.key, ev.count))
-    busy = sum(ms for ms, _, _ in per)
-    return busy, busy * iters / wall_ms, sorted(per, reverse=True)
+    return sum(ms for ms, _, _ in per), span_ms, sorted(per, reverse=True)
 
 
 # the kernels' names as the profiler reports them
@@ -171,10 +200,11 @@ def same_limbs(got, want, what: str) -> None:
             raise AssertionError(f"{what}: component {i} differs from the CPU path")
 
 
-def decode_err(got: np.ndarray, want: np.ndarray, slots: int, what: str) -> float:
+def decode_err(got: np.ndarray, want: np.ndarray, slots: int, what: str,
+               tol: float = DECODE_TOL) -> float:
     err = float(np.abs(got - want).max())
-    if not np.isfinite(got).all() or got.shape != (slots,) or err >= DECODE_TOL:
-        raise AssertionError(f"{what}: decoded result off by {err} (tolerance {DECODE_TOL})")
+    if not np.isfinite(got).all() or got.shape != (slots,) or err >= tol:
+        raise AssertionError(f"{what}: decoded result off by {err} (tolerance {tol})")
     return err
 
 
@@ -187,6 +217,302 @@ def unit_disk(rng: np.random.Generator, size: int) -> np.ndarray:
     largest slot error near 1e-2, on the CPU path as on the card.
     """
     return np.sqrt(rng.random(size)) * np.exp(2j * np.pi * rng.random(size))
+
+
+def phase_hook(counts, phases: dict, per_phase: dict, events: list | None = None):
+    """A Bootstrapper `_phase` hook that keeps each phase's outputs and the
+    kernel launches made since the previous mark (or since this call); with
+    `events`, also a recorded CUDA event per mark, after one recorded now."""
+    state = {"c": counts()}
+
+    def record(name):
+        if events is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+    def mark(name, outs):
+        record(name)
+        now = counts()
+        phases[name] = outs
+        per_phase[name] = {k: now[k] - state["c"][k] for k in now}
+        state["c"] = now
+
+    record("start")
+    return mark
+
+
+def event_ms(events: list) -> dict:
+    """{phase: CUDA-event ms since the previous mark} of phase_hook's events."""
+    torch.cuda.synchronize()
+    return {name: start.elapsed_time(ev)
+            for (_, start), (name, ev) in zip(events, events[1:])}
+
+
+def gib(nbytes: float) -> str:
+    return f"{nbytes / 2**30:.3f} GiB"
+
+
+def boot_ci_path(dev, counts, reset, launches: dict) -> None:
+    """Paths boot_ci (the card) and its check (the CPU): the whole bootstrap
+    at BOOT_CI_PRESET, == phase for phase."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bootstrap import Bootstrapper, bootstrap_rotations
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.keys import keys as dkeys
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    params = preset(BOOT_CI_PRESET)
+    rots = tuple(bootstrap_rotations(params, "factored", BOOT_RADIX))
+    zr = np.random.default_rng(0)
+    z = (zr.normal(size=params.slots) + 1j * zr.normal(size=params.slots)) * 0.2
+
+    def run(device):
+        ctx = make_context(params, device)
+        chest = dkeys.keygen(params, np.random.default_rng(7), ctx, rots, conjugation=True)
+        be = DeviceBackend(params, ctx, chest)
+        bs = Bootstrapper(be, transform="factored", radix_log=BOOT_RADIX, evalmod="cheb",
+                          k_bound=BOOT_CI_K_BOUND)
+        ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                         np.random.default_rng(1), params.scale, level=params.scale_words)
+        phases, per_phase = {}, {}
+        out = bs(ct, _phase=phase_hook(counts, phases, per_phase))
+        return be, phases, per_phase, out
+
+    t = time.perf_counter()
+    reset()
+    be, phases, per_phase, out = run(dev)
+    err = decode_err(be.decrypt_decode(out), z, params.slots, "boot_ci bootstrap", BOOT_TOL)
+    launches["boot_ci"] = counts()
+    say("boot_ci_path", f"keygen ({len(rots)} Galois keys, conj, eph h="
+        f"{params.eph_hamming_weight}), Bootstrapper(factored, radix {BOOT_RADIX}, cheb, k_bound "
+        f"{BOOT_CI_K_BOUND}), one bootstrap at {BOOT_CI_PRESET} (N={params.n}); output level "
+        f"{out.level}, max |dec - z| = {err:.3e} < {BOOT_TOL}; launches {launches['boot_ci']}, "
+        f"per phase {per_phase}", t)
+    t = time.perf_counter()
+    _, phases_c, _, _ = run("cpu")
+    n_cts = 0
+    for name, outs in phases.items():
+        for i, (g, c) in enumerate(zip(outs, phases_c[name], strict=True)):
+            same_limbs(g, c, f"boot_ci {name} [{i}]")
+            n_cts += 1
+    for name, per in per_phase.items():
+        if min(per.values()) <= 0:
+            raise AssertionError(f"boot_ci phase {name}: a kernel did not run ({per})")
+    say("boot_ci_check", f"{n_cts} phase outputs ({', '.join(phases)}) == the CPU path limb for "
+        f"limb; K1, K3 and K4 launched in every phase", t)
+
+
+def boot_mac_check(params, ctx, bs, chest, smi) -> None:
+    """K4 == its plain version at the shapes every fan stage of the flagship
+    gives it, on the path's own plaintext stacks and truncated Galois keys
+    (random canonical ciphertext operands): per stage, the first MAC level
+    (raised digits through an offset's automorphism against its key,
+    written into a slot of the [2, R, K+alpha, N] stack through `out`; the
+    offset whose key is stored with the fewest rows), and per output set
+    the second (the R-diagonal plaintext stack against that stack), the
+    gathered c0 stack against the plaintext stack's q rows, and the
+    zero-offset diagonal against c0 and c1. Called after the path's launch
+    counts are read."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.golden import ckks as gckks
+    from gpufhe_tpu_torch.ops import mac_cuda
+    from gpufhe_tpu_torch.primitives import keyswitch, rns
+
+    t = time.perf_counter()
+    gen = torch.Generator(ctx.device).manual_seed(SEED)
+
+    def rand(lead, rows):
+        q = ctx.col("q", rows)
+        return torch.randint(0, 2**62, (*lead, len(rows), params.n), generator=gen,
+                             device=ctx.device) % q
+
+    full_rows = params.num_limbs + len(params.p_primes)
+    cts, stc = bs.f_cts, bs.f_stc
+    plans = ([("CtS", p) for p in (*cts.shared, cts.last)]
+             + [("StC", p) for p in (stc.first_lo, stc.first_hi, *stc.rest)])
+    done, truncated, n_checks = [], 0, 0
+    for stage, plan in plans:
+        fan = plan.fan
+        level, r_count = fan.level, len(fan.offsets)
+        qp = keyswitch.qp_indices(params, level)
+        chain = ctx.index(qp, torch.int32)
+        rows_qp = ctx.index(range(len(qp)), torch.int32)
+        rows_q = ctx.index(range(level), torch.int32)
+        j, step = min(enumerate(fan.offsets), key=lambda o: chest.galois_key(o[1]).b_mont.shape[1])
+        key = chest.galois_key(step)
+        stored = key.b_mont.shape[1]
+        truncated += stored < full_rows
+        perm = dct.galois_perm(gckks.galois_exponent(step, params.n), ctx, torch.int32)
+        key_rows = ctx.index(keyswitch.key_row_index(params, level, stored), torch.int32)
+        raised = rand((len(rns.ks_groups(params, level)),), qp)
+        stack = rand((2, r_count), qp)
+        args = (raised, key.b_mont, key.a_mont, key_rows, chain, ctx, perm)
+        mac_cuda.mac_cuda(*args, out=stack[:, j])
+        exact(stack[:, j], mac_cuda.mac_plain(*args), f"K4 {stage} level {level} fan level 1")
+        n_checks += 1
+        for pts, pt0 in zip(fan.pt_stacks, fan.pt0s):
+            cases = {"level 2": (pts, stack[0], stack[1], rows_qp, chain, ctx),
+                     "gathered c0": (rand((r_count,), range(level)), pts, None, rows_q, rows_q,
+                                     ctx)}
+            if pt0 is not None:
+                cs = rand((2, 1), range(level))
+                cases["zero offset"] = (pt0[:level][None], cs[0], cs[1], rows_q, rows_q, ctx)
+            for what, args in cases.items():
+                exact(mac_cuda.mac_cuda(*args), mac_cuda.mac_plain(*args),
+                      f"K4 {stage} level {level} fan {what}")
+                n_checks += 1
+        done.append(f"{stage} {level}: R={r_count} x {len(fan.pt_stacks)} sets, D={raised.shape[0]} "
+                    f"x T={len(qp)}, key {stored}/{full_rows} rows")
+        del stack, raised
+    if not truncated:
+        raise AssertionError("no fan stage of the flagship read a truncated Galois key")
+    say("boot_mac_check", f"K4 == plain in {n_checks} launches at every fan stage's shapes, on "
+        f"the flagship's plans and keys (stage level: offsets R x output sets, the first MAC "
+        f"level's digits D x rows T, the least-stored key's rows; the second level is D=R x T, "
+        f"the gathered c0 D=R x level rows): " + "; ".join(done) + f"  [{smi}]", t)
+
+
+def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
+    """Path boot: the flagship bootstrap at BOOT_PRESET (see the module
+    docstring). Returns its numbers for the summary, and under "call" one
+    more steady call for the bounds of its kernels' launches."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bootstrap import Bootstrapper, bootstrap_rotations
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.keys import keys as dkeys
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.ops.probes import cuda_ms
+    from gpufhe_tpu_torch.params.params import preset
+
+    params = preset(BOOT_PRESET)
+    ctx = make_context(params, dev)
+    peak = {}
+
+    def mark_peak(what):
+        torch.cuda.synchronize()
+        peak[what] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def key_bytes(chest):
+        keys = [k for _, k in chest.galois.values()] + [chest.conj[1]]
+        return sum(8 * (k.b_mont.numel() + k.a_mont.numel()) for k in keys)
+
+    t = time.perf_counter()
+    reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rots = tuple(bootstrap_rotations(params, "factored", BOOT_RADIX))
+    chest = dkeys.keygen(params, np.random.default_rng(7), ctx, rots, conjugation=True)
+    mark_peak("keygen")
+    keygen_s = time.perf_counter() - t
+    t1 = time.perf_counter()
+    be = DeviceBackend(params, ctx, chest)
+    bs = Bootstrapper(be, transform="factored", radix_log=BOOT_RADIX, evalmod="cheb",
+                      k_bound=BOOT_K_BOUND)
+    mark_peak("plan")
+    plan_s, plan_misses = time.perf_counter() - t1, be.encode_misses
+    t1 = time.perf_counter()
+    full_bytes = key_bytes(chest)
+    steps, conj_level = bs.galois_step_levels()
+    dkeys.truncate_galois_device(chest, steps, conj_level, params)
+    mark_peak("truncate")
+    trunc_s = time.perf_counter() - t1
+    say("boot_setup", f"{BOOT_PRESET}: keygen (rlk, eph h={params.eph_hamming_weight}, "
+        f"{len(rots)} Galois keys, conj; canonical forms on the host) {keygen_s:.2f} s; Bootstrapper("
+        f"factored, radix {BOOT_RADIX}, cheb, k_bound {BOOT_K_BOUND}) plans {plan_s:.2f} s, "
+        f"{plan_misses} host encodes; key truncation {trunc_s:.2f} s, Galois and conj keys "
+        f"{gib(full_bytes)} -> {gib(key_bytes(chest))}; StC at level "
+        f"{bs.f_stc.first_lo.level}; peak device memory keygen {gib(peak['keygen'])}, plans "
+        f"{gib(peak['plan'])}  [{smi}]", t)
+
+    t = time.perf_counter()
+    zr = np.random.default_rng(0)
+    z = (zr.normal(size=params.slots) + 1j * zr.normal(size=params.slots)) * 0.2
+    ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                     np.random.default_rng(1), params.scale, level=2)
+    torch.cuda.synchronize()
+    phases, per_phase = {}, {}
+    m0, t1 = be.encode_misses, time.perf_counter()
+    out = bs(ct, _phase=phase_hook(counts, phases, per_phase))
+    torch.cuda.synchronize()
+    first_s, first_misses = time.perf_counter() - t1, be.encode_misses - m0
+    mark_peak("first call")
+    errs = [decode_err(be.decrypt_decode(out), z, params.slots, "boot first call", BOOT_TOL)]
+    for name, per in per_phase.items():
+        if min(per.values()) <= 0:
+            raise AssertionError(f"boot phase {name}: a kernel did not run ({per})")
+    say("boot_first", f"first call {first_s:.3f} s, {first_misses} host encodes; output level "
+        f"{out.level}, scale 2^{math.log2(out.scale):.6f}; max |dec - z| = {errs[0]:.3e} < "
+        f"{BOOT_TOL}; launches per phase {per_phase}  [{smi}]", t)
+
+    t = time.perf_counter()
+    steady, steady_ms, steady_launches = [], [], None
+    for i in range(BOOT_STEADY):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        m0, before, t1 = be.encode_misses, counts(), time.perf_counter()
+        start.record()
+        out = bs(ct)
+        stop.record()
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t1)
+        steady_ms.append(start.elapsed_time(stop))
+        steady_launches = {k: v - before[k] for k, v in counts().items()}
+        if be.encode_misses != m0:
+            raise AssertionError(f"steady call {i}: {be.encode_misses - m0} host encodes")
+        errs.append(decode_err(be.decrypt_decode(out), z, params.slots, f"boot steady call {i}",
+                               BOOT_TOL))
+    call_ms = float(np.median(steady_ms))
+    out, phase_s = bs.timed_call(ct)
+    errs.append(decode_err(be.decrypt_decode(out), z, params.slots, "boot timed call", BOOT_TOL))
+    events, steady_phase = [], {}
+    bs(ct, _phase=phase_hook(counts, {}, steady_phase, events))
+    phase_ms = event_ms(events)
+    mark_peak("steady calls")
+    say("boot_steady", f"{BOOT_STEADY} steady calls {[round(x, 4) for x in steady]} s (host "
+        f"clock, synchronised), 0 host encodes each, launches per call {steady_launches}; "
+        f"by CUDA events {[round(x, 3) for x in steady_ms]} ms, median {call_ms:.3f}, spread "
+        f"{min(steady_ms):.3f} to {max(steady_ms):.3f}; one more call, per phase, CUDA events "
+        f"(ms) " + ", ".join(f"{k} {v:.3f}" for k, v in phase_ms.items())
+        + "; timed_call (host clock, synchronised at each phase; s) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in phase_s.items())
+        + f"; launches per phase of a steady call {steady_phase}; max |dec - z| per call "
+        f"{[f'{e:.3e}' for e in errs[1:]]} < {BOOT_TOL}  [{smi}]", t)
+
+    t = time.perf_counter()
+    busy, span, top = device_profile(lambda: bs(ct), iters=1)
+    groups = {"K1": "k1_pass", "K3": K3_NAME, "K4": K4_NAME}
+    traced = {g: sum(c for _, name, c in top if key in name) for g, key in groups.items()}
+    per_group = {g: sum(ms for ms, name, _ in top if key in name) for g, key in groups.items()}
+    say("boot_profile", f"one steady call under the profiler: device busy {busy:.3f} ms, "
+        f"{busy / span:.1%} of its own CUDA-event time ({span:.3f} ms, the profiler's host cost "
+        f"included), {busy / call_ms:.1%} of the unprofiled calls' median; per kernel (ms) "
+        + ", ".join(f"{g} {ms:.3f}" for g, ms in per_group.items())
+        + f", the rest {busy - sum(per_group.values()):.3f}; launches traced {traced}, made "
+        f"{ {'K1': 2 * steady_launches['ntt'], 'K3': steady_launches['convert'], 'K4': steady_launches['mac']} }"
+        f"; largest: " + "; ".join(f"{ms:.3f} {name[:50]}" for ms, name, _ in top[:6])
+        + f"  [{smi}]", t)
+
+    # the ModRaise stage on the CPU, from the same input and encapsulation keys
+    t = time.perf_counter()
+    eph = {k: dkeys.DeviceKSKey(*(x.cpu() for x in chest.eph[k][1]))
+           for k in ("to_eph", "from_eph")}
+    x = dct.Ciphertext([c.cpu() for c in ct.c], ct.level, ct.scale)
+    x = dct.ct_key_switch(x, params, ctx_cpu, eph["to_eph"])
+    x = dct.ct_mod_raise2(x, params, ctx_cpu)
+    x = dct.ct_key_switch(x, params, ctx_cpu, eph["from_eph"])
+    same_limbs(phases["mod_raise"][0], x, "boot ModRaise stage")
+    launches["boot"] = counts()
+    say("boot_check", f"ModRaise stage (to_eph, ct_mod_raise2, from_eph) == the CPU path at "
+        f"{BOOT_PRESET} ({x.level} limbs x 2); peak device memory per step "
+        + ", ".join(f"{k} {gib(v)}" for k, v in peak.items())
+        + f"; launches {launches['boot']}  [{smi}]", t)
+    boot_mac_check(params, ctx, bs, chest, smi)
+    return {"keygen_s": keygen_s, "plan_s": plan_s, "first_s": first_s, "steady_s": steady,
+            "event_ms": steady_ms, "busy_ms": busy, "span_ms": span, "max_err": max(errs),
+            "call": lambda: bs(ct)}
 
 
 def main() -> None:
@@ -528,6 +854,11 @@ def main() -> None:
         f"{k} {v:.3e}" for k, v in errs.items()) + f" < {DECODE_TOL}; K4 launches per op "
         + ", ".join(f"{k} {v['mac']}" for k, v in per_op.items()), t)
 
+    # 9b. paths "boot_ci" and "boot": the bootstrap at CI size (card == CPU)
+    #     and the config5_boot_dw flagship
+    boot_ci_path(dev, counts, reset, launches)
+    boot = boot_path(dev, smi, counts, reset, launches, ctx_dw_cpu)
+
     # 10. times on the card (CUDA events, after warm-up; K3 and K4 also by
     #     profiler kernel time, as `dev_times`)
     t = time.perf_counter()
@@ -588,7 +919,7 @@ def main() -> None:
     groups = {"K1": "k1_pass", "K3": K3_NAME, "K4": K4_NAME}
     for tag, per in (("", per_mul), ("_dw", per_dw)):
         iters = 5
-        busy, share, top = device_profile(leaves[f"mul_full{tag}"], iters)
+        busy, span, top = device_profile(leaves[f"mul_full{tag}"], iters)
         # a trace that dropped launches reads low: compare with the launch counts
         want = {"K1": 2 * per["ntt"] * iters, "K3": per["convert"] * iters,
                 "K4": per["mac"] * iters}
@@ -596,8 +927,8 @@ def main() -> None:
         print(f"profile mul_full{tag} launches traced {seen}, expected {want}", flush=True)
         event_share = busy / times[f"mul_full{tag}"]
         print(f"profile mul_full{tag}: device busy {busy:.4f} ms per call, {event_share:.1%} of "
-              f"the CUDA-event time, {share:.1%} of the host wall clock under the profiler  "
-              f"[{smi}]", flush=True)
+              f"the CUDA-event time of 10 calls unprofiled, {busy / span:.1%} of the profiled "
+              f"calls' own CUDA-event time ({span:.4f} ms)  [{smi}]", flush=True)
         per_group = {g: sum(ms for ms, name, _ in top if key in name) for g, key in groups.items()}
         print(f"profile mul_full{tag} per kernel, ms per call: " + ", ".join(
             f"{g} {ms:.4f}" for g, ms in per_group.items())
@@ -664,10 +995,10 @@ def main() -> None:
         seen["convert"].append(conv_work(x.shape[0], tabs.dq.numel()))
         return real[1](x, tabs)
 
-    def mac_rec(x, y0, y1, rows, chain, ctx_, perm=None):
+    def mac_rec(x, y0, y1, rows, chain, ctx_, perm=None, out=None):
         seen["mac"].append(mac_work(x.shape[0], x.shape[1], perm is not None,
                                     1 if y1 is None else 2))
-        return real[2](x, y0, y1, rows, chain, ctx_, perm)
+        return real[2](x, y0, y1, rows, chain, ctx_, perm, out)
 
     ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = (
         ntt_rec, conv_rec, mac_rec)
@@ -675,6 +1006,7 @@ def main() -> None:
         "ct_mul_full": lambda: dct.ct_mul_full(cts[0], cts[1], params, ctx, chest.device_rlk),
         "ct_mul_full_dw": lambda: dct.ct_mul_full(*cts_dw, dw, ctx_dw, chest_dw.device_rlk),
         "ct_rotate": leaves["ct_rotate"],
+        f"bootstrap at {BOOT_PRESET} (steady)": boot.pop("call"),
     }
     try:
         for what, fn in per_call.items():
@@ -689,6 +1021,7 @@ def main() -> None:
                       f"{sum(w[2] for w in work) / 1e6:.1f} M multiply-adds", flush=True)
     finally:
         ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = real
+        del per_call  # the flagship's keys and plans
     ntt45 = ntt_work(qp, qp)
     s_up, t_up = params.alpha, qp
     conv_up = conv_work(s_up, t_up)
@@ -776,6 +1109,7 @@ def main() -> None:
         for k, (_, tb, r) in shapes.items()), t)
 
     total = {key: sum(launches[p][key] for p in launches) for key in kernels}
+    by_path = {key: {p: launches[p][key] for p in launches} for key in kernels}
     rows = []
     for name, key, src, repl, err, work, ms, dev_ms, plain in (
         ("ntt_fourstep", "ntt", "gpufhe_tpu_torch/csrc/ntt.cu",
@@ -791,7 +1125,7 @@ def main() -> None:
         b_ms, b_by = bound(*work)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": total[key], "max_abs_err": err, "ms": ms, "device_ms": or_null(dev_ms),
+            "launches": total[key], "launches_by_path": by_path[key], "max_abs_err": err, "ms": ms, "device_ms": or_null(dev_ms),
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     for mix in probes.MIXES:
@@ -823,6 +1157,13 @@ def main() -> None:
           f"path: their launches are those of their own timing phase (int_rate, ntt_ablation). "
           f"No single PyTorch call computes any of these functions mod q, so library_ms is null; "
           f"total {time.perf_counter() - T0:.1f} s", flush=True)
+    print(f"# boot path at {BOOT_PRESET}: keygen {boot['keygen_s']:.2f} s, plans "
+          f"{boot['plan_s']:.2f} s, first call {boot['first_s']:.3f} s, steady calls "
+          f"{[round(x, 4) for x in boot['steady_s']]} s on the host clock, "
+          f"{[round(x, 3) for x in boot['event_ms']]} ms by CUDA events (median "
+          f"{np.median(boot['event_ms']):.3f}); one profiled call {boot['busy_ms']:.3f} ms device "
+          f"busy in {boot['span_ms']:.3f} ms of its own event time; max |dec - z| "
+          f"{boot['max_err']:.3e}  [{smi}]", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

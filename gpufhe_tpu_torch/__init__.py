@@ -11,7 +11,10 @@ same path under the other package:
   primitives/  ModUp / ModDown / rescale, hybrid key switching
   keys/        Montgomery-form device keys and the key chest
   encoding/    canonical-embedding encode/decode, plaintext upload
-  ciphertext/  encrypt / decrypt, tensor, relinearize, rescale, ct_mul_full
+  ciphertext/  encrypt / decrypt, tensor, relinearize, rescale, ct_mul_full,
+               rotations, the fused diagonal fan and ModRaise (ct.py); the
+               DeviceBackend surface, BSGS and factored-FFT linear maps,
+               the Chebyshev evaluator and the CKKS Bootstrapper
   interop      carrying gpufhe_tpu state (numpy arrays) into this package
 
 Residues are int64 tensors holding canonical values in [0, q) for primes

@@ -3,15 +3,16 @@
 Counterpart of gpufhe_tpu/ciphertext/ct.py: encrypt (host draws in the
 reference's order), decrypt, add/sub, tensor, relinearize, rescale, ct_mul,
 the fused ct_mul_full (ct.py:244-308), key switching, rotations and
-conjugation (one-shot and hoisted), the plaintext multiply and the fused
-plaintext MAC. Ciphertexts are int64[K, N] canonical residues per component
+conjugation (one-shot and hoisted), the plaintext multiply, the fused
+plaintext MAC, the fused diagonal fan of the bootstrap's linear transforms
+and the single- and double-word ModRaise. Ciphertexts are int64[K, N] canonical residues per component
 in the NTT domain, K the level's active q-primes; every component equals the
 reference's limb for limb.
 
 Every inner product runs through kernel K4 (ops/mac_cuda.py) on the card:
 the key switch's gadget MAC, the hoisted rotation's (with the automorphism
 folded into K4's loads), the plaintext MAC and the plaintext multiply (a MAC
-of one term).
+of one term), and both MAC levels of the diagonal fan.
 
 PyTorch runs eagerly, so the reference's jit cores become plain functions.
 The reference's XLA fences (optimization_barrier) and GPUFHE_* switches
@@ -32,7 +33,8 @@ from gpufhe_tpu_torch.ops.mac_cuda import mac
 from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, mul_mod, sub_mod
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
-from gpufhe_tpu_torch.primitives.keyswitch import gadget_mac, hoist, key_switch_core, ks_finish
+from gpufhe_tpu_torch.primitives.keyswitch import (gadget_mac, hoist, key_switch_core, ks_finish,
+                                                   qp_indices)
 from gpufhe_tpu_torch.primitives.rns import make_ks_context, rescale
 
 
@@ -298,3 +300,128 @@ def ct_rotate_hoisted(ct: Ciphertext, steps_list, params: CKKSParams, ctx: Conte
         c0g = ct.c[0][:, galois_perm(g, ctx)]
         out.append(Ciphertext([add_mod(c0g, ks0, q), ks1], level, ct.scale))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The fused diagonal fan ("double hoisting"): reference ct_diag_fan and
+# _diag_fan_core (ct.py:596-772), the stage behind fftboot.DiagPlan
+# ---------------------------------------------------------------------------
+
+
+def ct_diag_fan(
+    ct: Ciphertext,
+    offsets: tuple,
+    pt_stacks: tuple,
+    pt0s: tuple,
+    pt_scale: float,
+    params: CKKSParams,
+    ctx: Context,
+    gks: dict,
+) -> list:
+    """One grouped diagonal stage: for each output set s,
+
+        rescale^scale_words( sum_j pt_s[j] * rot_{offsets[j]}(ct) + pt0_s * ct )
+
+    with one hoisted decomposition for every rotation and one ModDown per
+    output. offsets: the sorted nonzero rotation steps (R of them);
+    pt_stacks: per set, int64[R, K+alpha, N] NTT-domain Montgomery
+    plaintext diagonals over the active Q+P basis (missing offsets zero);
+    pt0s: per set, the zero-offset diagonal int64[K+alpha, N] or None; all
+    at scale pt_scale. gks maps steps -> DeviceKSKey (stored at any level
+    >= the ciphertext's). Returns one Ciphertext per set, limb-equal to the
+    reference's.
+
+    Every inner product is a K4 launch: per offset, the raised digits (read
+    through the offset's automorphism) against its Galois key, both
+    components written into one [2, R, K+alpha, N] stack; per set, the
+    plaintext stack against that stack (R digits, two outputs); per set,
+    the gathered c0 stack against the plaintext stack's q rows (one
+    output); and per set with a zero-offset diagonal, c0 and c1 times it.
+    """
+    if len(ct.c) != 2:
+        raise ValueError("ct_diag_fan takes a 2-component ciphertext")
+    level = ct.level
+    r_count = len(offsets)
+    qp = qp_indices(params, level)
+    ksc = make_ks_context(params, level, ctx.device)
+    raised = hoist(ct.c[1], params, level, ctx, ksc)
+    exps = [gckks.galois_exponent(s, params.n) for s in offsets]
+    t = torch.empty((2, r_count, len(qp), params.n), dtype=torch.int64, device=ctx.device)
+    for j, (s, g) in enumerate(zip(offsets, exps)):
+        gadget_mac(raised, params, level, ctx, gks[s], perm=galois_perm(g, ctx, torch.int32),
+                   out=t[:, j])
+    c0, c1 = ct.c[0].contiguous(), ct.c[1].contiguous()
+    c0g = torch.stack([c0[:, galois_perm(g, ctx)] for g in exps])
+    rows_qp = ctx.index(range(len(qp)), torch.int32)
+    chain_qp = ctx.index(qp, torch.int32)
+    rows_q = ctx.index(range(level), torch.int32)
+    q = ctx.col("q", range(level))
+    outs = []
+    for pts, pt0 in zip(pt_stacks, pt0s):
+        acc = mac(pts, t[0], t[1], rows_qp, chain_qp, ctx)
+        down = ks_finish(acc, params, level, ctx, ksc, eval_out=False)
+        e = [mac(c0g, pts, None, rows_q, rows_q, ctx)[0]]
+        if pt0 is not None:
+            p0 = mac(pt0[:level][None], c0[None], c1[None], rows_q, rows_q, ctx)
+            e = [add_mod(e[0], p0[0], q), p0[1]]
+        e_coeff = ntt_inv(torch.stack(e), ctx, limbs=range(level))
+        cc = torch.stack([add_mod(down[i], e_coeff[i], q) if i < len(e) else down[i]
+                          for i in range(2)])
+        cc, lvl, scale = _rescale_chain(cc, params, level, ctx, ct.scale * pt_scale)
+        outs.append(Ciphertext(list(ntt_fwd(cc, ctx, limbs=range(lvl))), lvl, scale))
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# ModRaise (bootstrapping step 0): reference ct_mod_raise and ct_mod_raise2
+# (ct.py:774-873)
+# ---------------------------------------------------------------------------
+
+
+def _const_col(ctx: Context, values: list[int]) -> torch.Tensor:
+    """A cached int64[L, 1] column of per-prime constants on ctx's device."""
+    key = ("const_col", tuple(values))
+    if key not in ctx.cache:
+        ctx.cache[key] = torch.tensor(values, dtype=torch.int64, device=ctx.device)[:, None]
+    return ctx.cache[key]
+
+
+def ct_mod_raise(ct: Ciphertext, params: CKKSParams, ctx: Context) -> Ciphertext:
+    """Re-embed an exhausted level-1 ciphertext into the full chain: the
+    centred lift of its coefficients mod q0 reduced into every prime. The
+    output encrypts m + q0 I for a small integer polynomial I, which the
+    bootstrap's EvalMod removes."""
+    if ct.level != 1 or len(ct.c) != 2:
+        raise ValueError("ct_mod_raise takes a 2-component ciphertext at level 1")
+    level = params.num_limbs
+    q0 = params.q_primes[0]
+    q = ctx.col("q", range(level))
+    q0_mod = _const_col(ctx, [q0 % p for p in params.q_primes])
+    coeff = ntt_inv(torch.stack(ct.c), ctx, limbs=[0])  # int64[2, 1, N] mod q0
+    r = torch.remainder(coeff, q)  # int64[2, L, N]
+    lifted = torch.where(coeff > q0 // 2, sub_mod(r, q0_mod, q), r)
+    return Ciphertext(list(ntt_fwd(lifted, ctx, limbs=range(level))), level, ct.scale)
+
+
+def ct_mod_raise2(ct: Ciphertext, params: CKKSParams, ctx: Context) -> Ciphertext:
+    """Double-word ModRaise: the centred CRT lift from the composite base
+    Q0 = q0 q1 into the full chain. With x0, x1 the residues mod q0, q1 and
+    t = (x1 - x0) q0^-1 mod q1, the value is v = x0 + q0 t in [0, Q0), and
+    v > Q0 // 2 exactly when t > half1 or (t == half1 and x0 > rem), where
+    Q0 // 2 = half1 q0 + rem (the reference's rule); such v lift to v - Q0."""
+    if ct.level != 2 or len(ct.c) != 2:
+        raise ValueError("ct_mod_raise2 takes a 2-component ciphertext at level 2")
+    level = params.num_limbs
+    q0, q1 = params.q_primes[0], params.q_primes[1]
+    big = q0 * q1
+    half1, rem = divmod(big // 2, q0)
+    q = ctx.col("q", range(level))
+    q0_mod = _const_col(ctx, [q0 % p for p in params.q_primes])
+    big_mod = _const_col(ctx, [big % p for p in params.q_primes])
+    x = ntt_inv(torch.stack(ct.c), ctx, limbs=[0, 1])  # int64[2, 2, N]
+    x0, x1 = x[:, 0:1], x[:, 1:2]
+    t = torch.remainder(sub_mod(x1, torch.remainder(x0, q1), q1) * pow(q0, -1, q1), q1)
+    negative = (t > half1) | ((t == half1) & (x0 > rem))
+    v = add_mod(torch.remainder(x0, q), torch.remainder(torch.remainder(t, q) * q0_mod, q), q)
+    v = torch.where(negative, sub_mod(v, big_mod, q), v)
+    return Ciphertext(list(ntt_fwd(v, ctx, limbs=range(level))), level, ct.scale)

@@ -64,8 +64,8 @@ def chest_from_reference(ref_chest, device="cuda") -> KeyChest:
     conjugation key and the encapsulation keys, host and device halves,
     carried as numpy arrays (np.asarray of the reference's arrays)."""
 
-    def ks(golden, dev) -> tuple:
-        return (gckks.KSKey(b=_tensor(golden.b, device), a=_tensor(golden.a, device)),
+    def ks(golden, dev) -> tuple:  # the canonical half on the host, as keygen keeps it
+        return (gckks.KSKey(b=_tensor(golden.b, "cpu"), a=_tensor(golden.a, "cpu")),
                 ks_key_from_numpy(np.asarray(dev.b_mont), np.asarray(dev.a_mont), device))
 
     eph = None

@@ -50,6 +50,11 @@ def upload_ks_key(ksk: gckks.KSKey, ctx: Context) -> DeviceKSKey:
     return DeviceKSKey(b_mont=mont_form(ksk.b, ctx), a_mont=mont_form(ksk.a, ctx))
 
 
+def host(ksk: gckks.KSKey) -> gckks.KSKey:
+    """The canonical key on the host, where the chest keeps it."""
+    return gckks.KSKey(b=ksk.b.cpu(), a=ksk.a.cpu())
+
+
 def upload_secret_key(sk: gckks.SecretKey, params: CKKSParams, ctx: Context) -> DeviceSecretKey:
     qp = params.q_primes + params.p_primes
     return DeviceSecretKey(s_mont=mont_form(gckks.ntt_small(sk.s, qp, ctx), ctx))
@@ -66,6 +71,8 @@ class KeyChest:
     device_sk: DeviceSecretKey
     device_pk: DevicePublicKey
     device_rlk: DeviceKSKey
+    # Every switching key is kept twice: its canonical KSKey on the host and
+    # its Montgomery device form, which is what the ops read.
     galois: dict = dataclasses.field(default_factory=dict)  # steps -> (KSKey, DeviceKSKey)
     conj: tuple | None = None  # (KSKey, DeviceKSKey)
     # sparse-secret encapsulation (params.eph_hamming_weight > 0):
@@ -86,12 +93,17 @@ def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
     """The key chest, deterministic in rng, in the reference's draw order:
     sk and pk, the relinearisation key, one Galois key per rotation step (in
     the given order), the conjugation key, then the ephemeral sparse secret
-    and its two switching keys when params.eph_hamming_weight > 0."""
+    and its two switching keys when params.eph_hamming_weight > 0.
+
+    The canonical form of every switching key (rlk, Galois, conj, eph) is
+    moved to the host: the ops read only the device form, and at N=2^16
+    with dnum=5 a canonical copy on the card would be another 304 MB per
+    key."""
     sk, pk = gckks.keygen(params, rng, ctx)
     rlk = gckks.make_relin_key(params, sk, rng, ctx)
 
     def pair(key: gckks.KSKey) -> tuple:
-        return key, upload_ks_key(key, ctx)
+        return host(key), upload_ks_key(key, ctx)
 
     galois = {s: pair(gckks.make_galois_key(params, s, sk, rng, ctx)) for s in rotations}
     conj = pair(gckks.make_conj_key(params, sk, rng, ctx)) if conjugation else None
@@ -113,7 +125,7 @@ def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
         params=params,
         sk=sk,
         pk=pk,
-        rlk=rlk,
+        rlk=host(rlk),
         device_sk=upload_secret_key(sk, params, ctx),
         device_pk=upload_public_key(pk, ctx),
         device_rlk=upload_ks_key(rlk, ctx),
@@ -121,3 +133,36 @@ def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
         conj=conj,
         eph=eph,
     )
+
+
+def truncate_galois_device(chest: KeyChest, step_levels: dict, conj_level: int | None,
+                           params: CKKSParams) -> None:
+    """Shrink device Galois keys to the highest level each step is used at
+    (reference keys.py:109-140).
+
+    A gadget key stored over the full chain has num_limbs + alpha rows; a
+    rotation used only up to level L needs L + alpha. Row selection only:
+    K4 reads a key stored above the level in use through its row index
+    (primitives/keyswitch.py key_row_index), so every result stays equal.
+    step_levels maps steps -> level (Bootstrapper.galois_step_levels).
+    """
+    alpha = len(params.p_primes)
+    full = params.num_limbs
+
+    def trunc(key: DeviceKSKey, lvl: int) -> DeviceKSKey:
+        idx = torch.cat([torch.arange(lvl), torch.arange(full, full + alpha)]).to(
+            key.b_mont.device)
+        return DeviceKSKey(b_mont=key.b_mont.index_select(1, idx),
+                           a_mont=key.a_mont.index_select(1, idx))
+
+    for step, lvl in step_levels.items():
+        if step not in chest.galois or lvl >= full:
+            continue
+        golden, key = chest.galois[step]
+        if key.b_mont.shape[1] <= lvl + alpha:
+            continue
+        chest.galois[step] = (golden, trunc(key, lvl))
+    if conj_level is not None and chest.conj is not None and conj_level < full:
+        golden, key = chest.conj
+        if key.b_mont.shape[1] > conj_level + alpha:
+            chest.conj = (golden, trunc(key, conj_level))

@@ -17,7 +17,9 @@ gathered by the automorphism through perm) and of a plaintext MAC (x = the
 plaintexts, y = the ciphertext components).
 
 A CPU tensor runs `mac_plain` (ops/modops.py mont_mac); a CUDA tensor
-launches the kernel, one launch for both outputs.
+launches the kernel, one launch for both outputs. `out`, when given, is
+where the outputs go: int64[outputs, T, N] whose every out[j] is contiguous
+(a view such as acc[:, j] of a stack the caller sums over next).
 """
 
 from __future__ import annotations
@@ -38,15 +40,23 @@ KERNEL = CudaKernel(
 
 
 def mac(x: torch.Tensor, y0: torch.Tensor, y1: torch.Tensor | None, rows: torch.Tensor,
-        chain: torch.Tensor, ctx: Context, perm: torch.Tensor | None = None):
+        chain: torch.Tensor, ctx: Context, perm: torch.Tensor | None = None,
+        out: torch.Tensor | None = None):
     """int64[2, T, N] holding (out0, out1), canonical (int64[1, T, N] when y1
     is None); rows, chain int32[T], perm int32[N]."""
     if x.device.type == "cpu":
-        return mac_plain(x, y0, y1, rows, chain, ctx, perm)
-    return mac_cuda(x, y0, y1, rows, chain, ctx, perm)
+        return mac_plain(x, y0, y1, rows, chain, ctx, perm, out)
+    return mac_cuda(x, y0, y1, rows, chain, ctx, perm, out)
 
 
-def mac_cuda(x, y0, y1, rows, chain, ctx: Context, perm=None):
+def _check_out(out, n_out: int, t_dim: int, n: int, like: torch.Tensor) -> None:
+    if (out.shape != (n_out, t_dim, n) or out.dtype != torch.int64 or out.device != like.device
+            or not all(o.is_contiguous() for o in out)):
+        raise ValueError(f"out must be int64[{n_out}, {t_dim}, {n}] on the data's device, "
+                         "each output contiguous")
+
+
+def mac_cuda(x, y0, y1, rows, chain, ctx: Context, perm=None, out=None):
     d_dim, t_dim, n = x.shape
     ys = (y0,) if y1 is None else (y0, y1)
     for name, v in (("x", x), *zip(("y0", "y1"), ys)):
@@ -64,7 +74,10 @@ def mac_cuda(x, y0, y1, rows, chain, ctx: Context, perm=None):
             raise ValueError(f"{name} must be int32[{size}] on the data's device")
     if ctx.device != x.device:
         raise ValueError("the context's tables lie on another device")
-    out = torch.empty((len(ys), t_dim, n), dtype=torch.int64, device=x.device)
+    if out is None:
+        out = torch.empty((len(ys), t_dim, n), dtype=torch.int64, device=x.device)
+    else:
+        _check_out(out, len(ys), t_dim, n, x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNEL.launch(
         x.data_ptr(), y0.data_ptr(), None if y1 is None else y1.data_ptr(),
@@ -76,14 +89,17 @@ def mac_cuda(x, y0, y1, rows, chain, ctx: Context, perm=None):
     return out
 
 
-def mac_plain(x, y0, y1, rows, chain, ctx: Context, perm=None):
+def mac_plain(x, y0, y1, rows, chain, ctx: Context, perm=None, out=None):
     """The same function as today's int64 composition (ops/modops.py mont_mac)."""
-    d_dim = x.shape[0]
+    d_dim, t_dim, n = x.shape
+    ys = (y0,) if y1 is None else (y0, y1)
     if perm is not None:
         x = x[:, :, perm.long()]
     rows, chain = rows.long(), chain.long()
     q, qinv = ctx.q[chain][:, None], ctx.qinv_neg[chain][:, None]
-    return torch.stack([
-        mont_mac([(x[d], y[d][rows]) for d in range(d_dim)], q, qinv)
-        for y in ((y0,) if y1 is None else (y0, y1))
-    ])
+    res = torch.stack([mont_mac([(x[d], y[d][rows]) for d in range(d_dim)], q, qinv)
+                       for y in ys])
+    if out is None:
+        return res
+    _check_out(out, len(ys), t_dim, n, x)
+    return out.copy_(res)

@@ -3,8 +3,9 @@
 Counterpart of gpufhe_tpu/params/params.py. The presets draw the same primes
 in the same order, so a preset here and there names the same chain
 (tests/test_torch_params.py checks every prime). Only the CKKS presets of the
-ported paths are carried over: the multiply and rotation presets and the
-double-word (scale_words = 2) ones with sparse-secret encapsulation.
+ported paths are carried over: the multiply and rotation presets, the
+double-word (scale_words = 2) ones with sparse-secret encapsulation, and the
+CI-scale factored-transform and bootstrap presets.
 
 Word-size discipline: every prime is odd, q = 1 mod 2N and q < 2^30, so a
 product of two canonical residues is below 2^60 and fits an int64.
@@ -134,6 +135,11 @@ def _mk(n: int, n_q: int, n_p: int, scale_bits: int, q0_bits: int = 30,
                       scale_bits=scale_bits)
 
 
+def _sparse(p: CKKSParams) -> CKKSParams:
+    """A sparse base secret of weight 16 keeps the ModRaise overflow small."""
+    return dataclasses.replace(p, hamming_weight=16)
+
+
 def _dw_ci(**kw) -> CKKSParams:
     """Double-word CI chain: N=2^7, two 30-bit base primes, 22 28-bit limbs,
     4 special primes (dnum = 6), Delta = 2^56 over limb pairs."""
@@ -182,6 +188,17 @@ _PRESETS = {
     # its CI-scale mirrors: a sparse base secret, or encapsulation
     "boot_dw_ci": lambda: _dw_ci(hamming_weight=16),
     "boot_dw_ci_enc": lambda: _dw_ci(eph_hamming_weight=16),
+    # factored-transform CI: the smallest, and one with levels for 4 stages
+    "fft_ci_small": lambda: _mk(n=2**7, n_q=6, n_p=2, scale_bits=28),
+    "fft_ci": lambda: _mk(n=2**8, n_q=8, n_p=2, scale_bits=28),
+    # CI bootstraps at N=2^7: dense transforms with the Taylor cos EvalMod
+    # (sparse secret), factored transforms, Chebyshev EvalMod, and a dense
+    # base secret with encapsulation
+    "boot_ci": lambda: _sparse(_mk(n=2**7, n_q=15, n_p=3, scale_bits=28)),
+    "boot_ci_f": lambda: _sparse(_mk(n=2**7, n_q=17, n_p=3, scale_bits=28)),
+    "boot_ci_cheb": lambda: _sparse(_mk(n=2**7, n_q=13, n_p=3, scale_bits=28)),
+    "boot_ci_enc": lambda: dataclasses.replace(_mk(n=2**7, n_q=13, n_p=3, scale_bits=28),
+                                               eph_hamming_weight=16),
 }
 
 

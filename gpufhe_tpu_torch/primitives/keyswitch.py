@@ -43,14 +43,15 @@ def key_row_index(params: CKKSParams, level: int, stored_rows: int) -> list[int]
 
 
 def gadget_mac(raised: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
-               ksk: DeviceKSKey, perm: torch.Tensor | None = None):
+               ksk: DeviceKSKey, perm: torch.Tensor | None = None,
+               out: torch.Tensor | None = None):
     """Inner products of the raised digits int64[D, K+alpha, N] (NTT domain)
     with both components of the gadget key: one K4 launch, int64[2, K+alpha,
-    N]. `perm` gathers the digits' coefficients first (a hoisted rotation's
-    automorphism)."""
+    N] (written into `out` when given). `perm` gathers the digits'
+    coefficients first (a hoisted rotation's automorphism)."""
     rows = ctx.index(key_row_index(params, level, ksk.b_mont.shape[1]), torch.int32)
     chain = ctx.index(qp_indices(params, level), torch.int32)
-    return mac(raised, ksk.b_mont, ksk.a_mont, rows, chain, ctx, perm)
+    return mac(raised, ksk.b_mont, ksk.a_mont, rows, chain, ctx, perm, out)
 
 
 def hoist(d2: torch.Tensor, params: CKKSParams, level: int, ctx: Context, ksc: KSContext,

@@ -31,6 +31,8 @@ def test_scan_covers_the_port():
     assert "gpufhe_tpu_torch/ops/convert_cuda.py" in names
     assert "gpufhe_tpu_torch/ops/mac_cuda.py" in names
     assert "gpufhe_tpu_torch/ops/probes.py" in names
+    for module in ("backend", "linalg", "fftboot", "polyeval", "bootstrap"):
+        assert f"gpufhe_tpu_torch/ciphertext/{module}.py" in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

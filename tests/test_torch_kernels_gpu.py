@@ -149,6 +149,107 @@ def test_mac_kernel_single_output_matches_plain(cuda_device):
     assert mac_cuda.KERNEL.launches == before + 1
 
 
+def _rand_stack(ctx, rows, d_dim, seed):
+    return torch.from_numpy(np.stack([_rand(ctx.primes, rows, ctx.n, seed + d)
+                                      for d in range(d_dim)])).to(ctx.device)
+
+
+def test_mac_kernel_fan_plaintext_level(cuda_device):
+    """The diagonal fan's second MAC level at config5_boot_dw: a plaintext
+    stack of D = 15 diagonals against the two stacks of the offsets' key
+    switch outputs (T = 58), written into slices of a larger stack through
+    `out`; and the gathered c0 stack against the plaintext stack's q rows."""
+    params = preset("config5_boot_dw")
+    ctx = make_context(params, cuda_device)
+    qp = keyswitch.qp_indices(params, params.num_limbs)
+    rows_qp = ctx.index(range(len(qp)), torch.int32)
+    chain = ctx.index(qp, torch.int32)
+    pts, t0, t1 = (_rand_stack(ctx, qp, 15, s) for s in (60, 80, 100))
+    out = torch.zeros((2, 3, len(qp), params.n), dtype=torch.int64, device=cuda_device)
+    before = mac_cuda.KERNEL.launches
+    got = mac_cuda.mac_cuda(pts, t0, t1, rows_qp, chain, ctx, out=out[:, 1])
+    assert torch.equal(got, mac_cuda.mac_plain(pts, t0, t1, rows_qp, chain, ctx))
+    assert torch.equal(out[:, 1], got) and not out[:, [0, 2]].any()
+    q_rows = list(range(params.num_limbs))
+    idx_q = ctx.index(q_rows, torch.int32)
+    c0g = _rand_stack(ctx, q_rows, 15, 120)
+    got = mac_cuda.mac_cuda(c0g, pts, None, idx_q, idx_q, ctx)
+    assert torch.equal(got, mac_cuda.mac_plain(c0g, pts, None, idx_q, idx_q, ctx))
+    assert mac_cuda.KERNEL.launches == before + 2
+
+
+def test_mac_kernel_fan_key_level_truncated_key(cuda_device):
+    """The fan's first MAC level: raised digits read through an automorphism
+    against a Galois key truncated to level 40 of 48 (rows selected by
+    truncate_galois_device), used at level 36, == the full key's result."""
+    params = preset("config5_boot_dw")
+    ctx = make_context(params, cuda_device)
+    level = 36
+    qp = keyswitch.qp_indices(params, level)
+    chain = ctx.index(qp, torch.int32)
+    d_dim = -(-level // params.alpha)
+    x = _rand_stack(ctx, qp, d_dim, 140)
+    full = dkeys.DeviceKSKey(*(_rand_stack(ctx, range(ctx.num_total), params.dnum, s)
+                               for s in (160, 180)))
+    chest = dkeys.KeyChest(params, None, None, None, None, None, None, galois={1: (None, full)})
+    dkeys.truncate_galois_device(chest, {1: 40}, None, params)
+    short = chest.galois_key(1)
+    assert short.b_mont.shape[1] == 40 + params.alpha
+    perm = dct.galois_perm(5, ctx, torch.int32)
+    got = keyswitch.gadget_mac(x, params, level, ctx, short, perm=perm)
+    assert torch.equal(got, keyswitch.gadget_mac(x, params, level, ctx, full, perm=perm))
+    rows = ctx.index(keyswitch.key_row_index(params, level, short.b_mont.shape[1]), torch.int32)
+    assert torch.equal(got, mac_cuda.mac_plain(x, short.b_mont, short.a_mont, rows, chain, ctx,
+                                               perm))
+
+
+@pytest.mark.parametrize("name,settings", [
+    ("boot_dw_ci_enc", dict(transform="factored", radix_log=3, evalmod="cheb", k_bound=5.0)),
+    ("boot_ci", {}),
+])
+def test_bootstrap_on_card_equals_cpu_path(cuda_device, name, settings):
+    """The whole CI bootstrap on the card, every phase output == the CPU
+    path's, with the same keys and the same draws."""
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bootstrap import Bootstrapper, bootstrap_rotations
+
+    params = preset(name)
+    rots = tuple(bootstrap_rotations(params, settings.get("transform", "dense"), 3))
+    z = np.random.default_rng(0)
+    z = (z.normal(size=params.slots) + 1j * z.normal(size=params.slots)) * 0.2
+    phases = []
+    for dev in (cuda_device, "cpu"):
+        ctx = make_context(params, dev)
+        chest = dkeys.keygen(params, np.random.default_rng(7), ctx, rots, conjugation=True)
+        bs = Bootstrapper(DeviceBackend(params, ctx, chest), **settings)
+        ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                         np.random.default_rng(1), params.scale, level=params.scale_words)
+        seen = {}
+        bs(ct, _phase=lambda name, outs: seen.__setitem__(name, outs))
+        phases.append(seen)
+    assert list(phases[0]) == ["mod_raise", "coeff_to_slot", "evalmod", "slot_to_coeff"]
+    for name in phases[0]:
+        for g, c in zip(phases[0][name], phases[1][name]):
+            assert g.level == c.level and g.scale == c.scale
+            for gc, cc in zip(g.c, c.c):
+                assert torch.equal(gc.cpu(), cc)
+
+
+def test_keygen_keeps_canonical_keys_on_host(cuda_device):
+    """keygen on the card keeps every switching key's canonical form on the
+    host and its device form on the card, each equal to the CPU keygen's."""
+    params = preset("boot_dw_ci_enc")
+    chests = [dkeys.keygen(params, np.random.default_rng(7), make_context(params, dev), (1,),
+                           conjugation=True) for dev in (cuda_device, "cpu")]
+    pairs = [[c.galois[1], c.conj, c.eph["to_eph"], c.eph["from_eph"]] for c in chests]
+    for (canon, key), (canon_c, key_c) in zip(*pairs):
+        assert canon.b.device.type == canon.a.device.type == "cpu"
+        assert key.b_mont.device.type == "cuda"
+        assert torch.equal(canon.b, canon_c.b) and torch.equal(canon.a, canon_c.a)
+        assert torch.equal(key.b_mont.cpu(), key_c.b_mont)
+    assert chests[0].rlk.b.device.type == "cpu"
+
+
 def test_mac_kernel_refuses_bad_input(cuda_device):
     ctx = make_context(preset("tiny"), cuda_device)
     idx = ctx.index(range(ctx.num_total), torch.int32)

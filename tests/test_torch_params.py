@@ -6,7 +6,8 @@ from gpufhe_tpu.params import params as ref
 from gpufhe_tpu_torch.params import params as port
 
 PORTED = ["tiny", "tiny2", "ci_small", "config1_ntt", "config2_rns", "config3_ckks",
-          "config4_rotation", "config5_boot", "config5_boot_dw", "boot_dw_ci", "boot_dw_ci_enc"]
+          "config4_rotation", "config5_boot", "config5_boot_dw", "boot_dw_ci", "boot_dw_ci_enc",
+          "fft_ci_small", "fft_ci", "boot_ci", "boot_ci_f", "boot_ci_cheb", "boot_ci_enc"]
 
 
 @pytest.mark.parametrize("name", PORTED)
