@@ -6,7 +6,7 @@
 Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
 against its plain PyTorch version on the card: K1 (NTT), K3 (base
 conversion), K4 (key-switch MAC), and the two probes, the integer rate (P2)
-and the K1 ablation builds (P1). Then it drives five paths through the
+and the K1 ablation builds (P1). Then it drives eight paths through the
 package's entry points, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -17,6 +17,21 @@ and read just after:
           10 special primes, dnum=5, scale_words=2, encapsulation keys);
   rotate  at config5_boot: ct_rotate, ct_conjugate, ct_rotate_hoisted,
           ct_mul_plain and ct_plain_mac;
+  bgv     the BGV multiply at bfv_n16 (N=2^16, 30 q-limbs, alpha=15, dnum=2,
+          t=786433): keygen (rlk, Galois 1 and 3), encode and encrypt two
+          slot vectors mod t, ct_mul, three squarings (level 30 -> 27),
+          ct_mul_plain, ct_add, ct_rotate and ct_rotate_hoisted, every
+          decrypt exact in all 65536 slots; one ct_mul == the CPU path;
+  bfv     the BFV multiply at bfv_n16: keygen, ct_mul, three squarings,
+          ct_mod_reduce, ct_add_plain, ct_rotate, and bgv_to_bfv then
+          bfv_to_bgv on the BGV path's first square, every decrypt exact;
+          one ct_mul == the CPU path. Before both (int_kernels) K1 on the
+          34-limb aux context and K3 at Q -> aux, B -> Q, B -> m_sk and BGV's
+          t-folded P -> Q are held == their plain versions;
+  int_ci  every BGV and BFV op at bgv_ci / bfv_ci (N=2^10), a BSGS matvec
+          through each scheme's backend included, on the card == the CPU;
+          then int_timing: ms per BGV and per BFV ct_mul by CUDA events,
+          device time by kernel, launches, summed bounds, stage leaves;
   boot_ci the whole CKKS bootstrap at boot_dw_ci_enc (N=2^7, factored
           transforms at radix_log 3, Chebyshev EvalMod, encapsulation), on
           the card and on the CPU with the same keys and draws: every phase
@@ -57,6 +72,7 @@ line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -92,6 +108,12 @@ BOOT_K_BOUND = 10.0  # the reference flagship's (scripts/bootstrap_n16_dw.py)
 BOOT_CI_K_BOUND = 5.0  # the reference's at CI size (tests/test_fftboot.py)
 BOOT_TOL = 1e-3  # tests/test_fftboot.py:193, the dw bootstrap's tolerance
 BOOT_STEADY = 5
+# the integer schemes: bfv_n16 (N=2^16, 30 q-limbs, alpha=15, dnum=2, t=786433)
+# read as BGV and as BFV, as the reference's scripts/bgv_n16_mult.py and
+# bfv_n16_mult.py drive it; the CI presets bgv_ci / bfv_ci
+INT_PRESET = "bfv_n16"
+INT_ROTATIONS = (1, 3)
+INT_TIMED = 7  # ct_mul calls timed one by one with CUDA events, per scheme
 
 T0 = time.perf_counter()
 
@@ -192,9 +214,13 @@ def exact(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
 
 
 def same_limbs(got, want, what: str) -> None:
-    """A card ciphertext == its CPU-path twin: level, scale and every limb."""
-    if got.level != want.level or got.scale != want.scale or len(got.c) != len(want.c):
-        raise AssertionError(f"{what}: level, scale or size differ from the CPU path")
+    """A card ciphertext == its CPU-path twin: level, scale (CKKS) or
+    pt_factor (BGV) and every limb."""
+    tags = [(c.level, getattr(c, "scale", None), getattr(c, "pt_factor", None), len(c.c))
+            for c in (got, want)]
+    if tags[0] != tags[1]:
+        raise AssertionError(f"{what}: level, scale, pt_factor or size differ from the CPU "
+                             f"path: {tags}")
     for i, (g, c) in enumerate(zip(got.c, want.c)):
         if not torch.equal(g.cpu(), c.cpu()):
             raise AssertionError(f"{what}: component {i} differs from the CPU path")
@@ -251,6 +277,102 @@ def event_ms(events: list) -> dict:
 
 def gib(nbytes: float) -> str:
     return f"{nbytes / 2**30:.3f} GiB"
+
+
+class Bounds:
+    """The least time the card could take for each kernel launch's work, at
+    this run's shapes and rates: the larger of the bytes (each input read
+    once, each output written once) at HBM_BYTES_PER_S and the operations
+    the function needs: modular products of 30-bit residues (and reductions
+    of a 64-bit sum) at the best modular rate measured by P2 (shoup32), and
+    32 x 32 -> 64-bit multiply-adds at the muladd rate. Modular additions
+    are not counted. Sums of products below 2^60 stay unreduced for up to
+    16 terms (below 2^64), so a sum of m terms needs ceil(m / 16)
+    reductions.
+    K1 needs its data and, per selected prime, q, mu, the n1/2 + n2/2 roots
+    of its two passes, the n1 psi1 twists and the n1 + 2 n2 twiddle
+    factors; a negacyclic NTT of N points needs N/2 log N products (the
+    twist merged into the butterflies' roots, no four-step twiddle).
+    K3 needs its data and tables; per coefficient, v_i = x_i Qhat_i^-1 once
+    per source limb (S N products), then per destination S multiply-adds
+    and ceil(S / 16) reductions.
+    K4 needs x, its key stacks, its outputs and per row q, mu, qinv_neg and
+    two indices (a permutation: N more words); per output, D multiply-adds,
+    ceil(D / 16) reductions and one REDC.
+    A work is (bytes, modular products, multiply-adds)."""
+
+    def __init__(self, n: int, n1: int, n2: int, mod_rate: float, muladd_rate: float):
+        self.n, self.n1, self.n2 = n, n1, n2
+        self.mod_rate, self.muladd_rate = mod_rate, muladd_rate
+
+    @staticmethod
+    def _reductions(terms):
+        return -(-terms // 16)
+
+    def ntt(self, rows, limbs):
+        n, n1, n2 = self.n, self.n1, self.n2
+        per_prime = 2 + n1 // 2 + n2 // 2 + n1 + n1 + 2 * n2
+        nbytes = 8 * (2 * rows * n + limbs * per_prime) + 4 * limbs
+        return nbytes, rows * (n // 2) * (n.bit_length() - 1), 0
+
+    def conv(self, s_dim, t_dim):
+        n = self.n
+        nbytes = 8 * (s_dim * n + t_dim * n + 3 * s_dim + 2 * t_dim + s_dim * t_dim)
+        return nbytes, s_dim * n + t_dim * n * self._reductions(s_dim), s_dim * t_dim * n
+
+    def mac(self, d_dim, t_dim, permuted=False, outs=2):
+        n = self.n
+        nbytes = (8 * n * ((1 + outs) * d_dim * t_dim + outs * t_dim) + 32 * t_dim
+                  + 4 * n * permuted)
+        return (nbytes, outs * t_dim * n * (self._reductions(d_dim) + 1),
+                outs * d_dim * t_dim * n)
+
+    def ms(self, nbytes, nmod, nmuladd) -> tuple[float, str]:
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        o = (nmod / self.mod_rate + nmuladd / self.muladd_rate) * 1e3
+        return (b, "bytes") if b >= o else (o, "operations")
+
+    def record(self, fn) -> dict:
+        """Call fn once with the three kernels' wrappers recording the work of
+        each launch: {"ntt": [work, ...], "convert": [...], "mac": [...]}."""
+        from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda
+
+        seen = {"ntt": [], "convert": [], "mac": []}
+        real = (ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda)
+
+        def ntt_rec(x, idx_, ctx_, inverse, kernel=ntt_cuda.KERNEL):
+            seen["ntt"].append(self.ntt(x.shape[0], idx_.numel()))
+            return real[0](x, idx_, ctx_, inverse, kernel)
+
+        def conv_rec(x, tabs):
+            seen["convert"].append(self.conv(x.shape[0], tabs.dq.numel()))
+            return real[1](x, tabs)
+
+        def mac_rec(x, y0, y1, rows, chain, ctx_, perm=None, out=None):
+            seen["mac"].append(self.mac(x.shape[0], x.shape[1], perm is not None,
+                                        1 if y1 is None else 2))
+            return real[2](x, y0, y1, rows, chain, ctx_, perm, out)
+
+        ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = (
+            ntt_rec, conv_rec, mac_rec)
+        try:
+            fn()
+        finally:
+            ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = real
+        return seen
+
+    def report(self, what: str, fn) -> dict:
+        """Print each kernel's summed bound over one call of fn; returns
+        {kernel: (bound ms, launches)}."""
+        out = {}
+        for key, work in self.record(fn).items():
+            ms = sum(self.ms(*w)[0] for w in work)
+            out[key] = (ms, len(work))
+            print(f"bound per {what} {key}: {ms:.4f} ms over {len(work)} launches, "
+                  f"{sum(w[0] for w in work) / 1e6:.2f} MB, "
+                  f"{sum(w[1] for w in work) / 1e6:.1f} M modular products, "
+                  f"{sum(w[2] for w in work) / 1e6:.1f} M multiply-adds", flush=True)
+        return out
 
 
 def boot_ci_path(dev, counts, reset, launches: dict) -> None:
@@ -515,6 +637,486 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
             "call": lambda: bs(ct)}
 
 
+# ---------------------------------------------------------------------------
+# The integer schemes: BGV and BFV at INT_PRESET (bfv_n16, one chain that
+# both read), and every op of both at CI size
+# ---------------------------------------------------------------------------
+
+
+def to_cpu(ct):
+    """The same ciphertext (CKKS, BGV or BFV) with its limbs on the host."""
+    return dataclasses.replace(ct, c=[x.cpu() for x in ct.c])
+
+
+class OpLog:
+    """Runs named ops in turn and keeps each one's outputs (a list), the
+    cleartexts its decrypts must give, and the kernel launches it made."""
+
+    def __init__(self, counts):
+        self.counts = counts
+        self.outs, self.want, self.launches = {}, {}, {}
+
+    def __call__(self, name: str, fn, want: list):
+        before = self.counts()
+        out = fn()
+        self.outs[name] = out if isinstance(out, list) else [out]
+        self.want[name] = want
+        self.launches[name] = {k: v - before[k] for k, v in self.counts().items()}
+        return out
+
+    def check(self, path: str, k4: dict) -> None:
+        """Every kernel ran on the path; K4 ran as often as each op in k4 needs."""
+        total = {k: sum(p[k] for p in self.launches.values()) for k in self.counts()}
+        if min(total.values()) <= 0:
+            raise AssertionError(f"{path}: a kernel did not run ({total})")
+        for name, want in k4.items():
+            if self.launches[name]["mac"] != want:
+                raise AssertionError(f"{path} {name}: K4 launched "
+                                     f"{self.launches[name]['mac']} times, not {want}")
+
+
+def exact_slots(got: np.ndarray, want: np.ndarray, what: str) -> int:
+    """Raises unless an integer decrypt equals the cleartext mod t in every slot."""
+    if got.shape != want.shape or not (got == want).all():
+        bad = int((got != want).sum()) if got.shape == want.shape else got.size
+        raise AssertionError(f"{what}: the decrypt differs from the cleartext mod t in {bad} "
+                             f"of {want.size} slots")
+    return want.size
+
+
+def int_kernels(dev, smi) -> dict:
+    """Phase int_kernels: on the card, K1 on BFV's aux context (all its limbs,
+    at the batches the multiply gives it) and K3 at the integer paths' new
+    tables (Q -> aux, B -> Q, B -> m_sk, and BGV's t-folded P -> Q), each ==
+    its plain version, random and at x = q - 1. K4 runs at config5_boot's
+    shapes (the same chain), held in mac_vs_plain."""
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ops import convert_cuda, ntt_cuda
+    from gpufhe_tpu_torch.params.params import preset
+    from gpufhe_tpu_torch.primitives import rns
+
+    t = time.perf_counter()
+    params = preset(INT_PRESET)
+    level = params.num_limbs
+    auxp, aux_ctx, tabs = dbfv.make_bfv_mul_context(params, level, dev)
+    aux = auxp.q_primes
+    rng = np.random.default_rng(SEED + 30)
+
+    def rand(primes, batch=1):
+        q = np.tile(np.asarray(primes, dtype=np.int64), batch)[:, None]
+        return torch.from_numpy(rng.integers(0, q, size=(len(q), params.n),
+                                             dtype=np.int64)).to(dev)
+
+    ntt_err = 0
+    idx = aux_ctx.index(range(len(aux)), torch.int32)
+    for batch in (1, 3, 4):
+        x = rand(aux, batch)
+        for inverse in (False, True):
+            ntt_err = max(ntt_err, exact(ntt_cuda.fourstep_cuda(x, idx, aux_ctx, inverse),
+                                         ntt_cuda.fourstep_plain(x, idx, aux_ctx, inverse),
+                                         f"K1 aux {len(aux)} x {batch} inverse={inverse}"))
+    cases = {"Q->aux": tabs.q2aux, "B->Q": tabs.b2q, "B->m_sk": tabs.b2msk,
+             "P->Q t-folded (BGV)": rns.make_ks_context(params, level, dev).p2q}
+    conv_err = 0
+    for what, tb in cases.items():
+        top = (tb.sq[:, None] - 1).expand(tb.sq.numel(), params.n).contiguous()
+        for data in (rand(tb.sq.tolist()), top):
+            conv_err = max(conv_err, exact(convert_cuda.base_convert_cuda(data, tb),
+                                           convert_cuda.base_convert_plain(data, tb),
+                                           f"K3 {what}"))
+    say("int_kernels", f"at {INT_PRESET}: K1 == plain, fwd and inv, on the aux context "
+        f"({len(aux)} limbs, {min(aux).bit_length()}-{max(aux).bit_length()} bits) x 1, 3, 4; "
+        f"K3 == plain at " + ", ".join(f"{k} {tb.sq.numel()}->{tb.dq.numel()}"
+                                       for k, tb in cases.items())
+        + f", random and at x = q - 1  [{smi}]", t)
+    return {"ntt_err": ntt_err, "conv_err": conv_err, "conv": cases, "aux_ctx": aux_ctx}
+
+
+def _decrypt_all(log: OpLog, decrypt, what: str) -> tuple[int, float]:
+    """Decrypt every output of log's ops: (slots checked, seconds)."""
+    t = time.perf_counter()
+    slots = 0
+    for name, cts in log.outs.items():
+        for ct, w in zip(cts, log.want[name], strict=True):
+            slots += exact_slots(decrypt(ct), w, f"{what} {name}")
+    return slots, time.perf_counter() - t
+
+
+def bgv_path(dev, smi, counts, reset, launches) -> dict:
+    """Paths bgv (the card) and bgv_check (one ct_mul on the CPU): keygen,
+    encode and encrypt two slot vectors mod t, ct_mul, three squarings
+    (level 30 -> 27, as the reference's scripts/bgv_n16_mult.py checks),
+    ct_mul_plain, ct_add, ct_rotate(1) and ct_rotate_hoisted([1, 3]); every
+    decrypt exact in all N slots."""
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+    from gpufhe_tpu_torch.keys.keys import DeviceKSKey
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    params = preset(INT_PRESET)
+    tm, n = params.plain_modulus, params.n
+    zr = np.random.default_rng(SEED + 31)
+    m1, m2 = (zr.integers(0, tm, size=n, dtype=np.int64) for _ in range(2))
+    t = time.perf_counter()
+    reset()
+    ctx = make_context(params, dev)
+    chest = dbgv.keygen(params, np.random.default_rng(SEED + 32), ctx, rotations=INT_ROTATIONS)
+    torch.cuda.synchronize()
+    keygen_s, t1 = time.perf_counter() - t, time.perf_counter()
+    pts = [gbgv.encode(m, params) for m in (m1, m2)]
+    perms = {s: gbgv.slot_rotation_perm(params, s) for s in INT_ROTATIONS}
+    host_s, t1 = time.perf_counter() - t1, time.perf_counter()
+    a, b = (dbgv.encrypt(pt, params, chest.device_pk, ctx, np.random.default_rng(SEED + 33 + i))
+            for i, pt in enumerate(pts))
+    rlk, gks = chest.device_rlk, {s: chest.galois_key(s) for s in INT_ROTATIONS}
+    hoisted = f"ct_rotate_hoisted {list(INT_ROTATIONS)}"
+    log = OpLog(counts)
+    log("ct_mul a*b", lambda: dbgv.ct_mul(a, b, params, ctx, rlk), [m1 * m2 % tm])
+    x, w = a, m1
+    for i in range(3):
+        w = w * w % tm
+        x = log(f"square {i + 1}", lambda x=x: dbgv.ct_mul(x, x, params, ctx, rlk), [w])
+    log("ct_mul_plain", lambda: dbgv.ct_mul_plain(
+        a, dbgv.plaintext_to_device(pts[1], params, ctx, a.level), ctx), [m1 * m2 % tm])
+    log("ct_add", lambda: dbgv.ct_add(a, b, ctx), [(m1 + m2) % tm])
+    log("ct_rotate 1", lambda: dbgv.ct_rotate(a, 1, params, ctx, gks[1]), [m1[perms[1]]])
+    log(hoisted, lambda: dbgv.ct_rotate_hoisted(a, list(INT_ROTATIONS), params, ctx, gks),
+        [m1[perms[s]] for s in INT_ROTATIONS])
+    torch.cuda.synchronize()
+    ops_s = time.perf_counter() - t1
+    slots, decrypt_s = _decrypt_all(
+        log, lambda ct: dbgv.decrypt_decode(ct, params, chest.device_sk, ctx), "BGV")
+    launches["bgv"] = counts()
+    levels = [log.outs[f"square {i}"][0].level for i in (1, 2, 3)]
+    if levels != [params.num_limbs - i for i in (1, 2, 3)]:
+        raise AssertionError(f"three squarings went through levels {levels}")
+    log.check("bgv", {"ct_mul a*b": 1, "square 1": 1, "ct_mul_plain": 1, "ct_add": 0,
+                      "ct_rotate 1": 1, hoisted: len(INT_ROTATIONS)})
+    say("bgv_path", f"at {INT_PRESET} (N={n}, L={params.num_limbs}, t={tm}): keygen (rlk, "
+        f"Galois {INT_ROTATIONS}) {keygen_s:.2f} s; host encode x2 and slot permutations "
+        f"{host_s:.2f} s; encrypt x2, {', '.join(log.outs)} {ops_s:.2f} s; {slots} slots "
+        f"decrypted exactly in {decrypt_s:.2f} s; square levels {levels}, the third's "
+        f"pt_factor {x.pt_factor}; launches {launches['bgv']}, per op {log.launches}  [{smi}]",
+        t)
+
+    t = time.perf_counter()
+    got = dbgv.ct_mul(to_cpu(a), to_cpu(b), params, make_context(params, "cpu"),
+                      DeviceKSKey(*(k.cpu() for k in rlk)))
+    same_limbs(log.outs["ct_mul a*b"][0], got, "BGV ct_mul")
+    say("bgv_check", f"ct_mul limbs and pt_factor == the CPU path ({got.level} limbs x 2, "
+        f"pt_factor {got.pt_factor})", t)
+    return {"params": params, "ctx": ctx, "chest": chest, "a": a, "b": b,
+            "square_1": (log.outs["square 1"][0], log.want["square 1"][0]),
+            "per_mul": log.launches["ct_mul a*b"]}
+
+
+def bfv_path(dev, smi, counts, reset, launches, bgv: dict) -> dict:
+    """Paths bfv (the card) and bfv_check (one ct_mul on the CPU): keygen,
+    encode and encrypt two slot vectors mod t, ct_mul, three squarings (the
+    level stays, as the reference's scripts/bfv_n16_mult.py checks),
+    ct_mod_reduce, ct_add_plain, ct_rotate(1), and bgv_to_bfv then
+    bfv_to_bgv on the BGV path's first square (pt_factor != 1, the BGV
+    keys); every decrypt exact in all N slots, the switches' with their
+    message factors applied."""
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.golden import bfv as gbfv
+    from gpufhe_tpu_torch.keys.keys import DeviceKSKey
+    from gpufhe_tpu_torch.ops.context import make_context
+
+    params = bgv["params"]
+    tm, n = params.plain_modulus, params.n
+    zr = np.random.default_rng(SEED + 41)
+    m1, m2 = (zr.integers(0, tm, size=n, dtype=np.int64) for _ in range(2))
+    t = time.perf_counter()
+    reset()
+    ctx = make_context(params, dev)
+    chest = dbfv.keygen(params, np.random.default_rng(SEED + 42), ctx, rotations=(1,))
+    torch.cuda.synchronize()
+    keygen_s, t1 = time.perf_counter() - t, time.perf_counter()
+    pts = [gbfv.encode(m, params) for m in (m1, m2)]
+    perm1 = gbfv.slot_rotation_perm(params, 1)
+    a, b = (dbfv.encrypt(pt, params, chest.device_pk, ctx, np.random.default_rng(SEED + 43 + i))
+            for i, pt in enumerate(pts))
+    rlk = chest.device_rlk
+    log = OpLog(counts)
+    prod = log("ct_mul a*b", lambda: dbfv.ct_mul(a, b, params, ctx, rlk), [m1 * m2 % tm])
+    x, w = a, m1
+    for i in range(3):
+        w = w * w % tm
+        x = log(f"square {i + 1}", lambda x=x: dbfv.ct_mul(x, x, params, ctx, rlk), [w])
+    log("ct_mod_reduce", lambda: dbfv.ct_mod_reduce(prod, params, ctx), [m1 * m2 % tm])
+    log("ct_add_plain", lambda: dbfv.ct_add_plain(a, pts[1], params, ctx), [(m1 + m2) % tm])
+    log("ct_rotate 1", lambda: dbfv.ct_rotate(a, 1, params, ctx, chest.galois_key(1)),
+        [m1[perm1]])
+    torch.cuda.synchronize()
+    ops_s = time.perf_counter() - t1
+    slots, decrypt_s = _decrypt_all(
+        log, lambda ct: dbfv.decrypt_decode(ct, params, chest.device_sk, ctx), "BFV")
+    # the switches on the BGV path's ciphertext, decrypted under its keys
+    t1 = time.perf_counter()
+    sq, w = bgv["square_1"]
+    sk = bgv["chest"].device_sk
+    sw, factor = dbfv.bgv_to_bfv(sq, params, ctx)
+    back = dbfv.bfv_to_bgv(sw, params, ctx)
+    finv = pow(factor, -1, tm)
+    slots += exact_slots(gbfv.decode(dbfv.decrypt(sw, params, sk, ctx) * finv % tm, params), w,
+                         "bgv_to_bfv")
+    slots += exact_slots(gbfv.decode(dbgv.decrypt(back, params, sk, ctx) * finv % tm, params),
+                         w, "bfv_to_bgv")
+    switch_s = time.perf_counter() - t1
+    launches["bfv"] = counts()
+    if [log.outs[f"square {i}"][0].level for i in (1, 2, 3)] != [params.num_limbs] * 3:
+        raise AssertionError("a BFV multiply changed the level")
+    log.check("bfv", {"ct_mul a*b": 1, "square 1": 1, "ct_mod_reduce": 0, "ct_add_plain": 0,
+                      "ct_rotate 1": 1})
+    say("bfv_path", f"at {INT_PRESET}: keygen (rlk, Galois (1,)) {keygen_s:.2f} s; encrypt "
+        f"x2, {', '.join(log.outs)} {ops_s:.2f} s; bgv_to_bfv and bfv_to_bgv of the BGV "
+        f"square (pt_factor {sq.pt_factor}, message factor {factor}, then pt_factor "
+        f"{back.pt_factor}) {switch_s:.2f} s with their decrypts; {slots} slots decrypted "
+        f"exactly ({decrypt_s:.2f} s for the ops'); launches {launches['bfv']}, per op "
+        f"{log.launches}  [{smi}]", t)
+
+    t = time.perf_counter()
+    got = dbfv.ct_mul(to_cpu(a), to_cpu(b), params, make_context(params, "cpu"),
+                      DeviceKSKey(*(k.cpu() for k in rlk)))
+    same_limbs(prod, got, "BFV ct_mul")
+    say("bfv_check", f"ct_mul limbs == the CPU path ({got.level} limbs x 2)", t)
+    return {"ctx": ctx, "chest": chest, "a": a, "b": b, "per_mul": log.launches["ct_mul a*b"]}
+
+
+def int_ci_ops(scheme: str, dev) -> dict:
+    """Every op of one integer scheme at its CI preset (N=2^10) on one
+    device, keys and data from SEED: {op: [ciphertexts]}, with a BSGS matvec
+    and add_plain through the scheme's backend."""
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.ciphertext import linalg
+    from gpufhe_tpu_torch.ciphertext.bfv_backend import BFVDeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bgv_backend import BGVDeviceBackend
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    mod, backend = (dbgv, BGVDeviceBackend) if scheme == "bgv" else (dbfv, BFVDeviceBackend)
+    params = preset(f"{scheme}_ci")
+    tm, n_s = params.plain_modulus, params.slots
+    ctx = make_context(params, dev)
+    rots = tuple(linalg.bsgs_rotations(n_s))
+    chest = mod.keygen(params, np.random.default_rng(SEED + 50), ctx, rotations=rots)
+    rng = np.random.default_rng(SEED + 51)
+    m1, m2 = (rng.integers(0, tm, size=params.n) for _ in range(2))
+    pts = [gbgv.encode(m, params) for m in (m1, m2)]
+    a, b = (mod.encrypt(pt, params, chest.device_pk, ctx, np.random.default_rng(SEED + 52 + i))
+            for i, pt in enumerate(pts))
+    rlk, steps = chest.device_rlk, list(rots[:3])
+    tensor = mod.ct_tensor(a, b, params, ctx)
+    relin = mod.ct_relinearize(tensor, params, ctx, rlk)
+    out = {"encrypt": [a, b], "ct_add": [mod.ct_add(a, b, ctx)], "ct_sub": [mod.ct_sub(a, b, ctx)],
+           "ct_mul_plain": [mod.ct_mul_plain(a, mod.plaintext_to_device(pts[1], params, ctx,
+                                                                        a.level), ctx)],
+           "ct_tensor": [tensor], "ct_relinearize": [relin],
+           "ct_mul": [mod.ct_mul(a, b, params, ctx, rlk)],
+           "ct_rotate": [mod.ct_rotate(a, steps[0], params, ctx, chest.galois_key(steps[0]))],
+           "ct_rotate_hoisted": mod.ct_rotate_hoisted(
+               a, steps, params, ctx, {s: chest.galois_key(s) for s in steps})}
+    if scheme == "bgv":
+        out["ct_modswitch"] = [dbgv.ct_modswitch(relin, params, ctx)]
+        sw, _ = dbfv.bgv_to_bfv(out["ct_mul"][0], params, ctx)
+        out["bgv_to_bfv, bfv_to_bgv"] = [sw, dbfv.bfv_to_bgv(sw, params, ctx)]
+    else:
+        out["ct_mod_reduce"] = [dbfv.ct_mod_reduce(out["ct_mul"][0], params, ctx)]
+        out["ct_add_plain"] = [dbfv.ct_add_plain(a, pts[1], params, ctx)]
+        back = dbfv.bfv_to_bgv(a, params, ctx)
+        out["bfv_to_bgv, bgv_to_bfv"] = [back, dbfv.bgv_to_bfv(back, params, ctx)[0]]
+    be = backend(params, ctx, chest)
+    mat = rng.integers(0, tm, size=(n_s, n_s))
+    v = rng.integers(0, tm, size=(2, n_s))
+    raw = np.empty(params.n, dtype=np.int64)
+    raw[be.rings[0]], raw[be.rings[1]] = v[0], v[1]
+    ct = mod.encrypt(gbgv.encode(raw, params), params, chest.device_pk, ctx,
+                     np.random.default_rng(SEED + 54))
+    av = linalg.matmul_plain(be, ct, mat)
+    exact_slots(be.decrypt_decode(av), (mat.astype(object) @ v.T.astype(object) % tm).T
+                .astype(np.int64), f"{scheme} backend matvec")
+    out["backend matvec, add_plain"] = [av, be.add_plain(av, v)]
+    return out
+
+
+def int_ci_check(dev, smi, counts, reset, launches) -> None:
+    """Phase int_ci_check: every BGV and BFV op at bgv_ci / bfv_ci (N=2^10)
+    on the card == the CPU path, limb for limb, backends' matvecs included."""
+    t = time.perf_counter()
+    reset()
+    done = []
+    for scheme in ("bgv", "bfv"):
+        card = int_ci_ops(scheme, dev)
+        cpu = int_ci_ops(scheme, "cpu")
+        for name, cts in card.items():
+            for i, (g, c) in enumerate(zip(cts, cpu[name], strict=True)):
+                same_limbs(g, c, f"{scheme}_ci {name} [{i}]")
+        done.append(f"{scheme}: {', '.join(card)}")
+    launches["int_ci"] = counts()
+    if min(launches["int_ci"].values()) <= 0:
+        raise AssertionError(f"int_ci: a kernel did not run ({launches['int_ci']})")
+    say("int_ci_check", "card == CPU limb for limb, " + "; ".join(done)
+        + f"; launches {launches['int_ci']}  [{smi}]", t)
+
+
+def int_timing(bgv: dict, bfv: dict, ik: dict, bounds: Bounds, counts, smi) -> dict:
+    """Phase int_timing at INT_PRESET, level 30: ms per BGV and per BFV
+    ct_mul by CUDA events (INT_TIMED calls, each timed alone: median and
+    spread), one call's launches, the device time of five profiled calls
+    split by kernel (K1, K3, K4, the rest: the int64 elementwise layer),
+    the busy share, each kernel's summed bound; the stage leaves (named as
+    the reference's scripts/profile_mult_stages.py and profile_bfv_stages.py
+    name them) by events; and K1 and K3 alone at the integer shapes (event
+    and device time, bound). Returns the numbers for the kernels line."""
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.ops import convert_cuda, ntt_cuda
+    from gpufhe_tpu_torch.ops.convert_cuda import base_convert
+    from gpufhe_tpu_torch.ops.modops import mul_mod, sub_mod
+    from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
+    from gpufhe_tpu_torch.ops.probes import cuda_ms
+    from gpufhe_tpu_torch.primitives import keyswitch, rns
+
+    t = time.perf_counter()
+    params = bgv["params"]
+    level, n = params.num_limbs, params.n
+    rng = np.random.default_rng(SEED + 60)
+    groups = {"K1": K1_NAME, "K3": K3_NAME, "K4": K4_NAME}
+
+    def rand(c, rows, lead=()):
+        q = np.asarray([c.primes[r] for r in rows], dtype=np.int64)[:, None]
+        return torch.from_numpy(rng.integers(0, q, size=(*lead, len(rows), n),
+                                             dtype=np.int64)).to(c.device)
+
+    out = {}
+    for scheme, st, mod in (("bgv", bgv, dbgv), ("bfv", bfv, dbfv)):
+        ctx, a, b, rlk = st["ctx"], st["a"], st["b"], st["chest"].device_rlk
+
+        def call(mod=mod, ctx=ctx, a=a, b=b, rlk=rlk):
+            return mod.ct_mul(a, b, params, ctx, rlk)
+
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        ev = []
+        for _ in range(INT_TIMED):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            stop.record()
+            torch.cuda.synchronize()
+            ev.append(start.elapsed_time(stop))
+        med = float(np.median(ev))
+        before = counts()
+        call()
+        per_mul = {k: v - before[k] for k, v in counts().items()}
+        iters = 5
+        busy, span, top = device_profile(call, iters=iters)
+        traced_ms = {g: sum(ms for ms, name, _ in top if re.search(pat, name))
+                     for g, pat in groups.items()}
+        traced = {g: sum(c for _, name, c in top if re.search(pat, name))
+                  for g, pat in groups.items()}
+        # the profiler drops launches from some traces: a kernel's time per
+        # call is its mean per launch traced times the launches a call makes
+        made = {"K1": 2 * per_mul["ntt"], "K3": per_mul["convert"], "K4": per_mul["mac"]}
+        per_group = {g: traced_ms[g] * iters / traced[g] * made[g] if traced[g] else math.nan
+                     for g in groups}
+        rest = busy - sum(traced_ms.values())
+        busy_all = rest + sum(per_group.values())
+        bnd = bounds.report(f"{scheme} ct_mul", call)
+        print(f"{scheme} ct_mul at {INT_PRESET} level {level}: CUDA events "
+              f"{[round(x, 4) for x in ev]} ms, median {med:.4f}, spread {min(ev):.4f} to "
+              f"{max(ev):.4f}; launches per call {per_mul}; {iters} profiled calls: device busy "
+              f"{busy_all:.4f} ms per call with dropped kernel launches restored ({busy:.4f} as "
+              f"traced; {busy_all / med:.1%} of the median, {busy / span:.1%} traced over the "
+              f"profiled calls' own event time {span:.4f} ms); per kernel "
+              + ", ".join(f"{g} {ms:.4f}" for g, ms in per_group.items())
+              + f", the rest {rest:.4f} ms; kernel launches traced {traced} of "
+              f"{ {g: m * iters for g, m in made.items()} }; summed bounds "
+              + ", ".join(f"{k} {ms:.4f} ms over {c}" for k, (ms, c) in bnd.items())
+              + f"  [{smi}]", flush=True)
+        for ms, name, _ in top[:8]:
+            print(f"profile {scheme} ct_mul kernel {ms:.4f} ms/call  {name[:90]}", flush=True)
+        out[scheme] = {"event_ms": ev, "median_ms": med, "busy_ms": busy_all, "span_ms": span,
+                       "per_kernel_ms": per_group, "per_mul": per_mul, "bounds": bnd}
+
+    # stage leaves on random data at the multiply's shapes
+    ctx, aux_ctx = bgv["ctx"], ik["aux_ctx"]
+    auxp, _, tabs = dbfv.make_bfv_mul_context(params, level, ctx.device)
+    a_rows = range(len(auxp.q_primes))
+    q, aq = ctx.col("q", range(level)), aux_ctx.col("q", a_rows)
+    xq, x_aux = rand(ctx, range(level)), rand(aux_ctx, a_rows)
+    xqp = rand(ctx, keyswitch.qp_indices(params, level))
+    xx = rand(ctx, range(level), (2,))
+    ksc = rns.make_ks_context(params, level, ctx.device)
+    fa, fb, frlk = bfv["a"], bfv["b"], bfv["chest"].device_rlk
+    d_coeff = dbfv._tensor_coeff(fa.c, fb.c, params, ctx, level)
+
+    def round_mid():
+        r = mul_mod(xq, tabs.t_q, q)
+        y = mul_mod(sub_mod(mul_mod(x_aux, tabs.t_aux, aq), base_convert(r, tabs.q2aux), aq),
+                    tabs.qinv_aux, aq)
+        return dbfv.sk_convert_to_q(y, tabs, q)
+
+    leaves = {
+        "bgv mul_full": lambda: dbgv.ct_mul(bgv["a"], bgv["b"], params, ctx,
+                                            bgv["chest"].device_rlk),
+        "bgv key_switch": lambda: keyswitch.key_switch_core(xq, params, level, ctx, ksc,
+                                                            bgv["chest"].device_rlk,
+                                                            eval_out=False),
+        "bgv mod_down (t-folded)": lambda: rns.mod_down(xqp, params, level, ctx, ksc),
+        "bgv modswitch": lambda: rns.bgv_modswitch(xx, params, level, ctx, ksc),
+        "bfv bfv_mul_full": lambda: dbfv.ct_mul(fa, fb, params, ctx, frlk),
+        "bfv bfv_tensor (coeff out)": lambda: dbfv._tensor_coeff(fa.c, fb.c, params, ctx,
+                                                                 level),
+        "bfv relin (coeff in and out)": lambda: dbfv._relin_coeff(d_coeff, params, ctx, level,
+                                                                  frlk),
+        "bfv to_aux_full": lambda: ntt_fwd(base_convert(ntt_inv(xq, ctx, limbs=range(level)),
+                                                        tabs.q2aux), aux_ctx, limbs=a_rows),
+        "bfv round_mid": round_mid,
+        "bfv intt_q": lambda: ntt_inv(xq, ctx, limbs=range(level)),
+        "bfv ntt_aux": lambda: ntt_fwd(x_aux, aux_ctx, limbs=a_rows),
+        "bfv intt_aux": lambda: ntt_inv(x_aux, aux_ctx, limbs=a_rows),
+    }
+    leaf_ms = {name: cuda_ms(fn, iters=10) for name, fn in leaves.items()}
+    print("integer stage leaves at " + INT_PRESET + ", CUDA events, ms per call: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in leaf_ms.items()) + f"  [{smi}]", flush=True)
+
+    # K1 and K3 alone at the integer shapes
+    shapes = {}
+    idx = aux_ctx.index(a_rows, torch.int32)
+    fwd = lambda: ntt_cuda.fourstep_cuda(x_aux, idx, aux_ctx, False)  # noqa: E731
+    b_ms, b_by = bounds.ms(*bounds.ntt(len(a_rows), len(a_rows)))
+    shapes[f"ntt aux {len(a_rows)}x1 fwd"] = {
+        "ms": cuda_ms(fwd, iters=20), "device_ms": or_null(kernel_ms(fwd, K1_NAME, 2)[0]),
+        "bound_ms": b_ms, "bound_by": b_by}
+    for what, tb in ik["conv"].items():
+        sq = tb.sq.cpu().numpy()[:, None]
+        x = torch.from_numpy(rng.integers(0, sq, size=(len(sq), n), dtype=np.int64)).to(ctx.device)
+        conv = lambda tb=tb, x=x: convert_cuda.base_convert_cuda(x, tb)  # noqa: E731
+        b_ms, b_by = bounds.ms(*bounds.conv(tb.sq.numel(), tb.dq.numel()))
+        shapes[f"convert {what} {tb.sq.numel()}->{tb.dq.numel()}"] = {
+            "ms": cuda_ms(conv, iters=20), "device_ms": or_null(kernel_ms(conv, K3_NAME)[0]),
+            "bound_ms": b_ms, "bound_by": b_by}
+    for what, r in shapes.items():
+        print(f"{what} x 2^{n.bit_length() - 1}: event {r['ms']:.4f} ms, device "
+              f"{r['device_ms']} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})  [{smi}]",
+              flush=True)
+    out["shapes"] = shapes
+    out["leaves"] = leaf_ms
+    say("int_timing", f"ct_mul at {INT_PRESET} level {level}, CUDA-event median (spread) "
+        f"BGV {out['bgv']['median_ms']:.3f} ({min(out['bgv']['event_ms']):.3f}-"
+        f"{max(out['bgv']['event_ms']):.3f}) ms, BFV {out['bfv']['median_ms']:.3f} "
+        f"({min(out['bfv']['event_ms']):.3f}-{max(out['bfv']['event_ms']):.3f}) ms; device "
+        f"busy {out['bgv']['busy_ms']:.3f} / {out['bfv']['busy_ms']:.3f} ms", t)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -587,6 +1189,7 @@ def main() -> None:
     L_dw = dw.num_limbs
     qp_dw = L_dw + len(dw.p_primes)
     rng = np.random.default_rng(SEED)
+    bounds = Bounds(n, ctx.n1, ctx.n2, mod_rate, rates["muladd"])
 
     def rand_limbs(c, rows, lead=()):
         q = np.asarray([c.primes[r] for r in rows], dtype=np.int64)[:, None]
@@ -854,6 +1457,16 @@ def main() -> None:
         f"{k} {v:.3e}" for k, v in errs.items()) + f" < {DECODE_TOL}; K4 launches per op "
         + ", ".join(f"{k} {v['mac']}" for k, v in per_op.items()), t)
 
+    # 9a. the integer schemes at INT_PRESET: their kernels' new shapes, the
+    #     BGV and BFV paths (each checked == the CPU path on one ct_mul),
+    #     every op at CI size on the card and the CPU, and their timing
+    ik = int_kernels(dev, smi)
+    bgv = bgv_path(dev, smi, counts, reset, launches)
+    bfv = bfv_path(dev, smi, counts, reset, launches, bgv)
+    int_ci_check(dev, smi, counts, reset, launches)
+    int_times = int_timing(bgv, bfv, ik, bounds, counts, smi)
+    del bgv, bfv  # their keys
+
     # 9b. paths "boot_ci" and "boot": the bootstrap at CI size (card == CPU)
     #     and the config5_boot_dw flagship
     boot_ci_path(dev, counts, reset, launches)
@@ -939,89 +1552,17 @@ def main() -> None:
         f"ms, ct_rotate {times['ct_rotate']:.3f} ms, hoisted {times['hoisted_per_step']:.3f} "
         f"ms per step, K4 {times['mac_mul']:.4f} / {times['mac_dw']:.4f} ms", t)
 
-    # bounds from this run's shapes: each input read once, each output written
-    # once, against the larger of that traffic at 3.35 TB/s and the operations
-    # the function needs: modular products of 30-bit residues (and reductions
-    # of a 64-bit sum) at the best modular rate measured above (shoup32), and
-    # 32 x 32 -> 64-bit multiply-adds at the muladd rate. Modular additions
-    # are not counted. Sums of products below 2^60 stay unreduced for up to
-    # 16 terms (below 2^64), so a sum of m terms needs ceil(m / 16)
-    # reductions.
-    # K1 needs its data and, per selected prime, q, mu, the n1/2 + n2/2 roots
-    # of its two passes, the n1 psi1 twists and the n1 + 2 n2 twiddle
-    # factors; a negacyclic NTT of N points needs N/2 log N products (the
-    # twist merged into the butterflies' roots, no four-step twiddle).
-    # K3 needs its data and tables; per coefficient, v_i = x_i Qhat_i^-1 once
-    # per source limb (S N products), then per destination S multiply-adds
-    # and ceil(S / 16) reductions.
-    # K4 needs x, its key stacks, its outputs and per row q, mu, qinv_neg and
-    # two indices (a permutation: N more words); per output, D multiply-adds,
-    # ceil(D / 16) reductions and one REDC.
-    n1, n2 = ctx.n1, ctx.n2
+    ntt_work, conv_work, mac_work, bound = bounds.ntt, bounds.conv, bounds.mac, bounds.ms
     log_n = n.bit_length() - 1
-
-    def reductions(terms):
-        return -(-terms // 16)
-
-    def ntt_work(rows, limbs):
-        per_prime = 2 + n1 // 2 + n2 // 2 + n1 + n1 + 2 * n2
-        nbytes = 8 * (2 * rows * n + limbs * per_prime) + 4 * limbs
-        return nbytes, rows * (n // 2) * log_n, 0
-
-    def conv_work(s_dim, t_dim):
-        nbytes = 8 * (s_dim * n + t_dim * n + 3 * s_dim + 2 * t_dim + s_dim * t_dim)
-        return nbytes, s_dim * n + t_dim * n * reductions(s_dim), s_dim * t_dim * n
-
-    def mac_work(d_dim, t_dim, permuted=False, outs=2):
-        nbytes = (8 * n * ((1 + outs) * d_dim * t_dim + outs * t_dim) + 32 * t_dim
-                  + 4 * n * permuted)
-        return (nbytes, outs * t_dim * n * (reductions(d_dim) + 1),
-                outs * d_dim * t_dim * n)
-
-    def bound(nbytes, nmod, nmuladd):
-        b = nbytes / HBM_BYTES_PER_S * 1e3
-        o = (nmod / mod_rate + nmuladd / rates["muladd"]) * 1e3
-        return (b, "bytes") if b >= o else (o, "operations")
-
-    # the shapes of each path's launches, recorded around the wrappers
-    seen = {"ntt": [], "convert": [], "mac": []}
-    real = (ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda)
-
-    def ntt_rec(x, idx_, ctx_, inverse, kernel=ntt_cuda.KERNEL):
-        seen["ntt"].append(ntt_work(x.shape[0], idx_.numel()))
-        return real[0](x, idx_, ctx_, inverse, kernel)
-
-    def conv_rec(x, tabs):
-        seen["convert"].append(conv_work(x.shape[0], tabs.dq.numel()))
-        return real[1](x, tabs)
-
-    def mac_rec(x, y0, y1, rows, chain, ctx_, perm=None, out=None):
-        seen["mac"].append(mac_work(x.shape[0], x.shape[1], perm is not None,
-                                    1 if y1 is None else 2))
-        return real[2](x, y0, y1, rows, chain, ctx_, perm, out)
-
-    ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = (
-        ntt_rec, conv_rec, mac_rec)
     per_call = {
         "ct_mul_full": lambda: dct.ct_mul_full(cts[0], cts[1], params, ctx, chest.device_rlk),
         "ct_mul_full_dw": lambda: dct.ct_mul_full(*cts_dw, dw, ctx_dw, chest_dw.device_rlk),
         "ct_rotate": leaves["ct_rotate"],
         f"bootstrap at {BOOT_PRESET} (steady)": boot.pop("call"),
     }
-    try:
-        for what, fn in per_call.items():
-            for v in seen.values():
-                v.clear()
-            fn()
-            for key, work in seen.items():
-                ms = sum(bound(*w)[0] for w in work)
-                print(f"bound per {what} {key}: {ms:.4f} ms over {len(work)} launches, "
-                      f"{sum(w[0] for w in work) / 1e6:.2f} MB, "
-                      f"{sum(w[1] for w in work) / 1e6:.1f} M modular products, "
-                      f"{sum(w[2] for w in work) / 1e6:.1f} M multiply-adds", flush=True)
-    finally:
-        ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = real
-        del per_call  # the flagship's keys and plans
+    for what, fn in per_call.items():
+        bounds.report(what, fn)
+    del per_call  # the flagship's keys and plans
     ntt45 = ntt_work(qp, qp)
     s_up, t_up = params.alpha, qp
     conv_up = conv_work(s_up, t_up)
@@ -1108,6 +1649,7 @@ def main() -> None:
         f"{len(r)}->{tb.dq.numel()} {times[f'convert_{k}']:.4f} / {dev_times[f'convert_{k}']:.4f}"
         for k, (_, tb, r) in shapes.items()), t)
 
+    ntt_err, conv_err = max(ntt_err, ik["ntt_err"]), max(conv_err, ik["conv_err"])
     total = {key: sum(launches[p][key] for p in launches) for key in kernels}
     by_path = {key: {p: launches[p][key] for p in launches} for key in kernels}
     rows = []
@@ -1123,10 +1665,20 @@ def main() -> None:
          dev_times["mac_mul"], times["mac_mul_plain"]),
     ):
         b_ms, b_by = bound(*work)
+        prefix = {"ntt": "ntt", "convert": "convert", "mac": None}[key]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": total[key], "launches_by_path": by_path[key], "max_abs_err": err, "ms": ms, "device_ms": or_null(dev_ms),
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            # the integer schemes at INT_PRESET level 30: launches and summed
+            # bound per ct_mul, and this kernel alone at their new shapes
+            "integer": {
+                **{f"{s}_ct_mul": {"launches": int_times[s]["per_mul"][key],
+                                   "bound_ms": int_times[s]["bounds"][key][0]}
+                   for s in ("bgv", "bfv")},
+                "shapes": {k: v for k, v in int_times["shapes"].items()
+                           if prefix and k.startswith(prefix)},
+            },
         })
     for mix in probes.MIXES:
         r, err, plain, n_launch = rate_rows[mix]

@@ -1,20 +1,25 @@
-"""gpufhe_tpu_torch — the PyTorch + CUDA port of gpufhe_tpu (CKKS main path).
+"""gpufhe_tpu_torch — the PyTorch + CUDA port of gpufhe_tpu (CKKS, BGV, BFV).
 
 The module tree mirrors gpufhe_tpu's, so each module's counterpart has the
 same path under the other package:
 
-  params/      CKKSParams, presets, NTT-friendly prime generation
-  golden/      host sampling (numpy Generators), encoder, keygen, RNS helpers
+  params/      CKKSParams (plain_modulus > 0 for BGV / BFV), presets,
+               NTT-friendly prime generation
+  golden/      host sampling (numpy Generators), encoder, keygen, RNS helpers,
+               the slot packing mod t (NTT mod t), BFV's auxiliary basis
   ops/         int64 modular arithmetic, device tables, the negacyclic NTT
                (kernel K1, csrc/ntt.cu) and the RNS base conversion
                (kernel K3, csrc/convert.cu)
-  primitives/  ModUp / ModDown / rescale, hybrid key switching
+  primitives/  ModUp / ModDown (t-corrected for BGV) / rescale / BGV
+               ModSwitch, hybrid key switching
   keys/        Montgomery-form device keys and the key chest
   encoding/    canonical-embedding encode/decode, plaintext upload
   ciphertext/  encrypt / decrypt, tensor, relinearize, rescale, ct_mul_full,
                rotations, the fused diagonal fan and ModRaise (ct.py); the
                DeviceBackend surface, BSGS and factored-FFT linear maps,
-               the Chebyshev evaluator and the CKKS Bootstrapper
+               the Chebyshev evaluator and the CKKS Bootstrapper; BGV
+               (bgv.py) and BFV (bfv.py: the BEHZ multiply, scheme
+               switching) and their linalg backends
   interop      carrying gpufhe_tpu state (numpy arrays) into this package
 
 Residues are int64 tensors holding canonical values in [0, q) for primes

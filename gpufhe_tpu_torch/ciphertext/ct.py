@@ -7,7 +7,9 @@ conjugation (one-shot and hoisted), the plaintext multiply, the fused
 plaintext MAC, the fused diagonal fan of the bootstrap's linear transforms
 and the single- and double-word ModRaise. Ciphertexts are int64[K, N] canonical residues per component
 in the NTT domain, K the level's active q-primes; every component equals the
-reference's limb for limb.
+reference's limb for limb. The cores that BGV and BFV share with CKKS
+(encrypt_core ... hoisted_galois_core) take limbs rather than a scaled
+Ciphertext, and a KSContext where the scheme decides the ModDown.
 
 Every inner product runs through kernel K4 (ops/mac_cuda.py) on the card:
 the key switch's gadget MAC, the hoisted rotation's (with the automorphism
@@ -35,7 +37,7 @@ from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.keyswitch import (gadget_mac, hoist, key_switch_core, ks_finish,
                                                    qp_indices)
-from gpufhe_tpu_torch.primitives.rns import make_ks_context, rescale
+from gpufhe_tpu_torch.primitives.rns import KSContext, make_ks_context, rescale
 
 
 @dataclasses.dataclass
@@ -71,12 +73,112 @@ def encrypt(
     e0 = gckks.small_to_rns(gckks.sample_gauss(rng, n, params.sigma), primes)
     e1 = gckks.small_to_rns(gckks.sample_gauss(rng, n, params.sigma), primes)
     pt_pe0 = (pt_coeff[:level] + e0) % np.asarray(primes, dtype=np.int64)[:, None]
+    return Ciphertext(list(encrypt_core(pt_pe0, v, e1, pk, ctx, level)), level, scale)
+
+
+# ---------------------------------------------------------------------------
+# The cores that BGV and BFV share with CKKS (ciphertext/bgv.py, bfv.py): they
+# take and return component limbs (int64[K, N], NTT domain unless named),
+# not a scaled Ciphertext. Reference _encrypt_core, _decrypt_core,
+# _add_core, _sub_core, _tensor_core, _mul_plain_core, _relin_core,
+# _rescale_core, _galois_core and _hoisted_galois_core (its _hoist_core is
+# primitives/keyswitch.py hoist).
+# ---------------------------------------------------------------------------
+
+
+def encrypt_core(pt_pe0: np.ndarray, v: np.ndarray, e1: np.ndarray, pk: DevicePublicKey,
+                 ctx: Context, level: int) -> tuple:
+    """(c0, c1) = (pk.b v + NTT(pt + e0), pk.a v + NTT(e1)) from the host's
+    canonical coefficient residues int64[level, N] of pt + e0, v and e1."""
     host = torch.from_numpy(np.stack([v, pt_pe0, e1]))
     v_ntt, m_ntt, e1_ntt = ntt_fwd(host.to(ctx.device), ctx, limbs=range(level))
     q, qinv = ctx.col("q", range(level)), ctx.col("qinv_neg", range(level))
     c0 = add_mod(mont_mul(v_ntt, pk.b_mont[:level], q, qinv), m_ntt, q)
     c1 = add_mod(mont_mul(v_ntt, pk.a_mont[:level], q, qinv), e1_ntt, q)
-    return Ciphertext([c0, c1], level, scale)
+    return c0, c1
+
+
+def decrypt_core(cs, sk: DeviceSecretKey, ctx: Context, level: int) -> torch.Tensor:
+    """iNTT(sum_k c_k * s^k): canonical coefficient residues int64[K, N] on
+    ctx's device."""
+    rows = range(level)
+    q, qinv = ctx.col("q", rows), ctx.col("qinv_neg", rows)
+    s_mont = sk.s_mont[:level]
+    acc = cs[0]
+    s_pow = s_mont  # s * R: mont_mul by it multiplies by s exactly
+    for comp in cs[1:]:
+        acc = add_mod(acc, mont_mul(comp, s_pow, q, qinv), q)
+        s_pow = mont_mul(s_pow, s_mont, q, qinv)  # stays in Montgomery form
+    return ntt_inv(acc, ctx, limbs=rows)
+
+
+def add_core(ca, cb, ctx: Context, level: int) -> list:
+    q = ctx.col("q", range(level))
+    return [add_mod(x, y, q) for x, y in zip(ca, cb)]
+
+
+def sub_core(ca, cb, ctx: Context, level: int) -> list:
+    q = ctx.col("q", range(level))
+    return [sub_mod(x, y, q) for x, y in zip(ca, cb)]
+
+
+def tensor_core(ca, cb, ctx: Context, level: int):
+    """(a0, a1) x (b0, b1) -> (d0, d1, d2), NTT-domain pointwise."""
+    q = ctx.col("q", range(level))
+    a0, a1 = ca
+    b0, b1 = cb
+    d1 = add_mod(mul_mod(a0, b1, q), mul_mod(a1, b0, q), q)
+    return mul_mod(a0, b0, q), d1, mul_mod(a1, b1, q)
+
+
+def mul_plain_core(cs, pt_mont: torch.Tensor, ctx: Context, level: int) -> list:
+    """c_k * pt for every component and an NTT-domain Montgomery plaintext,
+    by K4 launches of one term: one for (c0, c1) and, for a 3-component
+    ciphertext, one of a single output for c2."""
+    rows = ctx.index(range(level), torch.int32)
+    x = pt_mont[:level].contiguous()[None]
+    comps = [c.contiguous()[None] for c in cs]
+    out = list(mac(x, comps[0], comps[1], rows, rows, ctx))
+    if len(comps) == 3:
+        out.extend(mac(x, comps[2], None, rows, rows, ctx))
+    return out
+
+
+def relin_core(cs, ctx: Context, ksc: KSContext, rlk: DeviceKSKey, params: CKKSParams,
+               level: int) -> tuple:
+    """(d0, d1, d2) -> (d0 + ks0, d1 + ks1), the key switch of d2 by `ksc`'s
+    ModDown (the t-corrected one for BGV tables)."""
+    q = ctx.col("q", range(level))
+    ks0, ks1 = key_switch_core(cs[2], params, level, ctx, ksc, rlk)
+    return add_mod(cs[0], ks0, q), add_mod(cs[1], ks1, q)
+
+
+def rescale_core(cs, ctx: Context, ksc: KSContext, params: CKKSParams, level: int) -> list:
+    """Divide by the last active prime: level K -> K-1, one batched transform
+    each way."""
+    coeff = ntt_inv(torch.stack(list(cs)), ctx, limbs=range(level))
+    return list(ntt_fwd(rescale(coeff, params, level, ctx, ksc), ctx, limbs=range(level - 1)))
+
+
+def galois_core(cs, g: int, ctx: Context, ksc: KSContext, key: DeviceKSKey, params: CKKSParams,
+                level: int) -> tuple:
+    """Automorphism gather of both components, then the key switch of c1."""
+    perm = galois_perm(g, ctx)
+    c0g, c1g = cs[0][:, perm], cs[1][:, perm]
+    ks0, ks1 = key_switch_core(c1g, params, level, ctx, ksc, key)
+    return add_mod(c0g, ks0, ctx.col("q", range(level))), ks1
+
+
+def hoisted_galois_core(raised: torch.Tensor, c0: torch.Tensor, g: int, ctx: Context,
+                        ksc: KSContext, key: DeviceKSKey, params: CKKSParams,
+                        level: int) -> tuple:
+    """One step of a hoisted rotation from the raised digits (keyswitch.hoist):
+    one K4 launch reads them through the automorphism and the key, then
+    iNTT, ModDown, NTT, plus the gathered c0."""
+    acc = gadget_mac(raised, params, level, ctx, key, perm=galois_perm(g, ctx, torch.int32))
+    ks0, ks1 = ks_finish(acc, params, level, ctx, ksc)
+    return add_mod(c0[:, galois_perm(g, ctx)], ks0, ctx.col("q", range(level))), ks1
+
 
 
 def decrypt_to_coeff(ct: Ciphertext, params: CKKSParams, sk: DeviceSecretKey,
@@ -85,15 +187,7 @@ def decrypt_to_coeff(ct: Ciphertext, params: CKKSParams, sk: DeviceSecretKey,
 
     `params` is the reference's parameter, unused: `ctx` holds the primes.
     """
-    rows = range(ct.level)
-    q, qinv = ctx.col("q", rows), ctx.col("qinv_neg", rows)
-    s_mont = sk.s_mont[: ct.level]
-    acc = ct.c[0]
-    s_pow = s_mont  # s * R: mont_mul by it multiplies by s exactly
-    for comp in ct.c[1:]:
-        acc = add_mod(acc, mont_mul(comp, s_pow, q, qinv), q)
-        s_pow = mont_mul(s_pow, s_mont, q, qinv)  # stays in Montgomery form
-    return ntt_inv(acc, ctx, limbs=rows).cpu().numpy()
+    return decrypt_core(ct.c, sk, ctx, ct.level).cpu().numpy()
 
 
 def decrypt_decode(ct: Ciphertext, params: CKKSParams, sk: DeviceSecretKey,
@@ -104,14 +198,12 @@ def decrypt_decode(ct: Ciphertext, params: CKKSParams, sk: DeviceSecretKey,
 
 def ct_add(a: Ciphertext, b: Ciphertext, ctx: Context) -> Ciphertext:
     _check_pair(a, b)
-    q = ctx.col("q", range(a.level))
-    return Ciphertext([add_mod(x, y, q) for x, y in zip(a.c, b.c)], a.level, a.scale)
+    return Ciphertext(add_core(a.c, b.c, ctx, a.level), a.level, a.scale)
 
 
 def ct_sub(a: Ciphertext, b: Ciphertext, ctx: Context) -> Ciphertext:
     _check_pair(a, b)
-    q = ctx.col("q", range(a.level))
-    return Ciphertext([sub_mod(x, y, q) for x, y in zip(a.c, b.c)], a.level, a.scale)
+    return Ciphertext(sub_core(a.c, b.c, ctx, a.level), a.level, a.scale)
 
 
 def _check_pair(a: Ciphertext, b: Ciphertext) -> None:
@@ -119,19 +211,10 @@ def _check_pair(a: Ciphertext, b: Ciphertext) -> None:
         raise ValueError("ciphertexts differ in level, scale or size")
 
 
-def _tensor(ca, cb, ctx: Context, level: int):
-    """(a0, a1) x (b0, b1) -> (d0, d1, d2), NTT-domain pointwise."""
-    q = ctx.col("q", range(level))
-    a0, a1 = ca
-    b0, b1 = cb
-    d1 = add_mod(mul_mod(a0, b1, q), mul_mod(a1, b0, q), q)
-    return mul_mod(a0, b0, q), d1, mul_mod(a1, b1, q)
-
-
 def ct_tensor(a: Ciphertext, b: Ciphertext, ctx: Context) -> Ciphertext:
     if a.level != b.level or len(a.c) != 2 or len(b.c) != 2:
         raise ValueError("ct_tensor takes two 2-component ciphertexts at one level")
-    return Ciphertext(list(_tensor(a.c, b.c, ctx, a.level)), a.level, a.scale * b.scale)
+    return Ciphertext(list(tensor_core(a.c, b.c, ctx, a.level)), a.level, a.scale * b.scale)
 
 
 def ct_relinearize(ct: Ciphertext, params: CKKSParams, ctx: Context,
@@ -139,18 +222,16 @@ def ct_relinearize(ct: Ciphertext, params: CKKSParams, ctx: Context,
     if len(ct.c) != 3:
         raise ValueError("ct_relinearize takes a 3-component ciphertext")
     ksc = make_ks_context(params, ct.level, ctx.device)
-    q = ctx.col("q", range(ct.level))
-    ks0, ks1 = key_switch_core(ct.c[2], params, ct.level, ctx, ksc, rlk)
-    return Ciphertext([add_mod(ct.c[0], ks0, q), add_mod(ct.c[1], ks1, q)], ct.level, ct.scale)
+    return Ciphertext(list(relin_core(ct.c, ctx, ksc, rlk, params, ct.level)), ct.level,
+                      ct.scale)
 
 
 def ct_rescale(ct: Ciphertext, params: CKKSParams, ctx: Context) -> Ciphertext:
     """Divide by the last active prime: level K -> K-1, one batched transform each way."""
     level = ct.level
     ksc = make_ks_context(params, level, ctx.device)
-    coeff = ntt_inv(torch.stack(ct.c), ctx, limbs=range(level))
-    down = ntt_fwd(rescale(coeff, params, level, ctx, ksc), ctx, limbs=range(level - 1))
-    return Ciphertext(list(down), level - 1, ct.scale / params.q_primes[level - 1])
+    return Ciphertext(rescale_core(ct.c, ctx, ksc, params, level), level - 1,
+                      ct.scale / params.q_primes[level - 1])
 
 
 def ct_mul(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
@@ -172,7 +253,7 @@ def ct_mul_full(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
         raise ValueError("ct_mul_full takes two 2-component ciphertexts at one level")
     level = a.level
     q = ctx.col("q", range(level))
-    d0, d1, d2 = _tensor(a.c, b.c, ctx, level)
+    d0, d1, d2 = tensor_core(a.c, b.c, ctx, level)
     ksc = make_ks_context(params, level, ctx.device)
     ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
     cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
@@ -221,16 +302,9 @@ def ct_plain_mac(cts: list, pt_monts: list, const_ntt, params: CKKSParams, ctx: 
 def ct_mul_plain(ct: Ciphertext, pt_mont: torch.Tensor, pt_scale: float,
                  ctx: Context) -> Ciphertext:
     """Multiply by an NTT-domain Montgomery plaintext (encoding/encoder.py):
-    c_k * pt for every component, by K4 launches of one term: one for (c0,
-    c1) and, for a 3-component ciphertext, one of a single output for c2."""
-    level = ct.level
-    rows = ctx.index(range(level), torch.int32)
-    x = pt_mont[:level].contiguous()[None]
-    comps = [c.contiguous()[None] for c in ct.c]
-    out = list(mac(x, comps[0], comps[1], rows, rows, ctx))
-    if len(comps) == 3:
-        out.extend(mac(x, comps[2], None, rows, rows, ctx))
-    return Ciphertext(out, level, ct.scale * pt_scale)
+    c_k * pt for every component (mul_plain_core)."""
+    return Ciphertext(mul_plain_core(ct.c, pt_mont, ctx, ct.level), ct.level,
+                      ct.scale * pt_scale)
 
 
 def ct_key_switch(ct: Ciphertext, params: CKKSParams, ctx: Context,
@@ -260,9 +334,9 @@ def _galois(ct: Ciphertext, g: int, params: CKKSParams, ctx: Context,
     (reference _galois_core)."""
     if len(ct.c) != 2:
         raise ValueError("a Galois automorphism takes a 2-component ciphertext")
-    perm = galois_perm(g, ctx)
-    c0g, c1g = ct.c[0][:, perm], ct.c[1][:, perm]
-    return ct_key_switch(Ciphertext([c0g, c1g], ct.level, ct.scale), params, ctx, key)
+    ksc = make_ks_context(params, ct.level, ctx.device)
+    return Ciphertext(list(galois_core(ct.c, g, ctx, ksc, key, params, ct.level)), ct.level,
+                      ct.scale)
 
 
 def ct_rotate(ct: Ciphertext, steps: int, params: CKKSParams, ctx: Context,
@@ -290,16 +364,11 @@ def ct_rotate_hoisted(ct: Ciphertext, steps_list, params: CKKSParams, ctx: Conte
     level = ct.level
     ksc = make_ks_context(params, level, ctx.device)
     raised = hoist(ct.c[1], params, level, ctx, ksc)
-    q = ctx.col("q", range(level))
-    out = []
-    for steps in steps_list:
-        g = gckks.galois_exponent(steps, params.n)
-        acc = gadget_mac(raised, params, level, ctx, gks[steps],
-                         perm=galois_perm(g, ctx, torch.int32))
-        ks0, ks1 = ks_finish(acc, params, level, ctx, ksc)
-        c0g = ct.c[0][:, galois_perm(g, ctx)]
-        out.append(Ciphertext([add_mod(c0g, ks0, q), ks1], level, ct.scale))
-    return out
+    return [Ciphertext(list(hoisted_galois_core(raised, ct.c[0],
+                                                gckks.galois_exponent(steps, params.n), ctx,
+                                                ksc, gks[steps], params, level)),
+                       level, ct.scale)
+            for steps in steps_list]
 
 
 # ---------------------------------------------------------------------------

@@ -152,8 +152,11 @@ def gadget_factors(params: CKKSParams) -> list[int]:
     return out
 
 
-def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context):
-    """Secret + public key (reference golden/ckks.py keygen, same draws)."""
+def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context, err_factor: int = 1):
+    """Secret + public key (reference golden/ckks.py keygen, same draws).
+
+    The error is drawn times err_factor: 1 for CKKS and BFV, t for BGV
+    (reference golden/bgv.py keygen, b = -a s + t e)."""
     primes = params.q_primes
     if params.hamming_weight:
         s = sample_sparse_ternary(rng, params.n, params.hamming_weight)
@@ -161,17 +164,18 @@ def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context):
         s = sample_ternary(rng, params.n)
     s_ntt = ntt_small(s, primes, ctx)
     a = torch.from_numpy(sample_uniform(rng, primes, params.n)).to(ctx.device)
-    e = ntt_small(sample_gauss(rng, params.n, params.sigma), primes, ctx)
+    e = ntt_small(err_factor * sample_gauss(rng, params.n, params.sigma), primes, ctx)
     q = ctx.col("q", range(len(primes)))
     b = add_mod(mul_mod(neg_mod(a, q), s_ntt, q), e, q)
     return SecretKey(s), PublicKey(b=b, a=a)
 
 
 def make_kskey(params: CKKSParams, s_target_fn, sk: SecretKey, rng: np.random.Generator,
-               ctx: Context) -> KSKey:
+               ctx: Context, err_factor: int = 1) -> KSKey:
     """Key-switch key from s' to sk.s, where s_target_fn(primes) gives s' in
     the NTT domain over those primes (reference golden make_kskey, same draws:
-    per gadget factor, a uniform `a` and then a Gaussian error)."""
+    per gadget factor, a uniform `a` and then a Gaussian error, times
+    err_factor: t for BGV's gadget rows, reference golden/bgv.py:83-155)."""
     qp = params.q_primes + params.p_primes
     q = ctx.col("q", range(len(qp)))
     s_ntt = ntt_small(sk.s, qp, ctx)
@@ -179,7 +183,7 @@ def make_kskey(params: CKKSParams, s_target_fn, sk: SecretKey, rng: np.random.Ge
     bs, as_ = [], []
     for g in gadget_factors(params):
         a = torch.from_numpy(sample_uniform(rng, qp, params.n)).to(ctx.device)
-        e = ntt_small(sample_gauss(rng, params.n, params.sigma), qp, ctx)
+        e = ntt_small(err_factor * sample_gauss(rng, params.n, params.sigma), qp, ctx)
         g_rns = torch.tensor([g % p for p in qp], dtype=torch.int64, device=ctx.device)[:, None]
         b = add_mod(mul_mod(neg_mod(a, q), s_ntt, q), e, q)
         bs.append(add_mod(b, mul_mod(g_rns, s_target, q), q))
@@ -188,14 +192,14 @@ def make_kskey(params: CKKSParams, s_target_fn, sk: SecretKey, rng: np.random.Ge
 
 
 def make_relin_key(params: CKKSParams, sk: SecretKey, rng: np.random.Generator,
-                   ctx: Context) -> KSKey:
+                   ctx: Context, err_factor: int = 1) -> KSKey:
     """Key-switch key from s^2 to s (reference make_relin_key)."""
 
     def s2_ntt(primes):
         s_ntt = ntt_small(sk.s, primes, ctx)
         return mul_mod(s_ntt, s_ntt, ctx.col("q", range(len(primes))))
 
-    return make_kskey(params, s2_ntt, sk, rng, ctx)
+    return make_kskey(params, s2_ntt, sk, rng, ctx, err_factor)
 
 
 # ---------------------------------------------------------------------------
@@ -236,10 +240,10 @@ def _automorphism_target(sk: SecretKey, g: int, ctx: Context):
 
 
 def make_galois_key(params: CKKSParams, steps: int, sk: SecretKey, rng: np.random.Generator,
-                    ctx: Context) -> KSKey:
+                    ctx: Context, err_factor: int = 1) -> KSKey:
     """Key switching sigma_g(s) -> s for the rotation by `steps`."""
     g = galois_exponent(steps, params.n)
-    return make_kskey(params, _automorphism_target(sk, g, ctx), sk, rng, ctx)
+    return make_kskey(params, _automorphism_target(sk, g, ctx), sk, rng, ctx, err_factor)
 
 
 def make_conj_key(params: CKKSParams, sk: SecretKey, rng: np.random.Generator,

@@ -1,10 +1,24 @@
-"""Prime and root-of-unity helpers (counterpart of gpufhe_tpu/golden/ntt.py:27-60).
+"""Prime and root-of-unity helpers and the host negacyclic NTT
+(counterpart of gpufhe_tpu/golden/ntt.py:27-128).
 
-The transforms themselves live in ops/ntt.py: the port's golden layer runs
-its polynomial products through the port's own NTT.
+The ciphertext transforms live in ops/ntt.py: the port's golden layer runs
+its polynomial products through the port's own NTT. The host transform here
+serves the integer schemes' slot packing mod the plaintext modulus t
+(golden/bgv.py encode / decode):
+
+    fwd:  X_k = sum_j x_j psi^j omega^(j k)              mod q, omega = psi^2
+    inv:  x_j = N^-1 psi^-j sum_k X_k omega^(-j k)       mod q
+
+in natural order, psi a primitive 2N-th root of unity mod q < 2^31. The
+transform is exact, so any algorithm gives the reference's values; this one
+is an iterative radix-2 pass per stage, vectorised over the whole vector.
 """
 
 from __future__ import annotations
+
+import functools
+
+import numpy as np
 
 
 def is_prime(n: int) -> bool:
@@ -40,3 +54,64 @@ def find_primitive_root_2n(q: int, two_n: int) -> int:
         if pow(psi, two_n // 2, q) == q - 1:  # psi^N == -1 -> order is 2N
             return psi
     raise ValueError(f"no primitive {two_n}-th root found mod {q}")
+
+
+@functools.lru_cache(maxsize=None)
+def _power_table(root: int, n: int, q: int) -> np.ndarray:
+    """[root^0, root^1, ..., root^(n-1)] mod q (int64, q < 2^31)."""
+    out = np.empty(n, dtype=np.int64)
+    acc = 1
+    for i in range(n):
+        out[i] = acc
+        acc = acc * root % q
+    out.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bit_reverse(n: int) -> np.ndarray:
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+def _cyclic_ntt(x: np.ndarray, omega: int, q: int) -> np.ndarray:
+    """Cyclic NTT of length n along the last axis, natural order in and out:
+    bit-reversed input, then log2(n) butterfly stages on [blocks, 2, m]."""
+    n = x.shape[-1]
+    pw = _power_table(omega, n, q)
+    a = x[..., _bit_reverse(n)]
+    m = 1
+    while m < n:
+        blocks = a.reshape(*a.shape[:-1], n // (2 * m), 2, m)
+        even = blocks[..., 0, :]
+        odd = blocks[..., 1, :] * pw[:: n // (2 * m)][:m] % q
+        a = np.stack([(even + odd) % q, (even - odd) % q], axis=-2).reshape(x.shape)
+        m *= 2
+    return a
+
+
+def _check_word(q: int) -> None:
+    if q >= 1 << 31:
+        raise ValueError("the host NTT takes primes below 2^31 (exact int64 products)")
+
+
+def ntt_fwd(x, q: int, psi: int) -> np.ndarray:
+    """Negacyclic forward NTT along the last axis (natural order in and out)."""
+    _check_word(q)
+    x = np.asarray(x, dtype=np.int64) % q
+    n = x.shape[-1]
+    y = x * _power_table(psi, n, q) % q
+    return _cyclic_ntt(y, psi * psi % q, q)
+
+
+def ntt_inv(x, q: int, psi: int) -> np.ndarray:
+    """Negacyclic inverse NTT along the last axis; exact inverse of ntt_fwd."""
+    _check_word(q)
+    x = np.asarray(x, dtype=np.int64) % q
+    n = x.shape[-1]
+    y = _cyclic_ntt(x, pow(psi * psi % q, -1, q), q)
+    return y * _power_table(pow(psi, -1, q), n, q) % q * pow(n, -1, q) % q

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from gpufhe_tpu_torch.ciphertext.bfv import BFVCiphertext
+from gpufhe_tpu_torch.ciphertext.bgv import BGVCiphertext
 from gpufhe_tpu_torch.ciphertext.ct import Ciphertext
 from gpufhe_tpu_torch.golden import ckks as gckks
 from gpufhe_tpu_torch.keys.keys import (DeviceKSKey, DevicePublicKey, DeviceSecretKey,
@@ -53,6 +55,18 @@ def ciphertext_to_numpy(ct: Ciphertext) -> tuple[list[np.ndarray], int, float]:
     return [c.cpu().numpy() for c in ct.c], ct.level, ct.scale
 
 
+def integer_ciphertext_from_numpy(components, level: int, pt_factor: int | None = None,
+                                  device="cuda"):
+    """Reference BGVCiphertext (pt_factor given) or BFVCiphertext limbs ->
+    the port's BGVCiphertext or BFVCiphertext."""
+    comps = [_tensor(c, device) for c in components]
+    if any(c.shape[0] != level for c in comps):
+        raise ValueError(f"components do not hold {level} limbs")
+    if pt_factor is None:
+        return BFVCiphertext(comps, level)
+    return BGVCiphertext(comps, level, int(pt_factor))
+
+
 def params_from_reference(ref_params) -> CKKSParams:
     """The port's CKKSParams with the reference's values for its fields."""
     return CKKSParams(**{f.name: getattr(ref_params, f.name)
@@ -62,16 +76,18 @@ def params_from_reference(ref_params) -> CKKSParams:
 def chest_from_reference(ref_chest, device="cuda") -> KeyChest:
     """A reference KeyChest as the port's: sk, pk, rlk, every Galois key, the
     conjugation key and the encapsulation keys, host and device halves,
-    carried as numpy arrays (np.asarray of the reference's arrays)."""
+    carried as numpy arrays (np.asarray of the reference's arrays). A
+    reference BGVKeyChest or BFVKeyChest (no conj, no eph) gives the port's
+    chest of that scheme, params with their plain_modulus."""
 
     def ks(golden, dev) -> tuple:  # the canonical half on the host, as keygen keeps it
         return (gckks.KSKey(b=_tensor(golden.b, "cpu"), a=_tensor(golden.a, "cpu")),
                 ks_key_from_numpy(np.asarray(dev.b_mont), np.asarray(dev.a_mont), device))
 
-    eph = None
-    if ref_chest.eph is not None:
-        eph = {"s_eph": np.asarray(ref_chest.eph["s_eph"]).astype(np.int64),
-               **{k: ks(*ref_chest.eph[k]) for k in ("to_eph", "from_eph")}}
+    eph, conj = getattr(ref_chest, "eph", None), getattr(ref_chest, "conj", None)
+    if eph is not None:
+        eph = {"s_eph": np.asarray(eph["s_eph"]).astype(np.int64),
+               **{k: ks(*eph[k]) for k in ("to_eph", "from_eph")}}
     pk, dpk = ref_chest.pk, ref_chest.device_pk
     return KeyChest(
         params=params_from_reference(ref_chest.params),
@@ -82,6 +98,6 @@ def chest_from_reference(ref_chest, device="cuda") -> KeyChest:
         device_pk=public_key_from_numpy(np.asarray(dpk.b_mont), np.asarray(dpk.a_mont), device),
         device_rlk=ks(ref_chest.rlk, ref_chest.device_rlk)[1],
         galois={s: ks(*pair) for s, pair in ref_chest.galois.items()},
-        conj=None if ref_chest.conj is None else ks(*ref_chest.conj),
+        conj=None if conj is None else ks(*conj),
         eph=eph,
     )

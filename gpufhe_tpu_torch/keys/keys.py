@@ -1,4 +1,4 @@
-"""Device key material (Montgomery form, NTT domain) and the CKKS key chest.
+"""Device key material (Montgomery form, NTT domain) and the key chest.
 
 Counterpart of gpufhe_tpu/keys/keys.py. Keys are generated by the port's
 golden layer from an explicit numpy Generator (the reference's draws) and
@@ -62,7 +62,11 @@ def upload_secret_key(sk: gckks.SecretKey, params: CKKSParams, ctx: Context) -> 
 
 @dataclasses.dataclass
 class KeyChest:
-    """The key material of a CKKS workload: host secret + device keys."""
+    """The key material of a CKKS, BGV or BFV workload: host secret + device
+    keys. The integer schemes' chests (reference ciphertext/bgv.py
+    BGVKeyChest, bfv.py BFVKeyChest) hold sk, pk, rlk and Galois keys, with
+    conj and eph left None: BFV's are CKKS keys, BGV's draw every error
+    times t (keygen's err_factor)."""
 
     params: CKKSParams
     sk: gckks.SecretKey  # host only
@@ -89,23 +93,30 @@ class KeyChest:
 
 
 def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
-           rotations: tuple[int, ...] = (), conjugation: bool = False) -> KeyChest:
+           rotations: tuple[int, ...] = (), conjugation: bool = False,
+           err_factor: int = 1) -> KeyChest:
     """The key chest, deterministic in rng, in the reference's draw order:
     sk and pk, the relinearisation key, one Galois key per rotation step (in
     the given order), the conjugation key, then the ephemeral sparse secret
-    and its two switching keys when params.eph_hamming_weight > 0.
+    and its two switching keys when params.eph_hamming_weight > 0. Every
+    error is drawn times err_factor (t for BGV, ciphertext/bgv.py keygen).
 
     The canonical form of every switching key (rlk, Galois, conj, eph) is
     moved to the host: the ops read only the device form, and at N=2^16
     with dnum=5 a canonical copy on the card would be another 304 MB per
     key."""
-    sk, pk = gckks.keygen(params, rng, ctx)
-    rlk = gckks.make_relin_key(params, sk, rng, ctx)
+    if err_factor != 1 and (conjugation or params.hamming_weight or params.eph_hamming_weight):
+        # the reference's BGV keygen draws a dense ternary secret and nothing more
+        raise ValueError("BGV keys take a dense ternary secret, no conjugation or "
+                         "encapsulation keys")
+    sk, pk = gckks.keygen(params, rng, ctx, err_factor)
+    rlk = gckks.make_relin_key(params, sk, rng, ctx, err_factor)
 
     def pair(key: gckks.KSKey) -> tuple:
         return host(key), upload_ks_key(key, ctx)
 
-    galois = {s: pair(gckks.make_galois_key(params, s, sk, rng, ctx)) for s in rotations}
+    galois = {s: pair(gckks.make_galois_key(params, s, sk, rng, ctx, err_factor))
+              for s in rotations}
     conj = pair(gckks.make_conj_key(params, sk, rng, ctx)) if conjugation else None
     eph = None
     if params.eph_hamming_weight:

@@ -10,7 +10,8 @@ make_digit_convert). For x: int64[S, N] canonical mod the source primes,
 which is the unique canonical value of the per-term-reduced conversion of
 gpufhe_tpu/primitives/rns.py _base_convert_shoup. `conv` and the Qhat
 inverses are device tables, so a variant that folds extra factors into them
-(the BGV t-corrected ModDown) needs only other ConvertTables.
+(the BGV t-corrected ModDown, primitives/rns.py make_ks_context) needs only
+other ConvertTables, built by make_convert_tables from the folded values.
 
 The kernel computes in 32-bit words and reads only its own tables
 (`K3Tables`, u32 values held in int32 tensors but for dmu, in the order of
@@ -93,13 +94,25 @@ class ConvertTables:
     k3_refusal: str | None
 
 
-def make_convert_tables(src, dst, device) -> ConvertTables:
-    """Tables of the approximate conversion from basis src to basis dst."""
+def make_convert_tables(src, dst, device, qhinv=None, conv=None) -> ConvertTables:
+    """Tables of the approximate conversion from basis src to basis dst.
+
+    `qhinv` (int64[S], canonical mod the source primes) and `conv`
+    (int64[T, S], canonical mod the destination primes) default to
+    [Qhat_i^-1]_{q_i} and [Qhat_i]_{p_t}; a caller that folds factors into
+    them (the BGV ModDown: t^-1 into qhinv, t into conv) passes its own, and
+    the kernel's tables, qhinv_shoup included, are derived from those."""
     src = tuple(int(q) for q in src)
     dst = tuple(int(q) for q in dst)
     sq = np.asarray(src, dtype=np.int64)
-    qhinv = grns.qhat_inv(src)
-    conv = grns.conv_matrix(src, dst)
+    qhinv = grns.qhat_inv(src) if qhinv is None else np.asarray(qhinv, dtype=np.int64)
+    conv = grns.conv_matrix(src, dst) if conv is None else np.asarray(conv, dtype=np.int64)
+    if qhinv.shape != (len(src),) or conv.shape != (len(dst), len(src)):
+        raise ValueError(f"qhinv {qhinv.shape} and conv {conv.shape} do not fit {len(src)} "
+                         f"source and {len(dst)} destination primes")
+    dq = np.asarray(dst, dtype=np.int64)[:, None]
+    if ((qhinv < 0) | (qhinv >= sq)).any() or ((conv < 0) | (conv >= dq)).any():
+        raise ValueError("qhinv and conv must be canonical residues")
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)

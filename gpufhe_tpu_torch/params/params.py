@@ -1,11 +1,12 @@
-"""CKKS parameters, presets and NTT-friendly prime generation.
+"""Scheme parameters, presets and NTT-friendly prime generation.
 
 Counterpart of gpufhe_tpu/params/params.py. The presets draw the same primes
 in the same order, so a preset here and there names the same chain
-(tests/test_torch_params.py checks every prime). Only the CKKS presets of the
-ported paths are carried over: the multiply and rotation presets, the
-double-word (scale_words = 2) ones with sparse-secret encapsulation, and the
-CI-scale factored-transform and bootstrap presets.
+(tests/test_torch_params.py checks every prime). The presets of the ported
+paths are carried over: the CKKS multiply and rotation presets, the
+double-word (scale_words = 2) ones with sparse-secret encapsulation, the
+CI-scale factored-transform and bootstrap presets, and the integer schemes'
+(BGV and BFV: plain_modulus t > 0) from N=2^7 to bfv_n16 at N=2^16.
 
 Word-size discipline: every prime is odd, q = 1 mod 2N and q < 2^30, so a
 product of two canonical residues is below 2^60 and fits an int64.
@@ -74,6 +75,8 @@ class CKKSParams:
     # > 0: keygen also draws an ephemeral sparse secret of this weight and
     # the key-switch keys to and from it (sparse-secret encapsulation)
     eph_hamming_weight: int = 0
+    # BGV / BFV plaintext modulus t (prime, t = 1 mod 2N); 0 -> CKKS
+    plain_modulus: int = 0
 
     def __post_init__(self):
         if self.n & (self.n - 1):
@@ -171,6 +174,13 @@ def _config5_boot_dw() -> CKKSParams:
                       scale_bits=56, scale_words=2, eph_hamming_weight=32)
 
 
+def _with_t(p: CKKSParams, t: int | None = None) -> CKKSParams:
+    """An integer-scheme preset: the chain of p with plaintext modulus t
+    (default: the first 16-bit NTT prime for p's ring)."""
+    t = t if t is not None else gen_ntt_primes(16, 2 * p.n, 1)[0]
+    return dataclasses.replace(p, plain_modulus=t)
+
+
 _PRESETS = {
     "tiny": lambda: _mk(n=2**6, n_q=3, n_p=1, scale_bits=28),
     "tiny2": lambda: _mk(n=2**8, n_q=4, n_p=2, scale_bits=28),
@@ -199,12 +209,22 @@ _PRESETS = {
     "boot_ci_cheb": lambda: _sparse(_mk(n=2**7, n_q=13, n_p=3, scale_bits=28)),
     "boot_ci_enc": lambda: dataclasses.replace(_mk(n=2**7, n_q=13, n_p=3, scale_bits=28),
                                                eph_hamming_weight=16),
+    # the integer schemes (one chain serves BGV and BFV): CI scale, the
+    # smallest (128-slot rings), the production-width bfv_n16 (N=2^16, 30
+    # q-limbs, alpha=15, dnum=2, t = 786433 = 6 * 2^17 + 1) and bfv_eq
+    # (t = 257, the Fermat equality circuits' modulus, with a deep chain)
+    "bgv_ci": lambda: _with_t(_mk(n=2**10, n_q=6, n_p=2, scale_bits=28)),
+    "bgv_tiny": lambda: _with_t(_mk(n=2**8, n_q=4, n_p=2, scale_bits=28)),
+    "bfv_ci": lambda: _with_t(_mk(n=2**10, n_q=6, n_p=2, scale_bits=28)),
+    "bfv_tiny": lambda: _with_t(_mk(n=2**8, n_q=4, n_p=2, scale_bits=28)),
+    "bfv_n16": lambda: _with_t(_mk(n=2**16, n_q=30, n_p=15, scale_bits=28), 786433),
+    "bfv_eq": lambda: _with_t(_mk(n=2**7, n_q=12, n_p=3, scale_bits=28), 257),
 }
 
 
 @functools.lru_cache(maxsize=None)
 def preset(name: str) -> CKKSParams:
-    """Named parameter presets (the CKKS subset of gpufhe_tpu's registry)."""
+    """Named parameter presets (the ported subset of gpufhe_tpu's registry)."""
     try:
         return _PRESETS[name]()
     except KeyError:

@@ -1,11 +1,17 @@
-"""RNS primitives: ModUp, ModDown by P, and rescale.
+"""RNS primitives: ModUp, ModDown by P, rescale and the BGV ModSwitch.
 
 Counterpart of gpufhe_tpu/primitives/rns.py. Every result is the canonical
 value the reference computes, limb for limb: the approximate base conversion
 is reduced per term (ops/convert_cuda.py, kernel K3 on the card whatever the
-source count), and the rescale uses the same centered lift of the dropped
-limb. Polynomials are int64[K, N] in the coefficient domain; rescale also
-takes leading batch axes.
+source count), and the rescale and ModSwitch use the same centered lift of
+the dropped limb. Polynomials are int64[K, N] in the coefficient domain;
+rescale and bgv_modswitch also take leading batch axes.
+
+For BGV parameters (plain_modulus t > 0) the key switch's ModDown must
+divide by P with a correction that is 0 mod t. make_ks_context folds it into
+the ModDown's conversion tables, t^-1 into the P-side Qhat inverses and t
+into the conversion rows (reference rns.py:138-148), so the same mod_down and
+the same kernel compute it.
 """
 
 from __future__ import annotations
@@ -14,11 +20,13 @@ import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
 
+from gpufhe_tpu_torch.golden import rns as grns
 from gpufhe_tpu_torch.ops.context import Context
 from gpufhe_tpu_torch.ops.convert_cuda import ConvertTables, base_convert, make_convert_tables
-from gpufhe_tpu_torch.ops.modops import sub_mod
+from gpufhe_tpu_torch.ops.modops import add_mod, sub_mod
 from gpufhe_tpu_torch.params.params import CKKSParams
 
 
@@ -40,11 +48,16 @@ class KSContext:
     pinv: torch.Tensor  # int64[K]   [P^-1]_{q_i}
     qlast_mod: torch.Tensor  # int64[K-1] q_last mod q_i
     qlast_inv: torch.Tensor  # int64[K-1] [q_last^-1]_{q_i}
+    # BGV ModSwitch (zeros for CKKS parameters), canonical
+    bgv_negtinv: torch.Tensor  # int64[1]   [-t^-1]_{q_last}
+    bgv_t: torch.Tensor  # int64[K-1] t mod q_i
 
 
 @functools.lru_cache(maxsize=None)
 def make_ks_context(params: CKKSParams, level: int, device: str = "cuda") -> KSContext:
-    """Host-side table build (exact python ints), one upload."""
+    """Host-side table build (exact python ints), one upload. Cached on
+    (params, level, device): plain_modulus is part of params, so a BGV chain
+    and its CKKS view (BFV's key switch) get separate tables."""
     qs = params.q_primes[:level]
     ps = params.p_primes
     big_p = math.prod(ps)
@@ -53,14 +66,24 @@ def make_ks_context(params: CKKSParams, level: int, device: str = "cuda") -> KSC
     def dev(v):
         return torch.tensor(v, dtype=torch.int64, device=device)
 
+    t = params.plain_modulus
+    if t:  # BGV: the t-corrected division by P, delta = t [x t^-1]_P
+        p_arr = np.asarray(ps, dtype=np.int64)
+        qhinv = grns.qhat_inv(ps) * np.asarray([pow(t, -1, p) for p in ps]) % p_arr
+        conv = grns.conv_matrix(ps, qs) * t % np.asarray(qs, dtype=np.int64)[:, None]
+        p2q = make_convert_tables(ps, qs, device, qhinv=qhinv, conv=conv)
+    else:
+        p2q = make_convert_tables(ps, qs, device)
     return KSContext(
         modup=tuple(
             make_convert_tables(qs[d0:d1], qs + ps, device) for d0, d1 in ks_groups(params, level)
         ),
-        p2q=make_convert_tables(ps, qs, device),
+        p2q=p2q,
         pinv=dev([pow(big_p, -1, q) for q in qs]),
         qlast_mod=dev([q_last % q for q in qs[:-1]]),
         qlast_inv=dev([pow(q_last, -1, q) for q in qs[:-1]]),
+        bgv_negtinv=dev([-pow(t, -1, q_last) % q_last if t else 0]),
+        bgv_t=dev([t % q for q in qs[:-1]]),
     )
 
 
@@ -101,3 +124,23 @@ def rescale(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
     lifted = torch.where(last > q_last // 2, sub_mod(r, ksc.qlast_mod[:, None], q), r)
     diff = sub_mod(x_coeff[..., : k - 1, :], lifted, q)
     return torch.remainder(diff * ksc.qlast_inv[:, None], q)
+
+
+def bgv_modswitch(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
+                  ksc: KSContext) -> torch.Tensor:
+    """BGV ModSwitch: drop q_last with a correction delta = 0 (mod t),
+    int64[..., K, N] -> int64[..., K-1, N] (reference rns.py:328-351).
+
+    out = (x + t * centered([-x t^-1]_{q_last})) / q_last on every remaining
+    limb, the centered lift by the rescale's rule (u > q_last // 2 lifts to
+    u - q_last).
+    """
+    k = level
+    q_last = params.q_primes[k - 1]
+    q = ctx.col("q", range(k - 1))
+    u = torch.remainder(x_coeff[..., k - 1 : k, :] * ksc.bgv_negtinv, q_last)
+    r = torch.remainder(u, q)
+    lifted = torch.where(u > q_last // 2, sub_mod(r, ksc.qlast_mod[:, None], q), r)
+    summed = add_mod(x_coeff[..., : k - 1, :],
+                     torch.remainder(lifted * ksc.bgv_t[:, None], q), q)
+    return torch.remainder(summed * ksc.qlast_inv[:, None], q)

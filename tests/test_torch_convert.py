@@ -7,6 +7,8 @@ against each other. The CUDA kernel is held against the plain version on
 the card (tests/test_torch_kernels_gpu.py, marked `gpu`).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from gpufhe_tpu.ops.modops import shoup_np
 from gpufhe_tpu.params.params import preset as ref_preset
 from gpufhe_tpu.primitives import rns as rrns
 from gpufhe_tpu_torch.ops import convert_cuda
+from gpufhe_tpu_torch.ops.context import make_context
 from gpufhe_tpu_torch.ops.convert_cuda import base_convert, make_convert_tables
 from gpufhe_tpu_torch.params.params import gen_ntt_primes, preset
 from gpufhe_tpu_torch.primitives import rns as prns
@@ -91,3 +94,35 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError):
         convert_cuda.base_convert_cuda(torch.zeros((2, 8), dtype=torch.int64), tabs)
     assert convert_cuda.KERNEL.launches == before
+
+
+def test_bgv_moddown_on_folded_tables_matches_reference():
+    """At bgv_ci the ModDown's K3 tables are built from the t-folded
+    qhinv (t^-1 folded in) and conv (t folded in): the plain version on
+    them == the reference's BGV digit-kernel tables, and the port's mod_down
+    == the reference's mod_down (jnp, t-corrected), at two levels."""
+    params, rparams = preset("bgv_ci"), ref_preset("bgv_ci")
+    rctx, ctx = ref_context(rparams), make_context(params, "cpu")
+    t, ps = params.plain_modulus, params.p_primes
+    for level in (params.num_limbs, params.num_limbs - 2):
+        ksc = prns.make_ks_context(params, level, "cpu")
+        rksc = rrns.make_ks_context(rparams, level)
+        qs = params.q_primes[:level]
+        assert ksc.p2q.qhinv.tolist() == [
+            pow(math.prod(ps) // p, -1, p) * pow(t, -1, p) % p for p in ps]
+        assert (ksc.p2q.conv.numpy() == np.asarray(rksc.p2q_conv_plain)).all()
+        x = _rand(qs + ps, params.n, level)
+        want_p = np.asarray(digit_convert(jnp.asarray(x[level:].astype(np.uint32)), rksc.p2q_dc,
+                                          interpret=True)).astype(np.int64)
+        assert (base_convert(torch.from_numpy(x[level:]), ksc.p2q).numpy() == want_p).all()
+        want = np.asarray(rrns.mod_down(jnp.asarray(x.astype(np.uint32)), rparams, level, rctx,
+                                        rksc)).astype(np.int64)
+        assert (prns.mod_down(torch.from_numpy(x), params, level, ctx, ksc).numpy() == want).all()
+
+
+def test_given_tables_must_fit_and_be_canonical():
+    src, dst = (97, 193), (257, 353, 449)
+    with pytest.raises(ValueError, match="fit"):
+        make_convert_tables(src, dst, "cpu", conv=np.zeros((2, 2), dtype=np.int64))
+    with pytest.raises(ValueError, match="canonical"):
+        make_convert_tables(src, dst, "cpu", qhinv=np.array([97, 1]))

@@ -11,7 +11,9 @@ coefficients each thread owns. Every sum is checked to stay below 2^64 and
 every Barrett remainder below 2p before its correction. The model is held
 == the plain version `base_convert_plain` (which tests/test_torch_convert.py
 holds == the reference) at the ModUp and ModDown tables of tiny2, ci_small,
-config5_boot and config5_boot_dw, and at worst-case inputs: residues q - 1,
+config5_boot and config5_boot_dw, at the integer schemes' tables (BGV's
+t-folded ModDown, BFV's conversions to and from the aux basis at bfv_n16:
+33 source limbs, one destination), and at worst-case inputs: residues q - 1,
 conv = p - 1, primes just below 2^30, and 16, 17 and 33 source limbs. The
 kernel's tables are checked against their definitions and against the
 entry point's parameter order, and the refusal of a prime >= 2^30 where the
@@ -30,6 +32,7 @@ from gpufhe_tpu_torch.ops import convert_cuda
 from gpufhe_tpu_torch.ops.convert_cuda import (
     K3Tables, base_convert_plain, k3_refusal, make_convert_tables,
 )
+from gpufhe_tpu_torch.golden.bfv import bfv_aux_params
 from gpufhe_tpu_torch.ops.cuda_build import CSRC
 from gpufhe_tpu_torch.params.params import gen_ntt_primes, is_prime, preset
 from gpufhe_tpu_torch.primitives import rns as prns
@@ -143,6 +146,40 @@ def test_model_equals_plain_at_the_key_switch_tables(name):
     for g, (d0, d1) in enumerate(prns.ks_groups(params, level)):
         _check(_rand(params.q_primes[d0:d1], N, g), ksc.modup[g])
     _check(_rand(params.p_primes, N, 99), ksc.p2q)
+
+
+def test_model_equals_plain_at_the_integer_schemes_tables():
+    """The BGV ModDown's t-folded tables (bgv_ci, and bfv_n16's chain read as
+    BGV: P -> Q 15 -> 30) and the BFV multiply's conversions at bfv_n16:
+    Q -> aux 30 -> 34, B -> Q 33 -> 30 (a chunk boundary above 32 source
+    limbs) and B -> m_sk 33 -> 1 (one destination in a group of 16)."""
+    for name in ("bgv_ci", "bfv_n16"):
+        params = preset(name)
+        ksc = prns.make_ks_context(params, params.num_limbs, "cpu")
+        _check(_rand(params.p_primes, N, 7), ksc.p2q)
+    params = preset("bfv_n16")
+    aux = bfv_aux_params(params).q_primes
+    qs, b_primes = params.q_primes, aux[:-1]
+    for i, (src, dst) in enumerate(((qs, aux), (b_primes, qs), (b_primes, aux[-1:]))):
+        tabs = make_convert_tables(src, dst, "cpu")
+        assert launch_shape(len(src), len(dst), convert_cuda.GROUP)[2] == min(16, len(dst))
+        _check(_rand(src, N, 20 + i), tabs)
+        q = np.asarray(src, dtype=np.int64)[:, None]
+        _check(np.broadcast_to(q - 1, (len(src), 64)).copy(), tabs)
+
+
+def test_folded_tables_against_their_definitions():
+    """make_convert_tables from given qhinv and conv: the kernel's u32
+    tables, qhinv_shoup included, are those values and their companions."""
+    params = preset("bfv_n16")
+    t, ps, qs = params.plain_modulus, params.p_primes, params.q_primes
+    tabs = prns.make_ks_context(params, params.num_limbs, "cpu").p2q
+    big = math.prod(ps)
+    qhinv = [pow(big // p, -1, p) * pow(t, -1, p) % p for p in ps]
+    assert _u64(tabs.k3.qhinv).tolist() == qhinv == tabs.qhinv.tolist()
+    assert _u64(tabs.k3.qhinv_shoup).tolist() == [(w << 32) // p for w, p in zip(qhinv, ps)]
+    assert _u64(tabs.k3.conv).reshape(len(qs), len(ps)).tolist() == [
+        [(big // p) * t % q for p in ps] for q in qs] == tabs.conv.tolist()
 
 
 @pytest.mark.parametrize("tg", [1, 7, 16, 64])

@@ -235,6 +235,68 @@ def test_bootstrap_on_card_equals_cpu_path(cuda_device, name, settings):
                 assert torch.equal(gc.cpu(), cc)
 
 
+def test_ntt_kernel_on_the_bfv_n16_aux_basis(cuda_device):
+    """K1 over BFV's auxiliary basis at bfv_n16 (34 limbs of 28-bit primes,
+    N = 2^16, a context of its own), forward and inverse, a batch of 2."""
+    from gpufhe_tpu_torch.golden.bfv import bfv_aux_params
+
+    auxp = bfv_aux_params(preset("bfv_n16"))
+    ctx = make_context(auxp, cuda_device)
+    assert ctx.k1_refusal is None
+    sel = list(range(len(auxp.q_primes)))
+    idx = ctx.index(sel, torch.int32)
+    x = torch.from_numpy(_rand(auxp.q_primes, sel * 2, auxp.n, 10)).to(cuda_device)
+    for inverse in (False, True):
+        assert torch.equal(ntt_cuda.fourstep_cuda(x, idx, ctx, inverse),
+                           ntt_cuda.fourstep_plain(x, idx, ctx, inverse))
+
+
+@pytest.mark.parametrize("which", ["q2aux", "b2q", "b2msk", "p2q_bgv"])
+def test_convert_kernel_at_the_integer_shapes(cuda_device, which):
+    """K3 at Q -> aux 30 -> 34, B -> Q 33 -> 30, B -> m_sk 33 -> 1 and BGV's
+    t-folded P -> Q 15 -> 30 at bfv_n16, random and x = q - 1."""
+    from gpufhe_tpu_torch.ciphertext.bfv import make_bfv_mul_context
+    from gpufhe_tpu_torch.primitives import rns
+
+    params = preset("bfv_n16")
+    if which == "p2q_bgv":
+        tabs = rns.make_ks_context(params, params.num_limbs, cuda_device).p2q
+    else:
+        tabs = getattr(make_bfv_mul_context(params, params.num_limbs, cuda_device)[2], which)
+    src = tabs.sq.tolist()
+    x = torch.from_numpy(_rand(src, range(len(src)), 2**16, 11)).to(cuda_device)
+    top = (tabs.sq[:, None] - 1).expand(len(src), 2**16).contiguous()
+    for data in (x, top):
+        assert torch.equal(convert_cuda.base_convert_cuda(data, tabs),
+                           convert_cuda.base_convert_plain(data, tabs))
+
+
+@pytest.mark.parametrize("scheme", ["bgv", "bfv"])
+def test_integer_mul_on_card_equals_cpu_path(cuda_device, scheme):
+    """A BGV and a BFV ct_mul at bfv_ci (bgv_ci for BGV): the card's limbs
+    and pt_factor equal the CPU path's, the decrypt is exact."""
+    from gpufhe_tpu_torch.ciphertext import bfv, bgv
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+
+    mod = bgv if scheme == "bgv" else bfv
+    params = preset(f"{scheme}_ci")
+    t = params.plain_modulus
+    za, zb = (np.random.default_rng(i).integers(0, t, size=params.n) for i in (1, 2))
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        ctx = make_context(params, dev)
+        chest = mod.keygen(params, np.random.default_rng(2), ctx)
+        a, b = (mod.encrypt(gbgv.encode(z, params), params, chest.device_pk, ctx,
+                            np.random.default_rng(3 + i)) for i, z in enumerate((za, zb)))
+        prod = mod.ct_mul(a, b, params, ctx, chest.device_rlk)
+        assert (mod.decrypt_decode(prod, params, chest.device_sk, ctx) == za * zb % t).all()
+        outs.append(prod)
+    assert outs[0].level == outs[1].level
+    assert getattr(outs[0], "pt_factor", 1) == getattr(outs[1], "pt_factor", 1)
+    for g, c in zip(outs[0].c, outs[1].c):
+        assert torch.equal(g.cpu(), c)
+
+
 def test_keygen_keeps_canonical_keys_on_host(cuda_device):
     """keygen on the card keeps every switching key's canonical form on the
     host and its device form on the card, each equal to the CPU keygen's."""

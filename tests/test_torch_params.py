@@ -1,13 +1,19 @@
-"""gpufhe_tpu_torch params vs gpufhe_tpu params: the same presets name the same chains."""
+"""gpufhe_tpu_torch params vs gpufhe_tpu params: the same presets name the same chains,
+and the integer schemes' presets the same plaintext moduli and BFV aux bases."""
 
 import pytest
 
+from gpufhe_tpu.golden import bfv as ref_bfv
 from gpufhe_tpu.params import params as ref
+from gpufhe_tpu_torch.golden import bfv as port_bfv
+from gpufhe_tpu_torch.ops.context import fourstep_split, k1_refusal
+from gpufhe_tpu_torch.ops.convert_cuda import make_convert_tables
 from gpufhe_tpu_torch.params import params as port
 
 PORTED = ["tiny", "tiny2", "ci_small", "config1_ntt", "config2_rns", "config3_ckks",
           "config4_rotation", "config5_boot", "config5_boot_dw", "boot_dw_ci", "boot_dw_ci_enc",
-          "fft_ci_small", "fft_ci", "boot_ci", "boot_ci_f", "boot_ci_cheb", "boot_ci_enc"]
+          "fft_ci_small", "fft_ci", "boot_ci", "boot_ci_f", "boot_ci_cheb", "boot_ci_enc",
+          "bgv_ci", "bgv_tiny", "bfv_ci", "bfv_tiny", "bfv_n16", "bfv_eq"]
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -20,6 +26,7 @@ def test_preset_primes_and_roots_match_reference(name):
     assert (p.alpha, p.dnum, p.slots, p.scale_words) == (r.alpha, r.dnum, r.slots, r.scale_words)
     assert p.hamming_weight == r.hamming_weight
     assert p.eph_hamming_weight == r.eph_hamming_weight
+    assert p.plain_modulus == r.plain_modulus
 
 
 @pytest.mark.parametrize("bits,two_n,count,skip", [(30, 2**17, 15, 1), (28, 2**11, 9, 0), (29, 512, 4, 3)])
@@ -55,3 +62,36 @@ def test_bad_params_raise():
         port.CKKSParams(n=64, q_primes=(97,), p_primes=(), scale_bits=20)  # 97 != 1 mod 128
     with pytest.raises(KeyError):
         port.preset("no_such_preset")
+
+
+def test_integer_preset_shapes():
+    p = port.preset("bfv_n16")
+    assert (p.n, p.num_limbs, p.alpha, p.dnum, p.plain_modulus) == (2**16, 30, 15, 2, 786433)
+    for name in ("bgv_ci", "bgv_tiny", "bfv_ci", "bfv_tiny", "bfv_eq"):
+        q = port.preset(name)
+        assert q.plain_modulus > 1 and (q.plain_modulus - 1) % (2 * q.n) == 0
+    assert port.preset("bfv_eq").plain_modulus == 257
+
+
+@pytest.mark.parametrize("name,level", [("bfv_tiny", None), ("bfv_tiny", 3), ("bfv_ci", None),
+                                        ("bfv_n16", None)])
+def test_bfv_aux_basis_matches_reference(name, level):
+    p = port_bfv.bfv_aux_params(port.preset(name), level)
+    r = ref_bfv.bfv_aux_params(ref.preset(name), level)
+    assert p.q_primes == r.q_primes and p.p_primes == r.p_primes == ()
+    assert (p.n, p.plain_modulus, p.scale_bits, p.sigma) == (r.n, r.plain_modulus, r.scale_bits,
+                                                            r.sigma)
+
+
+def test_bfv_n16_aux_basis_fits_the_kernels():
+    """At bfv_n16 the aux basis (28-, 29- and 30-bit primes) stays below 2^30,
+    its transform length has a K1 instantiation, and the three BFV
+    conversions' K3 tables carry no refusal where they are built."""
+    params = port.preset("bfv_n16")
+    aux = port_bfv.bfv_aux_params(params).q_primes
+    assert 30 <= len(aux) <= 40 and max(aux) < 2**30
+    assert not set(aux) & set(params.q_primes + params.p_primes)
+    assert k1_refusal(aux, params.n, *fourstep_split(params.n)) is None
+    qs = params.q_primes
+    for src, dst in ((qs, aux), (aux[:-1], qs), (aux[:-1], aux[-1:])):
+        assert make_convert_tables(src, dst, "cpu").k3_refusal is None
