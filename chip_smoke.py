@@ -6,7 +6,7 @@
 Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
 against its plain PyTorch version on the card: K1 (NTT), K3 (base
 conversion), K4 (key-switch MAC), and the two probes, the integer rate (P2)
-and the K1 ablation builds (P1). Then it drives eight paths through the
+and the K1 ablation builds (P1). Then it drives nine paths through the
 package's entry points, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -39,8 +39,9 @@ and read just after:
           slot_to_coeff) == limb for limb, which holds K1, K3 and K4 at the
           bootstrap's shapes against their plain versions;
   boot    the flagship bootstrap at config5_boot_dw, as the reference's
-          scripts/bootstrap_n16_dw.py drives it: keygen (rlk, eph h=32, the
-          63 Galois keys of the factored transforms at radix_log 3, conj),
+          scripts/bootstrap_n16_dw.py drives it: device_keygen on the card
+          (rlk, eph h=32, the 63 Galois keys of the factored transforms at
+          radix_log 3, conj; its threefry draws timed by CUDA events),
           Bootstrapper(factored, radix 3, cheb, k_bound 10), per-step key
           truncation, then one first call and five steady calls on
           z = 0.2 (N(0,1) + i N(0,1)) encrypted at level 2, each decoded
@@ -51,7 +52,25 @@ and read just after:
           launches per phase, host encodes per call and peak device
           memory. After its counts are read, K4 is held == its plain
           version at every shape the fans give it, on the path's own
-          plaintext stacks and truncated keys (boot_mac_check).
+          plaintext stacks and truncated keys (boot_mac_check);
+  boot_h  the single-word bootstrap at config5_boot_h (N=2^16, 30 q-limbs,
+          5 special primes, dnum=6, sparse h=64, no encapsulation), as the
+          reference's scripts/bootstrap_n16.py drives it, nothing cut, after
+          the flagship's keys are freed: device_keygen (rlk, the 55 Galois
+          keys of the factored transforms at radix_log 2, conj),
+          Bootstrapper(factored, radix 2, cheb, k_bound 12), one first and
+          five steady calls on z = 0.2 (N(0,1) + i N(0,1)) encrypted at level
+          1; each phase of the first call within DECODE_TOL of its own
+          function of its decrypted input (end to end the sine multiplies
+          the CoeffToSlot noise at Delta = 2^28 by 2 pi k_bound; the error
+          is printed), every steady call == the first limb for limb;
+          CUDA-event times, per phase, busy share, launches, peak memory;
+          then (boot_h_check) its ModRaise
+          stage == the CPU path, regen_pk_a on the card == on the CPU, one
+          Galois key's a == regen_ks_a of its seed, and one key switch of the
+          raised ciphertext taken apart with K1, K3 (ModUp 5->35, ModDown
+          5->30) and K4 (D = 6 x 35) each == plain on those operands; and
+          (boot_h_shapes) each kernel alone at those shapes.
 
 Each path's ciphertexts are checked == the same path on the CPU and decoded
 against the cleartext result; the kernels and stage leaves are timed with
@@ -73,6 +92,7 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -108,6 +128,13 @@ BOOT_K_BOUND = 10.0  # the reference flagship's (scripts/bootstrap_n16_dw.py)
 BOOT_CI_K_BOUND = 5.0  # the reference's at CI size (tests/test_fftboot.py)
 BOOT_TOL = 1e-3  # tests/test_fftboot.py:193, the dw bootstrap's tolerance
 BOOT_STEADY = 5
+# the single-word N=2^16 bootstrap, as the reference's scripts/bootstrap_n16.py
+# drives it: config5_boot_h (30 q-limbs, 5 special primes, dnum 6, h=64),
+# factored transforms at radix_log 2, Chebyshev EvalMod with k_bound 12
+BOOT_H_PRESET = "config5_boot_h"
+BOOT_H_RADIX = 2
+BOOT_H_K_BOUND = 12.0
+BOOT_H_STEADY = 5
 # the integer schemes: bfv_n16 (N=2^16, 30 q-limbs, alpha=15, dnum=2, t=786433)
 # read as BGV and as BFV, as the reference's scripts/bgv_n16_mult.py and
 # bfv_n16_mult.py drive it; the CI presets bgv_ci / bfv_ci
@@ -279,6 +306,41 @@ def gib(nbytes: float) -> str:
     return f"{nbytes / 2**30:.3f} GiB"
 
 
+def key_bytes(chest) -> int:
+    """Device bytes of a chest's Galois and conjugation keys."""
+    keys = [k for _, k in chest.galois.values()] + [chest.conj[1]]
+    return sum(8 * (k.b_mont.numel() + k.a_mont.numel()) for k in keys)
+
+
+def timed_keygen(params, rots, ctx) -> tuple:
+    """device_keygen(params, default_rng(7), rots, conjugation=True) on ctx,
+    as the reference's N=2^16 scripts draw their keys: (chest, host seconds
+    with the device synchronised, the threefry draws' CUDA-event ms, draws).
+    Each draw (keys/prng.py bits_u32) is bracketed by a pair of events."""
+    from gpufhe_tpu_torch.keys import prng
+    from gpufhe_tpu_torch.keys.device_keygen import device_keygen
+
+    real, pairs = prng.bits_u32, []
+
+    def timed(key, shape, device=None):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(key, shape, device)
+        stop.record()
+        pairs.append((start, stop))
+        return out
+
+    t = time.perf_counter()
+    prng.bits_u32 = timed
+    try:
+        chest = device_keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
+    finally:
+        prng.bits_u32 = real
+    torch.cuda.synchronize()
+    return (chest, time.perf_counter() - t, sum(a.elapsed_time(b) for a, b in pairs),
+            len(pairs))
+
+
 class Bounds:
     """The least time the card could take for each kernel launch's work, at
     this run's shapes and rates: the larger of the bytes (each input read
@@ -393,7 +455,7 @@ def boot_ci_path(dev, counts, reset, launches: dict) -> None:
 
     def run(device):
         ctx = make_context(params, device)
-        chest = dkeys.keygen(params, np.random.default_rng(7), ctx, rots, conjugation=True)
+        chest = dkeys.keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
         be = DeviceBackend(params, ctx, chest)
         bs = Bootstrapper(be, transform="factored", radix_log=BOOT_RADIX, evalmod="cheb",
                           k_bound=BOOT_CI_K_BOUND)
@@ -519,17 +581,12 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
         peak[what] = torch.cuda.max_memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
 
-    def key_bytes(chest):
-        keys = [k for _, k in chest.galois.values()] + [chest.conj[1]]
-        return sum(8 * (k.b_mont.numel() + k.a_mont.numel()) for k in keys)
-
     t = time.perf_counter()
     reset()
     torch.cuda.reset_peak_memory_stats(dev)
     rots = tuple(bootstrap_rotations(params, "factored", BOOT_RADIX))
-    chest = dkeys.keygen(params, np.random.default_rng(7), ctx, rots, conjugation=True)
+    chest, keygen_s, threefry_ms, draws = timed_keygen(params, rots, ctx)
     mark_peak("keygen")
-    keygen_s = time.perf_counter() - t
     t1 = time.perf_counter()
     be = DeviceBackend(params, ctx, chest)
     bs = Bootstrapper(be, transform="factored", radix_log=BOOT_RADIX, evalmod="cheb",
@@ -542,8 +599,9 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
     dkeys.truncate_galois_device(chest, steps, conj_level, params)
     mark_peak("truncate")
     trunc_s = time.perf_counter() - t1
-    say("boot_setup", f"{BOOT_PRESET}: keygen (rlk, eph h={params.eph_hamming_weight}, "
-        f"{len(rots)} Galois keys, conj; canonical forms on the host) {keygen_s:.2f} s; Bootstrapper("
+    say("boot_setup", f"{BOOT_PRESET}: device_keygen (rlk, eph h={params.eph_hamming_weight}, "
+        f"{len(rots)} Galois keys, conj) {keygen_s:.2f} s, of it threefry {threefry_ms / 1e3:.3f} "
+        f"s by CUDA events over {draws} draws; Bootstrapper("
         f"factored, radix {BOOT_RADIX}, cheb, k_bound {BOOT_K_BOUND}) plans {plan_s:.2f} s, "
         f"{plan_misses} host encodes; key truncation {trunc_s:.2f} s, Galois and conj keys "
         f"{gib(full_bytes)} -> {gib(key_bytes(chest))}; StC at level "
@@ -567,7 +625,7 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
         if min(per.values()) <= 0:
             raise AssertionError(f"boot phase {name}: a kernel did not run ({per})")
     say("boot_first", f"first call {first_s:.3f} s, {first_misses} host encodes; output level "
-        f"{out.level}, scale 2^{math.log2(out.scale):.6f}; max |dec - z| = {errs[0]:.3e} < "
+        f"{out.level}, scale 2^{math.log2(out.scale):.6f}; max |dec - z| = {errs[0]!r} < "
         f"{BOOT_TOL}; launches per phase {per_phase}  [{smi}]", t)
 
     t = time.perf_counter()
@@ -632,9 +690,329 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
         + ", ".join(f"{k} {gib(v)}" for k, v in peak.items())
         + f"; launches {launches['boot']}  [{smi}]", t)
     boot_mac_check(params, ctx, bs, chest, smi)
-    return {"keygen_s": keygen_s, "plan_s": plan_s, "first_s": first_s, "steady_s": steady,
+    return {"keygen_s": keygen_s, "threefry_s": threefry_ms / 1e3, "plan_s": plan_s,
+            "first_s": first_s, "steady_s": steady,
             "event_ms": steady_ms, "busy_ms": busy, "span_ms": span, "max_err": max(errs),
             "call": lambda: bs(ct)}
+
+
+def decode_float(coeffs: np.ndarray) -> np.ndarray:
+    """The slots of a polynomial with float (or complex) coefficients: the
+    canonical embedding that decode applies to integer ones."""
+    from gpufhe_tpu_torch.golden import ckks as gckks
+
+    n = coeffs.shape[0]
+    tw = np.exp(1j * np.pi * np.arange(n) / n)
+    return (np.fft.ifft(coeffs * tw) * n)[gckks._slot_positions(n)]
+
+
+def boot_h_phase_errors(params, be, bs, chest, phases: dict, out, z) -> tuple[dict, dict]:
+    """Each phase of a boot_h call against its own function applied to its
+    own decrypted input, max |.| over the slots: CoeffToSlot against the
+    exact t = u / (q0 k_bound) of the decrypted ModRaise output u (in the
+    bit-reversed slot order of the factored transform), EvalMod against the
+    Chebyshev series of sin(2 pi k_bound t) at the decrypted t, SlotToCoeff
+    against q0 / (2 pi Delta) times the canonical embedding of the decrypted
+    y as coefficients. Beside them (second dict) the largest |I| of the
+    ModRaise overflow u = m + q0 I, and max |. - z| of the decrypted t taken
+    through the exact sine and SlotToCoeff: the end-to-end error that the
+    CoeffToSlot output's noise alone gives."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext.fftboot import bit_rev_perm
+    from gpufhe_tpu_torch.ciphertext.polyeval import sine_coeffs
+    from gpufhe_tpu_torch.golden import ckks as gckks
+
+    n, slots = params.n, params.slots
+    q0k = params.q_primes[0] * bs.k_bound
+    br = bit_rev_perm(slots)
+    coeff = dct.decrypt_to_coeff(phases["mod_raise"][0], params, chest.device_sk, be.ctx)
+    u = gckks.crt_compose_centered(coeff, params.q_primes).astype(np.float64)
+    t = [be.decrypt_decode(x) for x in phases["coeff_to_slot"]]
+    y = [be.decrypt_decode(x) for x in phases["evalmod"]]
+    cheb = sine_coeffs(bs.k_bound)
+    c = np.zeros(n, dtype=np.complex128)
+    c[:slots][br], c[slots:][br] = y
+    exact_sine = np.zeros(n, dtype=np.complex128)
+    exact_sine[:slots][br], exact_sine[slots:][br] = (np.sin(2 * np.pi * bs.k_bound * ti)
+                                                      for ti in t)
+    m = gckks.crt_compose_centered(gckks.encode(z, params.scale, params.q_primes[:1], n),
+                                   params.q_primes[:1]).astype(np.float64)
+    notes = {"|I| max": float(np.abs(np.round((u - m) / params.q_primes[0])).max()),
+             "CtS noise end to end": float(np.abs(
+                 decode_float(exact_sine * bs._stc_factor) - z).max())}
+    return notes, {
+        "CoeffToSlot": max(float(np.abs(ti - ui[br] / q0k).max())
+                           for ti, ui in zip(t, (u[:slots], u[slots:]))),
+        "EvalMod": max(float(np.abs(yi - np.polynomial.chebyshev.chebval(ti, cheb)).max())
+                       for yi, ti in zip(y, t)),
+        "SlotToCoeff": float(np.abs(be.decrypt_decode(out)
+                                    - decode_float(c * bs._stc_factor)).max()),
+    }
+
+
+def boot_h_check(params, ctx, chest, ct, raised, smi) -> dict:
+    """After the boot_h path's counts are read: the path's ModRaise stage ==
+    the CPU path; regen_pk_a of the chest's pk seed on the card == on the CPU
+    (== the key's own a); one Galois key's a rows == regen_ks_a of its seed;
+    and one key switch of the raised ciphertext's c1 taken apart, each kernel
+    == its plain version on these operands: K1 (iNTT at 30 limbs, the NTT of
+    the 6 x 35 raised digits, the iNTT of both 35-limb accumulators), K3
+    (ModUp 5->35 per group, ModDown 5->30 per component) and K4 (D = 6 x 35
+    against the key, its automorphism folded in). Returns the shapes held."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.golden import ckks as gckks
+    from gpufhe_tpu_torch.keys import device_keygen as dkg
+    from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.primitives import keyswitch, rns
+
+    t = time.perf_counter()
+    t1 = time.perf_counter()
+    ctx_cpu = make_context(params, "cpu")
+    ctx_s = time.perf_counter() - t1
+    x = dct.ct_mod_raise(dct.Ciphertext([c.cpu() for c in ct.c], ct.level, ct.scale), params,
+                         ctx_cpu)
+    same_limbs(raised, x, "boot_h ModRaise stage")
+    pk_a = dkg.regen_pk_a(params, ctx, chest.seeds["pk"])
+    exact(pk_a.cpu(), dkg.regen_pk_a(params, ctx_cpu, chest.seeds["pk"]),
+          "boot_h regen_pk_a on the card against the CPU")
+    exact(pk_a, chest.device_pk.a_mont, "boot_h regen_pk_a against the public key's a")
+    step = next(iter(chest.galois))
+    key = chest.galois_key(step)
+    exact(dkg.regen_ks_a(params, ctx, chest.seeds[f"gk{step}"]), key.a_mont,
+          f"boot_h regen_ks_a against Galois key {step}")
+
+    level, n = params.num_limbs, params.n
+    ksc = rns.make_ks_context(params, level, ctx.device)
+    qp = keyswitch.qp_indices(params, level)
+    idx_q, idx_qp = ctx.index(range(level), torch.int32), ctx.index(qp, torch.int32)
+    held = {}
+
+    def k1(v, idx, inverse, what):
+        got = ntt_cuda.fourstep_cuda(v.reshape(-1, n).contiguous(), idx, ctx, inverse)
+        exact(got, ntt_cuda.fourstep_plain(v.reshape(-1, n).contiguous(), idx, ctx, inverse),
+              f"boot_h K1 {what}")
+        held[f"K1 {what}"] = tuple(v.shape[:-1])
+        return got.view(v.shape)
+
+    def k3(v, tabs, what):
+        got = convert_cuda.base_convert_cuda(v.contiguous(), tabs)
+        exact(got, convert_cuda.base_convert_plain(v.contiguous(), tabs), f"boot_h K3 {what}")
+        held[f"K3 {what}"] = f"{tabs.sq.numel()}->{tabs.dq.numel()}"
+        return got
+
+    coeff = k1(raised.c[1], idx_q, True, f"inv {level}")
+    digits = torch.stack([k3(coeff[d0:d1], ksc.modup[g], f"ModUp group {g}")
+                          for g, (d0, d1) in enumerate(rns.ks_groups(params, level))])
+    digits = k1(digits, idx_qp, False, f"fwd {len(qp)} x {digits.shape[0]}")
+    perm = dct.galois_perm(gckks.galois_exponent(step, n), ctx, torch.int32)
+    rows = ctx.index(keyswitch.key_row_index(params, level, key.b_mont.shape[1]), torch.int32)
+    args = (digits, key.b_mont, key.a_mont, rows, idx_qp, ctx, perm)
+    acc = mac_cuda.mac_cuda(*args)
+    exact(acc, mac_cuda.mac_plain(*args), "boot_h K4")
+    held["K4"] = f"D={digits.shape[0]} x T={len(qp)}, key {step}"
+    acc = k1(acc, idx_qp, True, f"inv {len(qp)} x 2")
+    for i in range(2):
+        k3(acc[i, level:], ksc.p2q, f"ModDown component {i}")
+    say("boot_h_check", f"ModRaise stage (ct_mod_raise from level 1) == the CPU path at "
+        f"{params.num_limbs} limbs x 2 (CPU context {ctx_s:.2f} s); regen_pk_a card == CPU == "
+        f"pk.a; regen_ks_a == Galois key {step}'s a; one key switch of the raised c1 against "
+        f"Galois key {step}, each kernel == plain: " + "; ".join(
+            f"{k} {v}" for k, v in held.items()) + f"  [{smi}]", t)
+    return held
+
+
+def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
+    """Path boot_h: the single-word bootstrap at BOOT_H_PRESET, as the
+    reference's scripts/bootstrap_n16.py drives it (see the module
+    docstring). Returns its numbers for the summary and the kernels line."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bootstrap import Bootstrapper, bootstrap_rotations
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    params = preset(BOOT_H_PRESET)
+    peak = {}
+
+    def mark_peak(what):
+        torch.cuda.synchronize()
+        peak[what] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    t = time.perf_counter()
+    resident = torch.cuda.memory_allocated(dev)
+    t1 = time.perf_counter()
+    ctx = make_context(params, dev)
+    ctx_s = time.perf_counter() - t1
+    reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rots = tuple(bootstrap_rotations(params, "factored", BOOT_H_RADIX))
+    chest, keygen_s, threefry_ms, draws = timed_keygen(params, rots, ctx)
+    mark_peak("keygen")
+    t1 = time.perf_counter()
+    be = DeviceBackend(params, ctx, chest)
+    bs = Bootstrapper(be, transform="factored", radix_log=BOOT_H_RADIX, evalmod="cheb",
+                      k_bound=BOOT_H_K_BOUND)
+    mark_peak("plan")
+    plan_s, plan_misses = time.perf_counter() - t1, be.encode_misses
+    say("boot_h_setup", f"{BOOT_H_PRESET} (N={params.n}, {params.num_limbs} q-limbs, "
+        f"{len(params.p_primes)} special primes, dnum {params.dnum}, h={params.hamming_weight}): "
+        f"device memory held before it {gib(resident)}; context {ctx_s:.2f} s; device_keygen "
+        f"(rlk, {len(rots)} Galois keys, conj) {keygen_s:.2f} s, of it threefry "
+        f"{threefry_ms / 1e3:.3f} s by CUDA events over {draws} draws; Galois and conj keys "
+        f"{gib(key_bytes(chest))}; Bootstrapper(factored, radix {BOOT_H_RADIX}, cheb, k_bound "
+        f"{BOOT_H_K_BOUND}) plans {plan_s:.2f} s, {plan_misses} host encodes; StC at level "
+        f"{bs.f_stc.first_lo.level}; peak device memory keygen {gib(peak['keygen'])}, plans "
+        f"{gib(peak['plan'])}  [{smi}]", t)
+
+    t = time.perf_counter()
+    zr = np.random.default_rng(0)
+    z = (zr.normal(size=params.slots) + 1j * zr.normal(size=params.slots)) * 0.2
+    ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                     np.random.default_rng(1), params.scale, level=1)
+    torch.cuda.synchronize()
+    phases, per_phase = {}, {}
+    m0, t1 = be.encode_misses, time.perf_counter()
+    out = bs(ct, _phase=phase_hook(counts, phases, per_phase))
+    torch.cuda.synchronize()
+    first_s, first_misses = time.perf_counter() - t1, be.encode_misses - m0
+    mark_peak("first call")
+    for name, per in per_phase.items():
+        # a single-word ModRaise without encapsulation is two NTTs and no switch
+        need = ("ntt",) if name == "mod_raise" else tuple(per)
+        if min(per[k] for k in need) <= 0:
+            raise AssertionError(f"boot_h phase {name}: a kernel did not run ({per})")
+    # Each phase is held to its own function of its decrypted input within the
+    # CKKS decode gate. End to end the error is not held to it: at Delta =
+    # 2^28 the CoeffToSlot output carries the scheme's noise (a few 1e-3 in
+    # [-1, 1]), which the sine multiplies by 2 pi k_bound (PERF.md section 6).
+    notes, phase_err = boot_h_phase_errors(params, be, bs, chest, phases, out, z)
+    for name, err in phase_err.items():
+        if not err < DECODE_TOL:
+            raise AssertionError(f"boot_h {name} off its function by {err} (gate {DECODE_TOL})")
+    got = be.decrypt_decode(out)
+    if got.shape != (params.slots,) or not np.isfinite(got).all() or out.level < 1:
+        raise AssertionError(f"boot_h output: shape {got.shape}, level {out.level}, finite "
+                             f"{np.isfinite(got).all()}")
+    err = float(np.abs(got - z).max())
+    first = out
+    say("boot_h_first", f"first call {first_s:.3f} s, {first_misses} host encodes; output "
+        f"level {out.level}, scale 2^{math.log2(out.scale):.6f}; each phase against its "
+        f"function of its decrypted input, max |.|: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in phase_err.items()) + f" < {DECODE_TOL}; end to end max "
+        f"|dec - z| = {err:.6e}; ModRaise |I| max {notes['|I| max']:.0f} (k_bound "
+        f"{BOOT_H_K_BOUND}); the decrypted CoeffToSlot output through the exact sine and "
+        f"SlotToCoeff: max |. - z| = {notes['CtS noise end to end']:.6e}; launches per phase "
+        f"{per_phase}  [{smi}]", t)
+
+    t = time.perf_counter()
+    steady_ms, steady_launches = [], None
+    for i in range(BOOT_H_STEADY):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        m0, before = be.encode_misses, counts()
+        start.record()
+        out = bs(ct)
+        stop.record()
+        torch.cuda.synchronize()
+        steady_ms.append(start.elapsed_time(stop))
+        steady_launches = {k: v - before[k] for k, v in counts().items()}
+        if be.encode_misses != m0:
+            raise AssertionError(f"boot_h steady call {i}: {be.encode_misses - m0} host encodes")
+        same_limbs(out, first, f"boot_h steady call {i} against the first call")
+    call_ms = float(np.median(steady_ms))
+    out, phase_s = bs.timed_call(ct)
+    events, steady_phase = [], {}
+    bs(ct, _phase=phase_hook(counts, {}, steady_phase, events))
+    phase_ms = event_ms(events)
+    busy, span, top = device_profile(lambda: bs(ct), iters=1)
+    mark_peak("steady calls")
+    launches["boot_h"] = counts()
+    groups = {"K1": "k1_pass", "K3": K3_NAME, "K4": K4_NAME}
+    per_group = {g: sum(ms for ms, name, _ in top if key in name) for g, key in groups.items()}
+    traced = {g: sum(c for _, name, c in top if key in name) for g, key in groups.items()}
+    say("boot_h_steady", f"{BOOT_H_STEADY} steady calls by CUDA events "
+        f"{[round(x, 3) for x in steady_ms]} ms, median {call_ms:.3f}, spread "
+        f"{min(steady_ms):.3f} to {max(steady_ms):.3f}, 0 host encodes each, launches per call "
+        f"{steady_launches}; one more call, per phase, CUDA events (ms) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase_ms.items())
+        + "; timed_call (host clock, synchronised at each phase; s) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in phase_s.items())
+        + f"; launches per phase of a steady call {steady_phase}; one profiled call: device "
+        f"busy {busy:.3f} ms, {busy / span:.1%} of its own CUDA-event time ({span:.3f} ms, the "
+        f"profiler's host cost included), {busy / call_ms:.1%} of the median; per kernel (ms) "
+        + ", ".join(f"{g} {ms:.3f}" for g, ms in per_group.items())
+        + f", the rest {busy - sum(per_group.values()):.3f}; launches traced {traced}; peak "
+        f"device memory " + ", ".join(f"{k} {gib(v)}" for k, v in peak.items())
+        + f"; every steady call's output == the first call's limb for limb; launches "
+        f"{launches['boot_h']}  [{smi}]", t)
+
+    held = boot_h_check(params, ctx, chest, ct, phases["mod_raise"][0], smi)
+    bound = bounds.report(f"bootstrap at {BOOT_H_PRESET} (steady)", lambda: bs(ct))
+    return {"keygen_s": keygen_s, "threefry_s": threefry_ms / 1e3, "plan_s": plan_s,
+            "first_s": first_s, "event_ms": steady_ms, "busy_ms": busy, "span_ms": span,
+            "per_group": per_group, "per_call": steady_launches, "bound": bound,
+            "max_err": err, "phase_err": phase_err, "notes": notes, "held": held, "peak": peak,
+            "shapes": boot_h_shapes(params, ctx, chest, bounds, smi)}
+
+
+def boot_h_shapes(params, ctx, chest, bounds, smi) -> dict:
+    """K1, K3 and K4 alone at the shapes the boot_h path gives them at its top
+    level (the hoist's NTT of 6 x 35 digits, ModUp 5->35, ModDown 5->30, the
+    MAC at D = 6 x 35 against one of its keys), on random canonical
+    operands: CUDA-event and device ms per call, the bound, the plain
+    version's ms."""
+    from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda
+    from gpufhe_tpu_torch.ops.probes import cuda_ms
+    from gpufhe_tpu_torch.primitives import keyswitch, rns
+
+    t = time.perf_counter()
+    level, alpha, n = params.num_limbs, len(params.p_primes), params.n
+    gen = torch.Generator(ctx.device).manual_seed(SEED + 70)
+
+    def rand(rows, lead=()):
+        return torch.randint(0, 2**62, (*lead, len(rows), n), generator=gen,
+                             device=ctx.device) % ctx.col("q", rows)
+
+    ksc = rns.make_ks_context(params, level, ctx.device)
+    qp = keyswitch.qp_indices(params, level)
+    idx_qp = ctx.index(qp, torch.int32)
+    key = next(iter(chest.galois.values()))[1]
+    digits = rand(qp, (params.dnum,))
+    x_up, x_down = rand(range(alpha)), rand(range(level, level + alpha))
+    mac_rows = ctx.index(keyswitch.key_row_index(params, level, key.b_mont.shape[1]), torch.int32)
+    flat = digits.reshape(-1, n)
+    cases = {
+        f"ntt fwd {len(qp)} x {params.dnum}": (
+            K1_NAME, 2, bounds.ntt(flat.shape[0], len(qp)),
+            lambda: ntt_cuda.fourstep_cuda(flat, idx_qp, ctx, False),
+            lambda: ntt_cuda.fourstep_plain(flat, idx_qp, ctx, False)),
+        f"convert ModUp {alpha}->{len(qp)}": (
+            K3_NAME, 1, bounds.conv(alpha, len(qp)),
+            lambda: convert_cuda.base_convert_cuda(x_up, ksc.modup[0]),
+            lambda: convert_cuda.base_convert_plain(x_up, ksc.modup[0])),
+        f"convert ModDown {alpha}->{level}": (
+            K3_NAME, 1, bounds.conv(alpha, level),
+            lambda: convert_cuda.base_convert_cuda(x_down, ksc.p2q),
+            lambda: convert_cuda.base_convert_plain(x_down, ksc.p2q)),
+        f"mac D={params.dnum} T={len(qp)}": (
+            K4_NAME, 1, bounds.mac(params.dnum, len(qp)),
+            lambda: mac_cuda.mac_cuda(digits, key.b_mont, key.a_mont, mac_rows, idx_qp, ctx),
+            lambda: mac_cuda.mac_plain(digits, key.b_mont, key.a_mont, mac_rows, idx_qp, ctx)),
+    }
+    out = {}
+    for what, (pattern, kinds, work, call, plain) in cases.items():
+        exact(call(), plain(), f"boot_h {what}")
+        b_ms, b_by = bounds.ms(*work)
+        out[what] = {"ms": cuda_ms(call), "device_ms": or_null(kernel_ms(call, pattern, kinds)[0]),
+                     "plain_ms": cuda_ms(plain, iters=3), "bound_ms": b_ms, "bound_by": b_by}
+    say("boot_h_shapes", "alone at the boot_h path's shapes, == plain; CUDA-event / device / "
+        "bound / plain ms per call: " + "; ".join(
+            f"{k} {v['ms']:.4f} / {v['device_ms'] or math.nan:.4f} / {v['bound_ms']:.5f} "
+            f"({v['bound_by']}) / "
+            f"{v['plain_ms']:.3f}" for k, v in out.items()) + f"  [{smi}]", t)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -761,7 +1139,7 @@ def bgv_path(dev, smi, counts, reset, launches) -> dict:
     t = time.perf_counter()
     reset()
     ctx = make_context(params, dev)
-    chest = dbgv.keygen(params, np.random.default_rng(SEED + 32), ctx, rotations=INT_ROTATIONS)
+    chest = dbgv.keygen(params, np.random.default_rng(SEED + 32), rotations=INT_ROTATIONS, ctx=ctx)
     torch.cuda.synchronize()
     keygen_s, t1 = time.perf_counter() - t, time.perf_counter()
     pts = [gbgv.encode(m, params) for m in (m1, m2)]
@@ -832,7 +1210,7 @@ def bfv_path(dev, smi, counts, reset, launches, bgv: dict) -> dict:
     t = time.perf_counter()
     reset()
     ctx = make_context(params, dev)
-    chest = dbfv.keygen(params, np.random.default_rng(SEED + 42), ctx, rotations=(1,))
+    chest = dbfv.keygen(params, np.random.default_rng(SEED + 42), rotations=(1,), ctx=ctx)
     torch.cuda.synchronize()
     keygen_s, t1 = time.perf_counter() - t, time.perf_counter()
     pts = [gbfv.encode(m, params) for m in (m1, m2)]
@@ -904,7 +1282,7 @@ def int_ci_ops(scheme: str, dev) -> dict:
     tm, n_s = params.plain_modulus, params.slots
     ctx = make_context(params, dev)
     rots = tuple(linalg.bsgs_rotations(n_s))
-    chest = mod.keygen(params, np.random.default_rng(SEED + 50), ctx, rotations=rots)
+    chest = mod.keygen(params, np.random.default_rng(SEED + 50), rotations=rots, ctx=ctx)
     rng = np.random.default_rng(SEED + 51)
     m1, m2 = (rng.integers(0, tm, size=params.n) for _ in range(2))
     pts = [gbgv.encode(m, params) for m in (m1, m2)]
@@ -1333,8 +1711,8 @@ def main() -> None:
     za, zb = unit_disk(zr, params.slots), unit_disk(zr, params.slots)
 
     def mul_path(ctx_):
-        chest = dkeys.keygen(params, np.random.default_rng(SEED), ctx_, rotations=ROTATIONS,
-                             conjugation=True)
+        chest = dkeys.keygen(params, np.random.default_rng(SEED), rotations=ROTATIONS,
+                             conjugation=True, ctx=ctx_)
         cts = [dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx_,
                            np.random.default_rng(SEED + 2 + i), params.scale)
                for i, z in enumerate((za, zb))]
@@ -1364,7 +1742,7 @@ def main() -> None:
     da, db = unit_disk(zd, dw.slots), unit_disk(zd, dw.slots)
 
     def dw_path(ctx_):
-        chest_ = dkeys.keygen(dw, np.random.default_rng(SEED + 6), ctx_)
+        chest_ = dkeys.keygen(dw, np.random.default_rng(SEED + 6), ctx=ctx_)
         ca, cb = (dct.encrypt(encoder.encode(z, dw), dw, chest_.device_pk, ctx_,
                               np.random.default_rng(SEED + 7 + i), dw.scale)
                   for i, z in enumerate((da, db)))
@@ -1562,7 +1940,15 @@ def main() -> None:
     }
     for what, fn in per_call.items():
         bounds.report(what, fn)
-    del per_call  # the flagship's keys and plans
+    del per_call, fn  # the flagship's keys and plans
+    gc.collect()  # the plans and the backend refer to each other
+    if torch.cuda.memory_allocated(dev) > 8 * 2**30:
+        raise AssertionError(f"{gib(torch.cuda.memory_allocated(dev))} still allocated: the "
+                             "flagship's chest outlived its path")
+
+    # 10a. path "boot_h": the single-word bootstrap at config5_boot_h (its
+    #      own keys, drawn after the flagship's were freed)
+    boot_h = boot_h_path(dev, smi, counts, reset, launches, bounds)
     ntt45 = ntt_work(qp, qp)
     s_up, t_up = params.alpha, qp
     conv_up = conv_work(s_up, t_up)
@@ -1666,6 +2052,7 @@ def main() -> None:
     ):
         b_ms, b_by = bound(*work)
         prefix = {"ntt": "ntt", "convert": "convert", "mac": None}[key]
+        group = {"ntt": "K1", "convert": "K3", "mac": "K4"}[key]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": total[key], "launches_by_path": by_path[key], "max_abs_err": err, "ms": ms, "device_ms": or_null(dev_ms),
@@ -1678,6 +2065,15 @@ def main() -> None:
                    for s in ("bgv", "bfv")},
                 "shapes": {k: v for k, v in int_times["shapes"].items()
                            if prefix and k.startswith(prefix)},
+            },
+            # the boot_h path: launches, summed bound and device ms per steady
+            # call, and this kernel alone at its shapes there
+            "boot_h": {
+                "launches_per_call": boot_h["per_call"][key],
+                "bound_ms_per_call": boot_h["bound"][key][0],
+                "device_ms_per_call": boot_h["per_group"][group],
+                "shapes": {k: v for k, v in boot_h["shapes"].items()
+                           if k.startswith(key)},
             },
         })
     for mix in probes.MIXES:
@@ -1709,7 +2105,17 @@ def main() -> None:
           f"path: their launches are those of their own timing phase (int_rate, ntt_ablation). "
           f"No single PyTorch call computes any of these functions mod q, so library_ms is null; "
           f"total {time.perf_counter() - T0:.1f} s", flush=True)
-    print(f"# boot path at {BOOT_PRESET}: keygen {boot['keygen_s']:.2f} s, plans "
+    print(f"# boot_h path at {BOOT_H_PRESET}: device_keygen {boot_h['keygen_s']:.2f} s (threefry "
+          f"{boot_h['threefry_s']:.3f} s), plans {boot_h['plan_s']:.2f} s, first call "
+          f"{boot_h['first_s']:.3f} s, steady calls {[round(x, 3) for x in boot_h['event_ms']]} "
+          f"ms by CUDA events (median {np.median(boot_h['event_ms']):.3f}); one profiled call "
+          f"{boot_h['busy_ms']:.3f} ms device busy in {boot_h['span_ms']:.3f} ms; each phase "
+          f"against its function " + ", ".join(f"{k} {v:.3e}" for k, v in boot_h["phase_err"].items())
+          + f"; end to end max |dec - z| {boot_h['max_err']:.6e}; peak device memory "
+          + ", ".join(f"{k} {gib(v)}" for k, v in boot_h["peak"].items()) + f"  [{smi}]",
+          flush=True)
+    print(f"# boot path at {BOOT_PRESET}: device_keygen {boot['keygen_s']:.2f} s (threefry "
+          f"{boot['threefry_s']:.3f} s), plans "
           f"{boot['plan_s']:.2f} s, first call {boot['first_s']:.3f} s, steady calls "
           f"{[round(x, 4) for x in boot['steady_s']]} s on the host clock, "
           f"{[round(x, 3) for x in boot['event_ms']]} ms by CUDA events (median "

@@ -50,11 +50,17 @@ class BFVCiphertext:
         return params.q_primes[: self.level]
 
 
-def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
-           rotations: tuple[int, ...] = ()) -> dkeys.KeyChest:
-    """The BFV key chest (reference BFVKeyChest): CKKS keys, sk, pk, rlk and
-    one Galois key per step, in the reference's draw order."""
-    return dkeys.keygen(params, rng, ctx, rotations)
+class BFVKeyChest(dkeys.IntegerKeyChest):
+    """Reference ciphertext/bfv.py BFVKeyChest, field for field."""
+
+
+def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, ...] = (), *,
+           ctx: Context | None = None) -> BFVKeyChest:
+    """The BFV key chest (CKKS keys): sk, pk, rlk and one Galois key per
+    step, in the reference's draw order (keys.keygen; ctx defaults to the
+    parameters' context on the card)."""
+    chest = dkeys.keygen(params, rng, rotations, ctx=ctx)
+    return BFVKeyChest.of(chest)
 
 
 def _ckks_ksc(params: CKKSParams, level: int, device) -> KSContext:

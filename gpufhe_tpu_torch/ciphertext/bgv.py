@@ -43,11 +43,17 @@ class BGVCiphertext:
         return params.q_primes[: self.level]
 
 
-def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
-           rotations: tuple[int, ...] = ()) -> dkeys.KeyChest:
-    """The BGV key chest (reference BGVKeyChest): sk, pk, rlk and one Galois
-    key per step, every error times t, in the reference's draw order."""
-    return dkeys.keygen(params, rng, ctx, rotations, err_factor=params.plain_modulus)
+class BGVKeyChest(dkeys.IntegerKeyChest):
+    """Reference ciphertext/bgv.py BGVKeyChest, field for field."""
+
+
+def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, ...] = (), *,
+           ctx: Context | None = None) -> BGVKeyChest:
+    """The BGV key chest: sk, pk, rlk and one Galois key per step, every
+    error times t, in the reference's draw order (keys.keygen; ctx defaults
+    to the parameters' context on the card)."""
+    chest = dkeys.keygen(params, rng, rotations, ctx=ctx, err_factor=params.plain_modulus)
+    return BGVKeyChest.of(chest)
 
 
 def encrypt(pt_coeff: np.ndarray, params: CKKSParams, pk: DevicePublicKey, ctx: Context,

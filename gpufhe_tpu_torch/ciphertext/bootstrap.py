@@ -78,12 +78,15 @@ class Bootstrapper:
         noise by 2^r — fine at CI scale). evalmod="cheb": direct Chebyshev
         sine evaluation (polyeval.py) — no noise amplification; the
         production choice. k_bound bounds |u|/q0 (the ModRaise overflow).
-        fuse_evalmod and lean_keys are the reference's parameters and do
-        nothing here: the reference fuses each Chebyshev evaluation into one
-        XLA program (the port runs it eagerly), and drops and regenerates
-        the Galois keys' `a` halves from recorded seeds around that
-        program's first compile, which needs a seeded key chest (the port's
-        KeyChest records no seeds, as the reference's unseeded chest)."""
+        fuse_evalmod is the reference's parameter and does nothing here: the
+        reference fuses each Chebyshev evaluation into one XLA program, the
+        port runs it eagerly. lean_keys: on the first Chebyshev call, drop
+        every Galois key's `a` half after CoeffToSlot (half the chest's
+        rotation keys) and draw them again from the recorded seeds before
+        SlotToCoeff (keys/device_keygen.py regen_galois_a, bit for bit), so
+        the EvalMod runs with that memory free; later calls keep every key.
+        It needs a seeded chest (device_keygen's DeviceKeyChest) and does
+        nothing for a KeyChest, as in the reference."""
         self.be = be
         params: CKKSParams = be.params
         self.params = params
@@ -94,6 +97,9 @@ class Bootstrapper:
         self.evalmod = evalmod
         self.k_bound = k_bound
         self.cheb_baby_log = cheb_baby_log
+        chest = getattr(be, "chest", None)
+        self._lean_pending = bool(lean_keys and hasattr(chest, "drop_galois_a")
+                                  and getattr(chest, "seeds", None))
         n = params.n
         slots = params.slots
         # composite base modulus for scale_words > 1 (double-word scale)
@@ -285,8 +291,13 @@ class Bootstrapper:
         if self.evalmod == "cheb":
             t0, t1 = self.f_cts(raised)
             mark("coeff_to_slot", (t0, t1))
+            if self._lean_pending:
+                be.chest.drop_galois_a()
             y0 = self._cheb(t0)
             y1 = self._cheb(t1)
+            if self._lean_pending:
+                be.chest.regen_galois_a(be.ctx)
+                self._lean_pending = False
             mark("evalmod", (y0, y1))
             lvl = self.f_stc.first_lo.level  # ghost-planned == actual level
             out = self.f_stc(be.drop_to_level(y0, lvl), be.drop_to_level(y1, lvl))

@@ -73,31 +73,55 @@ def params_from_reference(ref_params) -> CKKSParams:
                          for f in dataclasses.fields(CKKSParams)})
 
 
-def chest_from_reference(ref_chest, device="cuda") -> KeyChest:
-    """A reference KeyChest as the port's: sk, pk, rlk, every Galois key, the
-    conjugation key and the encapsulation keys, host and device halves,
-    carried as numpy arrays (np.asarray of the reference's arrays). A
-    reference BGVKeyChest or BFVKeyChest (no conj, no eph) gives the port's
-    chest of that scheme, params with their plain_modulus."""
+def chest_from_reference(ref_chest, device="cuda"):
+    """A reference key chest as the port's, carried as numpy arrays
+    (np.asarray of the reference's arrays), host and device halves:
+    - a KeyChest gives a KeyChest: sk, pk, rlk, every Galois key, the
+      conjugation key and the encapsulation keys;
+    - a BGVKeyChest or BFVKeyChest gives the port's chest of that scheme
+      (sk, pk, rlk, Galois keys), params with their plain_modulus;
+    - a DeviceKeyChest (device_keygen) gives a DeviceKeyChest: no canonical
+      pk, rlk or switching-key halves (None where the reference has None, an
+      `a` dropped by drop_galois_a too), and its seeds copied."""
+    from gpufhe_tpu_torch.ciphertext.bfv import BFVKeyChest
+    from gpufhe_tpu_torch.ciphertext.bgv import BGVKeyChest
+    from gpufhe_tpu_torch.keys.device_keygen import DeviceKeyChest
 
-    def ks(golden, dev) -> tuple:  # the canonical half on the host, as keygen keeps it
-        return (gckks.KSKey(b=_tensor(golden.b, "cpu"), a=_tensor(golden.a, "cpu")),
-                ks_key_from_numpy(np.asarray(dev.b_mont), np.asarray(dev.a_mont), device))
+    def dev_ks(key) -> DeviceKSKey:
+        a = None if key.a_mont is None else _tensor(np.asarray(key.a_mont), device)
+        return DeviceKSKey(b_mont=_tensor(np.asarray(key.b_mont), device), a_mont=a)
 
-    eph, conj = getattr(ref_chest, "eph", None), getattr(ref_chest, "conj", None)
-    if eph is not None:
-        eph = {"s_eph": np.asarray(eph["s_eph"]).astype(np.int64),
-               **{k: ks(*eph[k]) for k in ("to_eph", "from_eph")}}
-    pk, dpk = ref_chest.pk, ref_chest.device_pk
-    return KeyChest(
+    def ks(pair) -> tuple:  # the canonical half on the host, as keygen keeps it
+        golden, dev = pair
+        host = None if golden is None else gckks.KSKey(b=_tensor(golden.b, "cpu"),
+                                                         a=_tensor(golden.a, "cpu"))
+        return host, dev_ks(dev)
+
+    dpk = ref_chest.device_pk
+    fields = dict(
         params=params_from_reference(ref_chest.params),
         sk=gckks.SecretKey(np.asarray(ref_chest.sk.s).astype(np.int64)),
-        pk=gckks.PublicKey(b=_tensor(pk.b, device), a=_tensor(pk.a, device)),
-        rlk=ks(ref_chest.rlk, ref_chest.device_rlk)[0],
         device_sk=secret_key_from_numpy(np.asarray(ref_chest.device_sk.s_mont), device),
         device_pk=public_key_from_numpy(np.asarray(dpk.b_mont), np.asarray(dpk.a_mont), device),
-        device_rlk=ks(ref_chest.rlk, ref_chest.device_rlk)[1],
-        galois={s: ks(*pair) for s, pair in ref_chest.galois.items()},
-        conj=None if conj is None else ks(*conj),
-        eph=eph,
+        device_rlk=dev_ks(ref_chest.device_rlk),
+        galois={s: ks(pair) for s, pair in ref_chest.galois.items()},
     )
+    kind = type(ref_chest).__name__
+    if kind in ("BGVKeyChest", "BFVKeyChest"):
+        cls = BGVKeyChest if kind == "BGVKeyChest" else BFVKeyChest
+    else:
+        eph, conj = ref_chest.eph, ref_chest.conj
+        if eph is not None:
+            eph = {"s_eph": np.asarray(eph["s_eph"]).astype(np.int64),
+                   **{k: ks(eph[k]) for k in ("to_eph", "from_eph")}}
+        fields.update(conj=None if conj is None else ks(conj), eph=eph)
+        if kind == "DeviceKeyChest":
+            fields["seeds"] = {name: torch.from_numpy(np.asarray(v).astype(np.int64))
+                               for name, v in ref_chest.seeds.items()}
+            return DeviceKeyChest(**fields)
+        cls = KeyChest
+    pk = ref_chest.pk
+    fields.update(pk=gckks.PublicKey(b=_tensor(pk.b, device), a=_tensor(pk.a, device)),
+                  rlk=gckks.KSKey(b=_tensor(ref_chest.rlk.b, "cpu"),
+                                  a=_tensor(ref_chest.rlk.a, "cpu")))
+    return cls(**fields)

@@ -1,9 +1,12 @@
 """Device key material (Montgomery form, NTT domain) and the key chest.
 
-Counterpart of gpufhe_tpu/keys/keys.py. Keys are generated by the port's
-golden layer from an explicit numpy Generator (the reference's draws) and
-stored as x * 2^32 mod q, so each use inside an inner product is one
-ops/modops.mont_mul, and the values equal the reference's device keys.
+Counterpart of gpufhe_tpu/keys/keys.py, with its signatures: keygen(params,
+rng, rotations, conjugation) and upload_*(key, params). Keys are generated by
+the port's golden layer from an explicit numpy Generator (the reference's
+draws) and stored as x * 2^32 mod q, so each use inside an inner product is
+one ops/modops.mont_mul, and the values equal the reference's device keys.
+Every entry point takes the context as the keyword `ctx`; without it the
+parameters' context on the card is used (default_context).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 from gpufhe_tpu_torch.golden import ckks as gckks
-from gpufhe_tpu_torch.ops.context import Context
+from gpufhe_tpu_torch.ops.context import Context, make_context
 from gpufhe_tpu_torch.ops.modops import mont_mul
 from gpufhe_tpu_torch.params.params import CKKSParams
 
@@ -36,17 +39,27 @@ class DeviceSecretKey(NamedTuple):
     s_mont: torch.Tensor  # int64[L+alpha, N] NTT domain over the full chain, Montgomery
 
 
+def default_context(params: CKKSParams, ctx: Context | None) -> Context:
+    """ctx, or when it is None the parameters' context on the card (cached):
+    an entry point runs on the card unless its caller passes a CPU context."""
+    return make_context(params) if ctx is None else ctx
+
+
 def mont_form(x: torch.Tensor, ctx: Context) -> torch.Tensor:
     """Canonical int64[..., L, N] over the chain prefix -> x * 2^32 mod q."""
     rows = range(x.shape[-2])
     return mont_mul(x, ctx.col("r2", rows), ctx.col("q", rows), ctx.col("qinv_neg", rows))
 
 
-def upload_public_key(pk: gckks.PublicKey, ctx: Context) -> DevicePublicKey:
+def upload_public_key(pk: gckks.PublicKey, params: CKKSParams, *,
+                      ctx: Context | None = None) -> DevicePublicKey:
+    ctx = default_context(params, ctx)
     return DevicePublicKey(b_mont=mont_form(pk.b, ctx), a_mont=mont_form(pk.a, ctx))
 
 
-def upload_ks_key(ksk: gckks.KSKey, ctx: Context) -> DeviceKSKey:
+def upload_ks_key(ksk: gckks.KSKey, params: CKKSParams, *,
+                  ctx: Context | None = None) -> DeviceKSKey:
+    ctx = default_context(params, ctx)
     return DeviceKSKey(b_mont=mont_form(ksk.b, ctx), a_mont=mont_form(ksk.a, ctx))
 
 
@@ -55,18 +68,18 @@ def host(ksk: gckks.KSKey) -> gckks.KSKey:
     return gckks.KSKey(b=ksk.b.cpu(), a=ksk.a.cpu())
 
 
-def upload_secret_key(sk: gckks.SecretKey, params: CKKSParams, ctx: Context) -> DeviceSecretKey:
+def upload_secret_key(sk: gckks.SecretKey, params: CKKSParams, *,
+                      ctx: Context | None = None) -> DeviceSecretKey:
+    ctx = default_context(params, ctx)
     qp = params.q_primes + params.p_primes
     return DeviceSecretKey(s_mont=mont_form(gckks.ntt_small(sk.s, qp, ctx), ctx))
 
 
 @dataclasses.dataclass
 class KeyChest:
-    """The key material of a CKKS, BGV or BFV workload: host secret + device
-    keys. The integer schemes' chests (reference ciphertext/bgv.py
-    BGVKeyChest, bfv.py BFVKeyChest) hold sk, pk, rlk and Galois keys, with
-    conj and eph left None: BFV's are CKKS keys, BGV's draw every error
-    times t (keygen's err_factor)."""
+    """The key material of a CKKS workload: host secret + device keys. The
+    integer schemes' chests (IntegerKeyChest) carry its first eight fields,
+    drawn by this keygen (BGV's with every error times t, err_factor)."""
 
     params: CKKSParams
     sk: gckks.SecretKey  # host only
@@ -92,8 +105,30 @@ class KeyChest:
         return self.conj[1]
 
 
-def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
-           rotations: tuple[int, ...] = (), conjugation: bool = False,
+@dataclasses.dataclass
+class IntegerKeyChest:
+    """The chest of an integer scheme (ciphertext/bgv.py BGVKeyChest, bfv.py
+    BFVKeyChest): a KeyChest's first eight fields, the reference's."""
+
+    params: CKKSParams
+    sk: gckks.SecretKey  # host only
+    pk: gckks.PublicKey
+    rlk: gckks.KSKey
+    device_sk: DeviceSecretKey
+    device_pk: DevicePublicKey
+    device_rlk: DeviceKSKey
+    galois: dict  # steps -> (KSKey on the host, DeviceKSKey)
+
+    def galois_key(self, steps: int) -> DeviceKSKey:
+        return self.galois[steps][1]
+
+    @classmethod
+    def of(cls, chest: KeyChest):
+        return cls(**{f.name: getattr(chest, f.name) for f in dataclasses.fields(cls)})
+
+
+def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, ...] = (),
+           conjugation: bool = False, *, ctx: Context | None = None,
            err_factor: int = 1) -> KeyChest:
     """The key chest, deterministic in rng, in the reference's draw order:
     sk and pk, the relinearisation key, one Galois key per rotation step (in
@@ -109,11 +144,12 @@ def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
         # the reference's BGV keygen draws a dense ternary secret and nothing more
         raise ValueError("BGV keys take a dense ternary secret, no conjugation or "
                          "encapsulation keys")
+    ctx = default_context(params, ctx)
     sk, pk = gckks.keygen(params, rng, ctx, err_factor)
     rlk = gckks.make_relin_key(params, sk, rng, ctx, err_factor)
 
     def pair(key: gckks.KSKey) -> tuple:
-        return host(key), upload_ks_key(key, ctx)
+        return host(key), upload_ks_key(key, params, ctx=ctx)
 
     galois = {s: pair(gckks.make_galois_key(params, s, sk, rng, ctx, err_factor))
               for s in rotations}
@@ -137,9 +173,9 @@ def keygen(params: CKKSParams, rng: np.random.Generator, ctx: Context,
         sk=sk,
         pk=pk,
         rlk=host(rlk),
-        device_sk=upload_secret_key(sk, params, ctx),
-        device_pk=upload_public_key(pk, ctx),
-        device_rlk=upload_ks_key(rlk, ctx),
+        device_sk=upload_secret_key(sk, params, ctx=ctx),
+        device_pk=upload_public_key(pk, params, ctx=ctx),
+        device_rlk=upload_ks_key(rlk, params, ctx=ctx),
         galois=galois,
         conj=conj,
         eph=eph,

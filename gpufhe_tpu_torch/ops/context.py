@@ -220,9 +220,15 @@ def ntt_tables_np(primes, psis, n: int) -> tuple[dict, dict]:
     return fwd, inv
 
 
-@functools.lru_cache(maxsize=4)
 def make_context(params: CKKSParams, device: str = "cuda") -> Context:
-    """Build the device context for a parameter set (host precompute, one upload)."""
+    """The device context of a parameter set (host precompute, one upload),
+    cached per parameters and device: "cuda", torch.device("cuda") and the
+    default name one entry."""
+    return _make_context(params, torch.device(device))
+
+
+@functools.lru_cache(maxsize=4)
+def _make_context(params: CKKSParams, device: torch.device) -> Context:
     primes = params.q_primes + params.p_primes
     n = params.n
     n1, n2 = fourstep_split(n)

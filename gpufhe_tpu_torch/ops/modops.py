@@ -102,8 +102,12 @@ def shoup_np(w, q):
     return ((w << np.uint64(32)) // q).astype(np.int64)
 
 
-def mul_mod(a, b, q):
-    """General a * b mod q for canonical a, b (one exact int64 product)."""
+def mul_mod(a, b, q, qinv_neg=None, r2=None):
+    """General a * b mod q for canonical a, b (one exact int64 product).
+
+    qinv_neg and r2 are the reference's Montgomery constants (it forms the
+    product as two Montgomery multiplies); the exact product needs neither,
+    so they are accepted and ignored."""
     return torch.remainder(a * b, q)
 
 

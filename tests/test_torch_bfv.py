@@ -60,7 +60,7 @@ def _assert_equal(got, want):
 def stack(request):
     params, rparams = preset(request.param), ref_preset(request.param)
     ctx = make_context(params, "cpu")
-    chest = pbfv.keygen(params, np.random.default_rng(21), ctx, rotations=STEPS)
+    chest = pbfv.keygen(params, np.random.default_rng(21), rotations=STEPS, ctx=ctx)
     rng = np.random.default_rng(21)
     sk, pk = rgbfv.keygen(rparams, rng)
     rlk = rgbfv.make_relin_key(rparams, sk, rng)
@@ -168,7 +168,7 @@ def test_scheme_switching_matches_reference():
     params, rparams = preset("bgv_tiny"), ref_preset("bgv_tiny")
     t = params.plain_modulus
     ctx = make_context(params, "cpu")
-    chest = pbgv.keygen(params, np.random.default_rng(31), ctx)
+    chest = pbgv.keygen(params, np.random.default_rng(31), ctx=ctx)
     rng = np.random.default_rng(31)
     sk, pk = rgbgv.keygen(rparams, rng)
     rlk = rgbgv.make_relin_key(rparams, sk, rng)
@@ -200,8 +200,8 @@ def test_cross_scheme_pipeline():
     params = preset("bgv_tiny")
     t, n_s = params.plain_modulus, params.slots
     ctx = make_context(params, "cpu")
-    chest = pbgv.keygen(params, np.random.default_rng(40), ctx,
-                        rotations=tuple(linalg.bsgs_rotations(n_s)))
+    chest = pbgv.keygen(params, np.random.default_rng(40),
+                        rotations=tuple(linalg.bsgs_rotations(n_s)), ctx=ctx)
     be = BGVDeviceBackend(params, ctx, chest)
     rng = np.random.default_rng(41)
     a_mat, v = rng.integers(0, t, size=(n_s, n_s)), rng.integers(0, t, size=n_s)
@@ -256,7 +256,7 @@ def test_stored_bfv_vector_reproduced():
     params = preset(bytes(ref["preset"]).decode())
     seed, t = int(ref["seed"]), params.plain_modulus
     ctx = make_context(params, "cpu")
-    chest = pbfv.keygen(params, np.random.default_rng(seed), ctx, rotations=(1,))
+    chest = pbfv.keygen(params, np.random.default_rng(seed), rotations=(1,), ctx=ctx)
     mrng = np.random.default_rng(seed + 1)
     m1 = mrng.integers(0, t, size=params.n, dtype=np.int64)
     m2 = mrng.integers(0, t, size=params.n, dtype=np.int64)

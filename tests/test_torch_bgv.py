@@ -13,6 +13,8 @@ one ct_mul is held == the reference's jnp ct_mul, and ModSwitch's centred
 lift is held at its boundary. Exact integer decrypts use no tolerance.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -55,7 +57,7 @@ def stack(request):
     test_keygen_matches_reference."""
     params, rparams = preset(request.param), ref_preset(request.param)
     ctx = make_context(params, "cpu")
-    chest = pbgv.keygen(params, np.random.default_rng(7), ctx, rotations=STEPS)
+    chest = pbgv.keygen(params, np.random.default_rng(7), rotations=STEPS, ctx=ctx)
     rng = np.random.default_rng(7)
     sk, pk = rgbgv.keygen(rparams, rng)
     rlk = rgbgv.make_relin_key(rparams, sk, rng)
@@ -98,7 +100,10 @@ def test_keygen_matches_reference(stack):
     assert (chest.rlk.b.numpy() == rlk.b).all() and (chest.rlk.a.numpy() == rlk.a).all()
     for s in STEPS:
         assert (chest.galois[s][0].b.numpy() == gks[s].b).all()
-    assert chest.conj is None and chest.eph is None
+    # a BGVKeyChest, the reference's fields in its order: no conj, no eph
+    assert isinstance(chest, pbgv.BGVKeyChest)
+    assert ([f.name for f in dataclasses.fields(chest)]
+            == [f.name for f in dataclasses.fields(rbgv.BGVKeyChest)])
 
 
 def test_encode_and_slot_helpers_match_reference(stack):
@@ -227,7 +232,7 @@ def test_stored_bgv_vector_reproduced():
     ctx = make_context(params, "cpu")
     rng = np.random.default_rng(seed)
     sk, pk = gbgv.keygen(params, rng, ctx)
-    chest = pbgv.keygen(params, np.random.default_rng(seed), ctx, rotations=(1,))
+    chest = pbgv.keygen(params, np.random.default_rng(seed), rotations=(1,), ctx=ctx)
     assert (chest.sk.s == sk.s).all() and torch.equal(chest.pk.b, pk.b)
     mrng = np.random.default_rng(seed + 1)
     m1 = mrng.integers(0, t, size=params.n, dtype=np.int64)

@@ -9,17 +9,22 @@ configurations:
 - boot_dw_ci_enc: double-word scale, encapsulation (eph h=16), factored
   transforms at radix_log 3, Chebyshev EvalMod with k_bound 5;
 - boot_ci_cheb: factored radix 3, Chebyshev EvalMod, k_bound 12;
-- boot_ci: dense BSGS transforms, Taylor cos EvalMod.
+- boot_ci and boot_ci_deep: dense BSGS transforms, Taylor cos EvalMod;
+- boot_ci_deep at config5_boot_h's settings: factored radix 2, Chebyshev
+  EvalMod, k_bound 12.
 
 Every phase output (mod_raise, coeff_to_slot t0 and t1, evalmod y0 and y1,
 slot_to_coeff) is == limb for limb at an equal level, scales within 1e-12
 relative, and the decode within the reference tests' tolerances. A steady
 call encodes nothing; galois_step_levels and bootstrap_rotations equal the
-reference's.
+reference's. A lean_keys run on a device_keygen chest drops and draws again
+the Galois keys' `a` halves around its first EvalMod, and every phase output
+== a run that keeps them.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from gpufhe_tpu.ciphertext.backend import GoldenBackend
 from gpufhe_tpu.ciphertext.bootstrap import Bootstrapper as RefBootstrapper
@@ -43,7 +48,14 @@ CASES = {
     "boot_dw_ci_enc": (dict(FACTORED, k_bound=5.0), 1e-3),
     "boot_ci_cheb": (dict(FACTORED, k_bound=12.0), 1e-2),
     "boot_ci": ({}, 2e-2),
+    # the bootstrap with compute headroom (19 limbs), as the reference's
+    # tests drive it: dense transforms, Taylor cos (tests/test_bootstrap.py)
+    "boot_ci_deep": ({}, 2e-2),
+    # and with config5_boot_h's settings (scripts/bootstrap_n16.py): factored
+    # radix 2, Chebyshev EvalMod, k_bound 12, a single-word sparse secret
+    "boot_ci_deep_h": (dict(FACTORED, radix_log=2, k_bound=12.0), 1e-2),
 }
+PRESET = {"boot_ci_deep_h": "boot_ci_deep"}  # case -> preset, where they differ
 PHASES = ("mod_raise", "coeff_to_slot", "evalmod", "slot_to_coeff")
 
 
@@ -70,11 +82,11 @@ def _record_evalmod_inputs(bs, into):
 
 @pytest.fixture(scope="module", params=list(CASES))
 def boot(request):
-    name = request.param
-    settings, tol = CASES[name]
+    name = PRESET.get(request.param, request.param)
+    settings, tol = CASES[request.param]
     params, rparams = preset(name), ref_preset(name)
     transform = settings.get("transform", "dense")
-    rots = ref_rotations(rparams, transform, 3)
+    rots = ref_rotations(rparams, transform, settings.get("radix_log", 3))
     rchest = rkeys.keygen(rparams, np.random.default_rng(7), rotations=tuple(rots),
                           conjugation=True)
     chest = interop.chest_from_reference(rchest, "cpu")
@@ -144,3 +156,61 @@ def test_galois_step_levels_and_rotations_match_reference(boot):
         for radix in (2, 3):
             assert bootstrap_rotations(params, transform, radix) == ref_rotations(
                 boot["rparams"], transform, radix)
+
+
+def test_lean_keys_cycle_changes_no_phase_output():
+    """Bootstrapper(lean_keys=True) on a seeded device chest: the first call
+    drops every Galois `a` after CoeffToSlot and draws them again before
+    SlotToCoeff; each phase output of it and of a second call == a run on
+    the same keys kept whole. On a KeyChest the option does nothing."""
+    from gpufhe_tpu_torch.keys import keys as pkeys
+    from gpufhe_tpu_torch.keys.device_keygen import device_keygen
+
+    name = "boot_ci_cheb"
+    settings, tol = CASES[name]
+    params = preset(name)
+    ctx = make_context(params, "cpu")
+    rots = bootstrap_rotations(params, "factored", 3)
+
+    def chest():
+        return device_keygen(params, np.random.default_rng(7), tuple(rots), True, ctx=ctx)
+
+    lean_chest, whole_chest = chest(), chest()
+    lean = Bootstrapper(DeviceBackend(params, ctx, lean_chest), lean_keys=True, **settings)
+    whole = Bootstrapper(DeviceBackend(params, ctx, whole_chest), **settings)
+    assert lean._lean_pending and not whole._lean_pending
+    seen = {}
+    drop, regen = lean_chest.drop_galois_a, lean_chest.regen_galois_a
+
+    def counted_drop():
+        seen["dropped"] = drop()
+        return seen["dropped"]
+
+    def counted_regen(c):
+        assert all(k.a_mont is None for _, k in lean_chest.galois.values())
+        seen["regen"] = regen(c)
+        return seen["regen"]
+
+    lean_chest.drop_galois_a, lean_chest.regen_galois_a = counted_drop, counted_regen
+    z = np.random.default_rng(0).normal(size=params.slots) * 0.2
+    ct = pct.encrypt(penc.encode(z, params), params, lean_chest.device_pk, ctx,
+                     np.random.default_rng(1), params.scale, level=1)
+    for call in range(2):
+        got, want = {}, {}
+        out = lean(ct, _phase=_recorder(got))
+        whole(ct, _phase=_recorder(want))
+        assert list(got) == list(PHASES)
+        for phase in PHASES:
+            for g, w in zip(got[phase], want[phase], strict=True):
+                _assert_ct_equal(g, w)
+        if call == 0:
+            assert seen == {"dropped": len(rots) + 1, "regen": len(rots) + 1}
+            seen.clear()
+    assert not seen and not lean._lean_pending  # the second call keeps every key
+    for s in rots:
+        assert torch.equal(lean_chest.galois_key(s).a_mont, whole_chest.galois_key(s).a_mont)
+    assert np.abs(lean.be.decrypt_decode(out) - z).max() < tol
+
+    keys_chest = pkeys.keygen(params, np.random.default_rng(7), tuple(rots), True, ctx=ctx)
+    assert not Bootstrapper(DeviceBackend(params, ctx, keys_chest), lean_keys=True,
+                            **settings)._lean_pending

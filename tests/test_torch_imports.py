@@ -33,6 +33,8 @@ def test_scan_covers_the_port():
     assert "gpufhe_tpu_torch/ops/probes.py" in names
     assert "gpufhe_tpu_torch/golden/bgv.py" in names
     assert "gpufhe_tpu_torch/golden/bfv.py" in names
+    assert "gpufhe_tpu_torch/keys/prng.py" in names
+    assert "gpufhe_tpu_torch/keys/device_keygen.py" in names
     for module in ("backend", "linalg", "fftboot", "polyeval", "bootstrap", "bgv", "bfv",
                    "bgv_backend", "bfv_backend"):
         assert f"gpufhe_tpu_torch/ciphertext/{module}.py" in names

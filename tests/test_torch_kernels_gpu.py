@@ -15,12 +15,14 @@ import torch
 
 from gpufhe_tpu_torch.ciphertext import ct as dct
 from gpufhe_tpu_torch.encoding import encoder
+from gpufhe_tpu_torch.keys import device_keygen as dkg
 from gpufhe_tpu_torch.keys import keys as dkeys
+from gpufhe_tpu_torch.keys import prng
 from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda, probes
 from gpufhe_tpu_torch.ops.context import make_context
 from gpufhe_tpu_torch.ops.convert_cuda import make_convert_tables
 from gpufhe_tpu_torch.params.params import gen_ntt_primes, is_prime, preset
-from gpufhe_tpu_torch.primitives import keyswitch
+from gpufhe_tpu_torch.primitives import keyswitch, rns
 
 pytestmark = pytest.mark.gpu
 
@@ -98,7 +100,7 @@ def test_mul_full_on_card_equals_cpu_path(cuda_device):
     outs = []
     for dev in (cuda_device, "cpu"):
         ctx = make_context(params, dev)
-        chest = dkeys.keygen(params, np.random.default_rng(2), ctx)
+        chest = dkeys.keygen(params, np.random.default_rng(2), ctx=ctx)
         ca = dct.encrypt(encoder.encode(za, params), params, chest.device_pk, ctx,
                          np.random.default_rng(3), params.scale)
         outs.append(dct.ct_mul_full(ca, ca, params, ctx, chest.device_rlk))
@@ -112,6 +114,7 @@ def test_mul_full_on_card_equals_cpu_path(cuda_device):
     ("config5_boot", 2, 0, True),  # a hoisted rotation's, automorphism folded in
     ("config5_boot_dw", 5, 0, False),  # the dw key switch's, D=5 T=58
     ("boot_dw_ci_enc", 6, 3, True),  # dnum=6: the Barrett step before the REDC
+    ("config5_boot_h", 6, 0, True),  # the single-word bootstrap's, D=6 T=35
 ])
 def test_mac_kernel_matches_plain(cuda_device, name, d_dim, drop, with_perm):
     params = preset(name)
@@ -220,7 +223,7 @@ def test_bootstrap_on_card_equals_cpu_path(cuda_device, name, settings):
     phases = []
     for dev in (cuda_device, "cpu"):
         ctx = make_context(params, dev)
-        chest = dkeys.keygen(params, np.random.default_rng(7), ctx, rots, conjugation=True)
+        chest = dkeys.keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
         bs = Bootstrapper(DeviceBackend(params, ctx, chest), **settings)
         ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
                          np.random.default_rng(1), params.scale, level=params.scale_words)
@@ -285,7 +288,7 @@ def test_integer_mul_on_card_equals_cpu_path(cuda_device, scheme):
     outs = []
     for dev in (cuda_device, "cpu"):
         ctx = make_context(params, dev)
-        chest = mod.keygen(params, np.random.default_rng(2), ctx)
+        chest = mod.keygen(params, np.random.default_rng(2), ctx=ctx)
         a, b = (mod.encrypt(gbgv.encode(z, params), params, chest.device_pk, ctx,
                             np.random.default_rng(3 + i)) for i, z in enumerate((za, zb)))
         prod = mod.ct_mul(a, b, params, ctx, chest.device_rlk)
@@ -301,8 +304,9 @@ def test_keygen_keeps_canonical_keys_on_host(cuda_device):
     """keygen on the card keeps every switching key's canonical form on the
     host and its device form on the card, each equal to the CPU keygen's."""
     params = preset("boot_dw_ci_enc")
-    chests = [dkeys.keygen(params, np.random.default_rng(7), make_context(params, dev), (1,),
-                           conjugation=True) for dev in (cuda_device, "cpu")]
+    chests = [dkeys.keygen(params, np.random.default_rng(7), (1,), conjugation=True,
+                           ctx=make_context(params, dev))
+              for dev in (cuda_device, "cpu")]
     pairs = [[c.galois[1], c.conj, c.eph["to_eph"], c.eph["from_eph"]] for c in chests]
     for (canon, key), (canon_c, key_c) in zip(*pairs):
         assert canon.b.device.type == canon.a.device.type == "cpu"
@@ -363,3 +367,58 @@ def test_ntt_copy_only_build_matches_plain(cuda_device):
     got = ntt_cuda.fourstep_cuda(x, ctx.index(rows, torch.int32), ctx, False,
                                  probes.ABLATION_KERNELS["copy_only"])
     assert torch.equal(got, probes.copy_only_plain(x, ctx))
+
+
+@pytest.mark.parametrize("which", ["modup", "moddown"])
+def test_convert_kernel_at_the_boot_h_shapes(cuda_device, which):
+    """config5_boot_h at its top level: ModUp 5 -> 35 for every group and
+    ModDown 5 -> 30, random and x = q - 1, == plain."""
+    params = preset("config5_boot_h")
+    level, alpha = params.num_limbs, len(params.p_primes)
+    ksc = rns.make_ks_context(params, level, cuda_device)
+    primes = params.q_primes + params.p_primes
+    cases = ([(ksc.modup[g], range(d0, d1)) for g, (d0, d1) in
+              enumerate(rns.ks_groups(params, level))] if which == "modup"
+             else [(ksc.p2q, range(level, level + alpha))])
+    for tabs, rows in cases:
+        assert tabs.k3_refusal is None and tabs.sq.numel() == alpha
+        assert tabs.dq.numel() == (level + alpha if which == "modup" else level)
+        x = torch.from_numpy(_rand(primes, rows, params.n, 11)).to(cuda_device)
+        top = (tabs.sq[:, None] - 1).expand(alpha, params.n).contiguous()
+        for data in (x, top):
+            assert torch.equal(convert_cuda.base_convert_cuda(data, tabs),
+                               convert_cuda.base_convert_plain(data, tabs))
+
+
+def test_threefry_bits_on_card_equal_cpu(cuda_device):
+    """keys/prng.py draws the same bits on the card and on the CPU (the
+    seeded-key contract is device-independent), at a key-sized draw."""
+    for seed in (0, 2**32 + 7, 2**63 - 1):
+        key = prng.key(seed)
+        for shape in ((35, 2**16), (3, 5, 7)):
+            got = prng.bits_u32(key, shape, cuda_device)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), prng.bits_u32(key, shape))
+        assert torch.equal(prng.split(key.to(cuda_device)).cpu(), prng.split(key))
+
+
+def test_device_keygen_on_card_equals_cpu(cuda_device):
+    """device_keygen on the card == on the CPU, every device key and seed,
+    encapsulation keys included; regen_galois_a on the card after a drop
+    gives the keys back."""
+    params = preset("boot_dw_ci_enc")
+    chests = [dkg.device_keygen(params, np.random.default_rng(7), (1, 5), True,
+                                ctx=make_context(params, dev)) for dev in (cuda_device, "cpu")]
+    card, cpu = chests
+
+    def keys(c):
+        return [c.device_sk.s_mont, *c.device_pk, *c.device_rlk, *c.galois[1][1], *c.galois[5][1],
+                *c.conj[1], *c.eph["to_eph"][1], *c.eph["from_eph"][1]]
+
+    for g, w in zip(keys(card), keys(cpu), strict=True):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    assert all(torch.equal(card.seeds[k], cpu.seeds[k]) for k in cpu.seeds)
+    want = card.galois[5][1].a_mont.clone()
+    assert card.drop_galois_a() == 3
+    assert card.regen_galois_a(make_context(params, cuda_device)) == 3
+    assert torch.equal(card.galois_key(5).a_mont, want)

@@ -21,7 +21,7 @@ def _np(x):
 def test_keygen_matches_reference(name):
     params, rparams = preset(name), ref_preset(name)
     ctx = make_context(params, "cpu")
-    chest = pkeys.keygen(params, np.random.default_rng(5), ctx)
+    chest = pkeys.keygen(params, np.random.default_rng(5), ctx=ctx)
     ref = rkeys.keygen(rparams, np.random.default_rng(5))
     assert (chest.sk.s == ref.sk.s).all()
     assert (chest.pk.b.numpy() == ref.pk.b).all() and (chest.pk.a.numpy() == ref.pk.a).all()
@@ -41,7 +41,7 @@ def test_sparse_secret_keygen_matches_golden():
     params = dataclasses.replace(base, hamming_weight=16)
     rparams = dataclasses.replace(ref_preset("tiny2"), hamming_weight=16)
     ctx = make_context(params, "cpu")
-    chest = pkeys.keygen(params, np.random.default_rng(9), ctx)
+    chest = pkeys.keygen(params, np.random.default_rng(9), ctx=ctx)
     rng = np.random.default_rng(9)
     sk, pk = gckks.keygen(rparams, rng)
     rlk = gckks.make_relin_key(rparams, sk, rng)
@@ -71,8 +71,8 @@ def test_keygen_with_galois_conj_and_eph_matches_reference(name, eph):
         rparams = dataclasses.replace(rparams, eph_hamming_weight=eph)
     steps = (1, 3, 5)
     ctx = make_context(params, "cpu")
-    chest = pkeys.keygen(params, np.random.default_rng(21), ctx, rotations=steps,
-                         conjugation=True)
+    chest = pkeys.keygen(params, np.random.default_rng(21), rotations=steps, conjugation=True,
+                         ctx=ctx)
     ref = rkeys.keygen(rparams, np.random.default_rng(21), rotations=steps, conjugation=True)
     assert (chest.sk.s == ref.sk.s).all()
     assert (chest.device_rlk.b_mont.numpy() == _np(ref.device_rlk.b_mont)).all()
@@ -94,7 +94,7 @@ def test_keygen_with_galois_conj_and_eph_matches_reference(name, eph):
 
 def test_keygen_without_extras_has_none():
     params = preset("tiny")
-    chest = pkeys.keygen(params, np.random.default_rng(1), make_context(params, "cpu"))
+    chest = pkeys.keygen(params, np.random.default_rng(1), ctx=make_context(params, "cpu"))
     assert chest.galois == {} and chest.conj is None and chest.eph is None
     with pytest.raises(KeyError):
         chest.conj_key()

@@ -1,5 +1,8 @@
-"""gpufhe_tpu_torch params vs gpufhe_tpu params: the same presets name the same chains,
-and the integer schemes' presets the same plaintext moduli and BFV aux bases."""
+"""gpufhe_tpu_torch params vs gpufhe_tpu params: every preset names the same chain
+with the same fields, the prime helpers draw and order the same primes, and the
+integer schemes' presets have the same plaintext moduli and BFV aux bases."""
+
+import dataclasses
 
 import pytest
 
@@ -13,12 +16,16 @@ from gpufhe_tpu_torch.params import params as port
 PORTED = ["tiny", "tiny2", "ci_small", "config1_ntt", "config2_rns", "config3_ckks",
           "config4_rotation", "config5_boot", "config5_boot_dw", "boot_dw_ci", "boot_dw_ci_enc",
           "fft_ci_small", "fft_ci", "boot_ci", "boot_ci_f", "boot_ci_cheb", "boot_ci_enc",
-          "bgv_ci", "bgv_tiny", "bfv_ci", "bfv_tiny", "bfv_n16", "bfv_eq"]
+          "bgv_ci", "bgv_tiny", "bfv_ci", "bfv_tiny", "bfv_n16", "bfv_eq",
+          # the model, mid-scale and N=2^16 bootstrap presets
+          "boot_ci_deep", "ci_deep", "ci_attn", "ci_xf", "boot_mid_dw", "boot_mid",
+          "config5_boot_s29", "config5_boot_h"]
 
 
 @pytest.mark.parametrize("name", PORTED)
 def test_preset_primes_and_roots_match_reference(name):
     p, r = port.preset(name), ref.preset(name)
+    assert dataclasses.asdict(p) == dataclasses.asdict(r)  # every field, in one
     assert p.n == r.n and p.scale_bits == r.scale_bits and p.sigma == r.sigma
     assert p.q_primes == r.q_primes
     assert p.p_primes == r.p_primes
@@ -95,3 +102,42 @@ def test_bfv_n16_aux_basis_fits_the_kernels():
     qs = params.q_primes
     for src, dst in ((qs, aux), (aux[:-1], qs), (aux[:-1], aux[-1:])):
         assert make_convert_tables(src, dst, "cpu").k3_refusal is None
+
+
+def test_config5_boot_h_shape():
+    p = port.preset("config5_boot_h")
+    assert (p.n, p.num_limbs, len(p.p_primes), p.dnum, p.hamming_weight) == (2**16, 30, 5, 6, 64)
+    assert p.eph_hamming_weight == 0 and p.scale_words == 1 and max(p.q_primes + p.p_primes) < 2**30
+    s29 = port.preset("config5_boot_s29")
+    assert max(s29.q_primes + s29.p_primes) < 2**29
+
+
+# the reference's own calls (params.py config5_boot_h and ci_xf) and two more
+OPS_H = ["lin"] * 8 + ["sq_z", "lin", "h", "h"] + ["sq"] * 8 + ["lin"] * 8
+
+
+@pytest.mark.parametrize("two_n,ops,count", [
+    (2**17, OPS_H, 29),
+    (2**17, ["sq"] * 10, 14),
+    (2**11, ["lin", "sq_z", "h", "sq", "lin"], 5),
+])
+def test_order_primes_for_circuit_matches_reference(two_n, ops, count):
+    q0 = ref.gen_ntt_primes(30, two_n, 1)
+    pp = ref.gen_ntt_primes(30, two_n, 5, skip=1)
+    cands = ref.balanced_prime_candidates(28, two_n, exclude=tuple(q0 + pp))
+    got = port.order_primes_for_circuit(list(cands), 28, ops, count)
+    assert got == ref.order_primes_for_circuit(list(cands), 28, ops, count)
+    assert len(got) == len(set(got)) == count
+
+
+def test_order_primes_for_circuit_rejects_an_unknown_op():
+    with pytest.raises(ValueError):
+        port.order_primes_for_circuit([2**28 + 1], 28, ["cube"], 1)
+
+
+@pytest.mark.parametrize("scale_bits,two_n,count,n_excl", [(28, 512, 59, 7), (28, 2**17, 20, 3),
+                                                          (24, 2**12, 6, 0)])
+def test_gen_balanced_ntt_primes_matches_reference(scale_bits, two_n, count, n_excl):
+    exclude = tuple(ref.gen_ntt_primes(30, two_n, n_excl)) if n_excl else ()
+    got = port.gen_balanced_ntt_primes(scale_bits, two_n, count, exclude)
+    assert got == ref.gen_balanced_ntt_primes(scale_bits, two_n, count, exclude)

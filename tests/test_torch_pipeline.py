@@ -40,7 +40,7 @@ def _slots(params, rng):
 
 def _stack(params, rparams, seed=7):
     ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
-    chest = pkeys.keygen(params, np.random.default_rng(seed), ctx)
+    chest = pkeys.keygen(params, np.random.default_rng(seed), ctx=ctx)
     rchest = rkeys.keygen(rparams, np.random.default_rng(seed))
     return ctx, rctx, chest, rchest
 
@@ -122,7 +122,7 @@ def test_config3_vectors_limb_trace():
     seed = int(want["seed"])
     params = preset(want["preset"].item().decode())
     ctx = make_context(params, "cpu")
-    chest = pkeys.keygen(params, np.random.default_rng(seed), ctx)
+    chest = pkeys.keygen(params, np.random.default_rng(seed), ctx=ctx)
     pa, pb = penc.encode(want["za"], params), penc.encode(want["zb"], params)
     ca = pct.encrypt(pa, params, chest.device_pk, ctx, np.random.default_rng(seed + 2), params.scale)
     cb = pct.encrypt(pb, params, chest.device_pk, ctx, np.random.default_rng(seed + 3), params.scale)

@@ -178,10 +178,11 @@ def test_config4_rotations_vector_limb_trace():
     ctx = make_context(params, "cpu")
     rng = np.random.default_rng(seed)
     sk, pk = pgolden.keygen(params, rng, ctx)
-    gks = {s: pkeys.upload_ks_key(pgolden.make_galois_key(params, s, sk, rng, ctx), ctx)
+    gks = {s: pkeys.upload_ks_key(pgolden.make_galois_key(params, s, sk, rng, ctx), params,
+                                  ctx=ctx)
            for s in STEPS}
     pt = penc.encode(want["z"], params)
-    ct = pct.encrypt(pt, params, pkeys.upload_public_key(pk, ctx), ctx,
+    ct = pct.encrypt(pt, params, pkeys.upload_public_key(pk, params, ctx=ctx), ctx,
                      np.random.default_rng(seed + 2), params.scale)
     outs = pct.ct_rotate_hoisted(ct, list(STEPS), params, ctx, gks)
     for o, s in zip(outs, STEPS):

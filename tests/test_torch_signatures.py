@@ -3,26 +3,43 @@ caller written against gpufhe_tpu runs unchanged against gpufhe_tpu_torch:
 decrypt_to_coeff(ct, params, sk, ctx) and plaintext_to_device(pt_coeff,
 params, ctx), each pinned by name and called with `params` at `tiny`; the
 bootstrap's surface (Bootstrapper, every DeviceBackend method, ct_diag_fan,
-both ModRaises, truncate_galois_device) pinned by name."""
+both ModRaises, truncate_galois_device) pinned by name; the prime-ordering
+helpers, regen_ks_a, regen_pk_a and every DeviceKeyChest method pinned by
+name; keygen (CKKS, BGV, BFV), the three uploads, make_context and
+device_keygen taking the reference's parameters first, in its order with
+its defaults, and only keyword-only extras with defaults (ctx, err_factor,
+device), each also called the reference's way and == the reference; the
+fields of CKKSParams and of the four key chests in the reference's order."""
 
 import inspect
 
 import numpy as np
 import pytest
+import torch
 
 from gpufhe_tpu.ciphertext import backend as rbackend
+from gpufhe_tpu.ciphertext import bfv as rbfv
+from gpufhe_tpu.ciphertext import bgv as rbgv
 from gpufhe_tpu.ciphertext import bootstrap as rboot
 from gpufhe_tpu.ciphertext import ct as rct
 from gpufhe_tpu.encoding import encoder as renc
+from gpufhe_tpu.keys import device_keygen as rdk
 from gpufhe_tpu.keys import keys as rkeys
+from gpufhe_tpu.ops import modops as rmodops
 from gpufhe_tpu.ops.context import make_context as ref_context
+from gpufhe_tpu.params import params as rparams_mod
 from gpufhe_tpu.params.params import preset as ref_preset
 from gpufhe_tpu_torch.ciphertext import backend as pbackend
+from gpufhe_tpu_torch.ciphertext import bfv as pbfv
+from gpufhe_tpu_torch.ciphertext import bgv as pbgv
 from gpufhe_tpu_torch.ciphertext import bootstrap as pboot
 from gpufhe_tpu_torch.ciphertext import ct as pct
 from gpufhe_tpu_torch.encoding import encoder as penc
+from gpufhe_tpu_torch.keys import device_keygen as pdk
 from gpufhe_tpu_torch.keys import keys as pkeys
+from gpufhe_tpu_torch.ops import modops as pmodops
 from gpufhe_tpu_torch.ops.context import make_context
+from gpufhe_tpu_torch.params import params as pparams_mod
 from gpufhe_tpu_torch.params.params import preset
 
 PAIRS = [
@@ -71,7 +88,7 @@ def test_bootstrapper_defaults_match_the_reference():
 def tiny():
     params, rparams = preset("tiny"), ref_preset("tiny")
     ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
-    chest = pkeys.keygen(params, np.random.default_rng(5), ctx)
+    chest = pkeys.keygen(params, np.random.default_rng(5), ctx=ctx)
     rchest = rkeys.keygen(rparams, np.random.default_rng(5))
     return params, rparams, ctx, rctx, chest, rchest
 
@@ -94,3 +111,168 @@ def test_decrypt_to_coeff_with_params_equals_reference(tiny):
     got = pct.decrypt_to_coeff(ct, params, chest.device_sk, ctx)
     want = rct.decrypt_to_coeff(rc, rparams, rchest.device_sk, rctx)
     assert (got == want).all()
+
+
+# --- keygen, the uploads, mul_mod, make_context, CKKSParams and the chests ------
+
+
+# the same parameter names, in order
+SAME = [
+    (pmodops.mul_mod, rmodops.mul_mod),
+    (pparams_mod.order_primes_for_circuit, rparams_mod.order_primes_for_circuit),
+    (pparams_mod.gen_balanced_ntt_primes, rparams_mod.gen_balanced_ntt_primes),
+    (pdk.regen_ks_a, rdk.regen_ks_a),
+    (pdk.regen_pk_a, rdk.regen_pk_a),
+    *[(getattr(pdk.DeviceKeyChest, m), getattr(rdk.DeviceKeyChest, m))
+      for m in ("galois_key", "conj_key", "drop_galois_a", "regen_galois_a")],
+]
+# the reference's parameters first, then keyword-only extras with defaults
+# (ctx: the context, the card's by default; err_factor; device)
+EXTENDED = [
+    (pkeys.keygen, rkeys.keygen),
+    (pbgv.keygen, rbgv.keygen),
+    (pbfv.keygen, rbfv.keygen),
+    (pkeys.upload_public_key, rkeys.upload_public_key),
+    (pkeys.upload_ks_key, rkeys.upload_ks_key),
+    (pkeys.upload_secret_key, rkeys.upload_secret_key),
+    (pparams_mod.make_context, rparams_mod.make_context),
+    (pdk.device_keygen, rdk.device_keygen),
+]
+FIELDS = [
+    (pparams_mod.CKKSParams, rparams_mod.CKKSParams),
+    (pkeys.KeyChest, rkeys.KeyChest),
+    (pbgv.BGVKeyChest, rbgv.BGVKeyChest),
+    (pbfv.BFVKeyChest, rbfv.BFVKeyChest),
+    (pdk.DeviceKeyChest, rdk.DeviceKeyChest),
+]
+
+
+def _name(f):
+    return f"{f.__module__.rsplit('.', 1)[-1]}.{f.__qualname__}"
+
+
+@pytest.mark.parametrize("port,ref", SAME, ids=lambda f: _name(f))
+def test_repaired_parameter_names_match_the_reference(port, ref):
+    assert list(inspect.signature(port).parameters) == list(inspect.signature(ref).parameters)
+
+
+@pytest.mark.parametrize("port,ref", EXTENDED, ids=lambda f: _name(f))
+def test_reference_parameters_lead_and_extras_are_keyword_only(port, ref):
+    p = list(inspect.signature(port).parameters.values())
+    r = list(inspect.signature(ref).parameters.values())
+    assert [(x.name, x.kind, x.default) for x in p[: len(r)]] == [
+        (x.name, x.kind, x.default) for x in r]
+    extras = p[len(r):]
+    assert extras and all(x.kind is inspect.Parameter.KEYWORD_ONLY
+                          and x.default is not inspect.Parameter.empty for x in extras)
+
+
+@pytest.mark.parametrize("port,ref", FIELDS, ids=lambda c: c.__name__)
+def test_dataclass_fields_match_the_reference_in_order(port, ref):
+    import dataclasses
+
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+
+
+def test_ckks_params_positional_construction_matches_the_reference():
+    p = preset("tiny")
+    args = (p.n, p.q_primes, p.p_primes, 28, 3.2, 16, 8, 0, 2)
+    port, ref = pparams_mod.CKKSParams(*args), rparams_mod.CKKSParams(*args)
+    assert (port.hamming_weight, port.eph_hamming_weight, port.plain_modulus,
+            port.scale_words) == (ref.hamming_weight, ref.eph_hamming_weight,
+                                  ref.plain_modulus, ref.scale_words) == (16, 8, 0, 2)
+
+
+@pytest.fixture
+def cpu_by_default(monkeypatch):
+    """The default context, which an entry point builds without `ctx`, taken
+    on the CPU: the calls record what they asked for."""
+    asked = []
+
+    def cpu_context(params):
+        asked.append(params)
+        return make_context(params, "cpu")
+
+    monkeypatch.setattr(pkeys, "make_context", cpu_context)
+    return asked
+
+
+def test_default_context_is_the_card():
+    """Without ctx an entry point asks for the parameters' context on the
+    card: ops.context.make_context's default device."""
+    from gpufhe_tpu_torch.ops import context as pcontext
+
+    assert inspect.signature(pcontext.make_context).parameters["device"].default == "cuda"
+    assert inspect.signature(pparams_mod.make_context).parameters["device"].default == "cuda"
+    assert pkeys.make_context is pcontext.make_context
+
+
+def test_keygen_called_the_reference_way_equals_reference(tiny, cpu_by_default):
+    params, rparams, ctx, rctx, chest, rchest = tiny
+    got = pkeys.keygen(params, np.random.default_rng(5))
+    assert cpu_by_default == [params]
+    assert (got.device_pk.b_mont.numpy() == np.asarray(rchest.device_pk.b_mont)).all()
+    assert (got.device_rlk.a_mont.numpy() == np.asarray(rchest.device_rlk.a_mont)).all()
+    rot = pkeys.keygen(params, np.random.default_rng(5), (1,), True)
+    want = rkeys.keygen(rparams, np.random.default_rng(5), (1,), True)
+    assert (rot.galois_key(1).b_mont.numpy() == np.asarray(want.galois_key(1).b_mont)).all()
+    assert (rot.conj_key().a_mont.numpy() == np.asarray(want.conj_key().a_mont)).all()
+
+
+@pytest.mark.parametrize("scheme", ["bgv", "bfv"])
+def test_integer_keygen_called_the_reference_way_equals_reference(scheme, cpu_by_default):
+    port, ref = {"bgv": (pbgv, rbgv), "bfv": (pbfv, rbfv)}[scheme]
+    name = f"{scheme}_tiny"
+    params, rparams = preset(name), ref_preset(name)
+    got = port.keygen(params, np.random.default_rng(3), (1,))
+    want = ref.keygen(rparams, np.random.default_rng(3), (1,))
+    assert type(got).__name__ == type(want).__name__
+    assert (got.device_rlk.b_mont.numpy() == np.asarray(want.device_rlk.b_mont)).all()
+    assert (got.galois_key(1).b_mont.numpy() == np.asarray(want.galois[1][1].b_mont)).all()
+    assert (got.pk.b.numpy() == want.pk.b).all() and (got.rlk.a.numpy() == want.rlk.a).all()
+
+
+def test_uploads_called_the_reference_way_equal_reference(tiny):
+    params, rparams, ctx, rctx, chest, rchest = tiny
+    pk = pkeys.upload_public_key(chest.pk, params, ctx=ctx)
+    rpk = rkeys.upload_public_key(rchest.pk, rparams)
+    assert (pk.b_mont.numpy() == np.asarray(rpk.b_mont)).all()
+    assert (pk.a_mont.numpy() == np.asarray(rpk.a_mont)).all()
+    ks = pkeys.upload_ks_key(chest.rlk, params, ctx=ctx)
+    rks = rkeys.upload_ks_key(rchest.rlk, rparams)
+    assert (ks.b_mont.numpy() == np.asarray(rks.b_mont)).all()
+    assert (ks.a_mont.numpy() == np.asarray(rks.a_mont)).all()
+    sk = pkeys.upload_secret_key(chest.sk, params, ctx=ctx)
+    assert (sk.s_mont.numpy() == np.asarray(rkeys.upload_secret_key(rchest.sk, rparams).s_mont)).all()
+
+
+def test_mul_mod_called_the_reference_way_equals_reference(tiny):
+    params, rparams, ctx, rctx, _, _ = tiny
+    rng = np.random.default_rng(11)
+    q = np.asarray(params.q_primes, dtype=np.int64)[:, None]
+    a, b = (rng.integers(0, q, size=(len(q), params.n)) for _ in range(2))
+    a[:, 0], b[:, 0] = q[:, 0] - 1, q[:, 0] - 1
+    rows = range(params.num_limbs)
+    got = pmodops.mul_mod(torch.from_numpy(a), torch.from_numpy(b), ctx.col("q", rows),
+                          ctx.col("qinv_neg", rows), ctx.col("r2", rows))
+    u32 = lambda x: np.asarray(x, dtype=np.uint32)  # noqa: E731
+    want = rmodops.mul_mod(u32(a), u32(b), u32(q), np.asarray(rctx.qinv_neg)[: len(q), None],
+                           np.asarray(rctx.r2)[: len(q), None])
+    assert (got.numpy() == np.asarray(want).astype(np.int64)).all()
+    assert (got.numpy() == a * b % q).all()
+
+
+def test_make_context_by_name_or_params():
+    by_name = pparams_mod.make_context("tiny", device="cpu")
+    assert by_name is pparams_mod.make_context(preset("tiny"), device="cpu")
+    assert by_name.primes == tuple(int(q) for q in np.asarray(ref_context(ref_preset("tiny")).q))
+    assert by_name.device.type == "cpu"
+
+
+def test_device_keygen_called_the_reference_way_equals_reference(cpu_by_default):
+    params, rparams = preset("tiny"), ref_preset("tiny")
+    got = pdk.device_keygen(params, np.random.default_rng(9), (1,), True)
+    want = rdk.device_keygen(rparams, np.random.default_rng(9), (1,), True)
+    assert cpu_by_default == [params]
+    assert (got.galois_key(1).a_mont.numpy() == np.asarray(want.galois_key(1).a_mont)).all()
+    assert (got.conj_key().b_mont.numpy() == np.asarray(want.conj_key().b_mont)).all()
