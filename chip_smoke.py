@@ -41,7 +41,8 @@ and read just after:
   boot    the flagship bootstrap at config5_boot_dw, as the reference's
           scripts/bootstrap_n16_dw.py drives it: device_keygen on the card
           (rlk, eph h=32, the 63 Galois keys of the factored transforms at
-          radix_log 3, conj; its threefry draws timed by CUDA events),
+          radix_log 3, conj; threefry at its shapes timed alone by CUDA
+          events),
           Bootstrapper(factored, radix 3, cheb, k_bound 10), per-step key
           truncation, then one first call and five steady calls on
           z = 0.2 (N(0,1) + i N(0,1)) encrypted at level 2, each decoded
@@ -61,16 +62,21 @@ and read just after:
           Bootstrapper(factored, radix 2, cheb, k_bound 12), one first and
           five steady calls on z = 0.2 (N(0,1) + i N(0,1)) encrypted at level
           1; each phase of the first call within DECODE_TOL of its own
-          function of its decrypted input (end to end the sine multiplies
-          the CoeffToSlot noise at Delta = 2^28 by 2 pi k_bound; the error
-          is printed), every steady call == the first limb for limb;
+          function of its decrypted input, every steady call == the first
+          limb for limb; the end-to-end decode error is printed, not gated:
+          the reference's own bootstrap on this chain, which gives the
+          port's limbs at N = 2^8 to 2^14, decodes off by more than
+          DECODE_TOL from N = 2^12 on (tests/test_torch_boot_h_ring.py);
           CUDA-event times, per phase, busy share, launches, peak memory;
           then (boot_h_check) its ModRaise
           stage == the CPU path, regen_pk_a on the card == on the CPU, one
           Galois key's a == regen_ks_a of its seed, and one key switch of the
           raised ciphertext taken apart with K1, K3 (ModUp 5->35, ModDown
           5->30) and K4 (D = 6 x 35) each == plain on those operands; and
-          (boot_h_shapes) each kernel alone at those shapes.
+          (boot_h_shapes) each kernel alone at those shapes; and
+          (boot_h_ring) the chain and settings at N = 2^BOOT_H_RING_LOGN on
+          the card and on the CPU, every phase == limb for limb, decoded
+          end to end within DECODE_TOL.
 
 Each path's ciphertexts are checked == the same path on the CPU and decoded
 against the cleartext result; the kernels and stage leaves are timed with
@@ -135,6 +141,11 @@ BOOT_H_PRESET = "config5_boot_h"
 BOOT_H_RADIX = 2
 BOOT_H_K_BOUND = 12.0
 BOOT_H_STEADY = 5
+# config5_boot_h's chain and the path's settings at a ring of 2^10, where the
+# reference's bootstrap on this chain still decodes within DECODE_TOL: it
+# gives the port's limbs at N = 2^8 to 2^14 and an error about 4.4 times
+# larger for each 4 times N (tests/test_torch_boot_h_ring.py, PERF.md)
+BOOT_H_RING_LOGN = 10
 # the integer schemes: bfv_n16 (N=2^16, 30 q-limbs, alpha=15, dnum=2, t=786433)
 # read as BGV and as BFV, as the reference's scripts/bgv_n16_mult.py and
 # bfv_n16_mult.py drive it; the CI presets bgv_ci / bfv_ci
@@ -315,30 +326,32 @@ def key_bytes(chest) -> int:
 def timed_keygen(params, rots, ctx) -> tuple:
     """device_keygen(params, default_rng(7), rots, conjugation=True) on ctx,
     as the reference's N=2^16 scripts draw their keys: (chest, host seconds
-    with the device synchronised, the threefry draws' CUDA-event ms, draws).
-    Each draw (keys/prng.py bits_u32) is bracketed by a pair of events."""
+    with the device synchronised, threefry's CUDA-event ms, its draws).
+    Threefry's share is timed apart, after the keygen: keys/prng.py bits_u32
+    at the shapes the keygen drew, as many times (two draws of 32-bit words
+    per uniform row: the public key's row over Q, each switching key's gadget
+    rows over Q+P, one set per recorded seed). Its cost does not depend on
+    the key, so the same work timed alone is the keygen's share of it."""
+    from gpufhe_tpu_torch.golden import ckks as gckks
     from gpufhe_tpu_torch.keys import prng
     from gpufhe_tpu_torch.keys.device_keygen import device_keygen
 
-    real, pairs = prng.bits_u32, []
-
-    def timed(key, shape, device=None):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(key, shape, device)
-        stop.record()
-        pairs.append((start, stop))
-        return out
-
     t = time.perf_counter()
-    prng.bits_u32 = timed
-    try:
-        chest = device_keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
-    finally:
-        prng.bits_u32 = real
+    chest = device_keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
     torch.cuda.synchronize()
-    return (chest, time.perf_counter() - t, sum(a.elapsed_time(b) for a, b in pairs),
-            len(pairs))
+    keygen_s = time.perf_counter() - t
+    qp, dnum = len(params.q_primes + params.p_primes), len(gckks.gadget_factors(params))
+    shapes = [(params.num_limbs, params.n) if name == "pk" else (qp, params.n)
+              for name in chest.seeds for _ in range(1 if name == "pk" else dnum)]
+    key = prng.key(0)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for shape in shapes:
+        for _ in range(2):
+            prng.bits_u32(key, shape, ctx.device)
+    stop.record()
+    torch.cuda.synchronize()
+    return chest, keygen_s, start.elapsed_time(stop), 2 * len(shapes)
 
 
 class Bounds:
@@ -600,8 +613,8 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
     mark_peak("truncate")
     trunc_s = time.perf_counter() - t1
     say("boot_setup", f"{BOOT_PRESET}: device_keygen (rlk, eph h={params.eph_hamming_weight}, "
-        f"{len(rots)} Galois keys, conj) {keygen_s:.2f} s, of it threefry {threefry_ms / 1e3:.3f} "
-        f"s by CUDA events over {draws} draws; Bootstrapper("
+        f"{len(rots)} Galois keys, conj) {keygen_s:.2f} s, threefry at its shapes timed alone "
+        f"{threefry_ms / 1e3:.3f} s by CUDA events over {draws} draws; Bootstrapper("
         f"factored, radix {BOOT_RADIX}, cheb, k_bound {BOOT_K_BOUND}) plans {plan_s:.2f} s, "
         f"{plan_misses} host encodes; key truncation {trunc_s:.2f} s, Galois and conj keys "
         f"{gib(full_bytes)} -> {gib(key_bytes(chest))}; StC at level "
@@ -714,7 +727,9 @@ def boot_h_phase_errors(params, be, bs, chest, phases: dict, out, z) -> tuple[di
     Chebyshev series of sin(2 pi k_bound t) at the decrypted t, SlotToCoeff
     against q0 / (2 pi Delta) times the canonical embedding of the decrypted
     y as coefficients. Beside them (second dict) the largest |I| of the
-    ModRaise overflow u = m + q0 I, and max |. - z| of the decrypted t taken
+    ModRaise overflow u = m + q0 I, the CoeffToSlot error's real and
+    imaginary parts apart (the imaginary part is the conjugation's key-switch
+    noise: u's values are real), and max |. - z| of the decrypted t taken
     through the exact sine and SlotToCoeff: the end-to-end error that the
     CoeffToSlot output's noise alone gives."""
     from gpufhe_tpu_torch.ciphertext import ct as dct
@@ -737,12 +752,14 @@ def boot_h_phase_errors(params, be, bs, chest, phases: dict, out, z) -> tuple[di
                                                       for ti in t)
     m = gckks.crt_compose_centered(gckks.encode(z, params.scale, params.q_primes[:1], n),
                                    params.q_primes[:1]).astype(np.float64)
+    dt = [ti - ui[br] / q0k for ti, ui in zip(t, (u[:slots], u[slots:]))]
     notes = {"|I| max": float(np.abs(np.round((u - m) / params.q_primes[0])).max()),
+             "CtS real": max(float(np.abs(d.real).max()) for d in dt),
+             "CtS imag": max(float(np.abs(d.imag).max()) for d in dt),
              "CtS noise end to end": float(np.abs(
                  decode_float(exact_sine * bs._stc_factor) - z).max())}
     return notes, {
-        "CoeffToSlot": max(float(np.abs(ti - ui[br] / q0k).max())
-                           for ti, ui in zip(t, (u[:slots], u[slots:]))),
+        "CoeffToSlot": max(float(np.abs(d).max()) for d in dt),
         "EvalMod": max(float(np.abs(yi - np.polynomial.chebyshev.chebval(ti, cheb)).max())
                        for yi, ti in zip(y, t)),
         "SlotToCoeff": float(np.abs(be.decrypt_decode(out)
@@ -822,6 +839,51 @@ def boot_h_check(params, ctx, chest, ct, raised, smi) -> dict:
     return held
 
 
+def boot_h_ring(dev, smi) -> float:
+    """config5_boot_h's chain (its q and p primes, h=64, dnum 6) and the boot_h
+    path's settings at N = 2^BOOT_H_RING_LOGN, with the path's draws
+    (device_keygen from rng 7, z from rng 0, encryption from rng 1): the
+    bootstrap on the card and on the CPU, every phase output == limb for
+    limb, and the card's output decoded within DECODE_TOL of z, end to end.
+    Returns that error."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bootstrap import Bootstrapper, bootstrap_rotations
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.keys.device_keygen import device_keygen
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    t = time.perf_counter()
+    params = dataclasses.replace(preset(BOOT_H_PRESET), n=2**BOOT_H_RING_LOGN)
+    rots = tuple(bootstrap_rotations(params, "factored", BOOT_H_RADIX))
+    zr = np.random.default_rng(0)
+    z = (zr.normal(size=params.slots) + 1j * zr.normal(size=params.slots)) * 0.2
+    runs = {}
+    for device in (dev, "cpu"):
+        ctx = make_context(params, device)
+        chest = device_keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
+        be = DeviceBackend(params, ctx, chest)
+        bs = Bootstrapper(be, transform="factored", radix_log=BOOT_H_RADIX, evalmod="cheb",
+                          k_bound=BOOT_H_K_BOUND)
+        ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                         np.random.default_rng(1), params.scale, level=1)
+        phases = {}
+        out = bs(ct, _phase=lambda name, outs: phases.__setitem__(
+            name, outs if isinstance(outs, tuple) else (outs,)))
+        runs[device] = (be, phases, out)
+    (be, card, out), (_, cpu, _) = runs[dev], runs["cpu"]
+    for name in card:
+        for i, (g, w) in enumerate(zip(card[name], cpu[name])):
+            same_limbs(g, w, f"boot_h_ring {name} output {i}")
+    err = decode_err(be.decrypt_decode(out), z, params.slots, "boot_h_ring bootstrap")
+    say("boot_h_ring", f"{BOOT_H_PRESET}'s chain and settings at N=2^{BOOT_H_RING_LOGN} "
+        f"({len(rots)} Galois keys, conj): every phase output ({', '.join(card)}) on the card "
+        f"== the CPU path limb for limb; end to end max |dec - z| = {err:.6e} < {DECODE_TOL}"
+        f"  [{smi}]", t)
+    return err
+
+
 def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
     """Path boot_h: the single-word bootstrap at BOOT_H_PRESET, as the
     reference's scripts/bootstrap_n16.py drives it (see the module
@@ -860,8 +922,8 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
     say("boot_h_setup", f"{BOOT_H_PRESET} (N={params.n}, {params.num_limbs} q-limbs, "
         f"{len(params.p_primes)} special primes, dnum {params.dnum}, h={params.hamming_weight}): "
         f"device memory held before it {gib(resident)}; context {ctx_s:.2f} s; device_keygen "
-        f"(rlk, {len(rots)} Galois keys, conj) {keygen_s:.2f} s, of it threefry "
-        f"{threefry_ms / 1e3:.3f} s by CUDA events over {draws} draws; Galois and conj keys "
+        f"(rlk, {len(rots)} Galois keys, conj) {keygen_s:.2f} s, threefry at its shapes timed "
+        f"alone {threefry_ms / 1e3:.3f} s by CUDA events over {draws} draws; Galois and conj keys "
         f"{gib(key_bytes(chest))}; Bootstrapper(factored, radix {BOOT_H_RADIX}, cheb, k_bound "
         f"{BOOT_H_K_BOUND}) plans {plan_s:.2f} s, {plan_misses} host encodes; StC at level "
         f"{bs.f_stc.first_lo.level}; peak device memory keygen {gib(peak['keygen'])}, plans "
@@ -884,10 +946,11 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
         need = ("ntt",) if name == "mod_raise" else tuple(per)
         if min(per[k] for k in need) <= 0:
             raise AssertionError(f"boot_h phase {name}: a kernel did not run ({per})")
-    # Each phase is held to its own function of its decrypted input within the
-    # CKKS decode gate. End to end the error is not held to it: at Delta =
-    # 2^28 the CoeffToSlot output carries the scheme's noise (a few 1e-3 in
-    # [-1, 1]), which the sine multiplies by 2 pi k_bound (PERF.md section 6).
+    # At full width the decode is printed, not held to DECODE_TOL: the
+    # reference's own bootstrap on this chain decodes off by more than it from
+    # N = 2^12 on (PERF.md section 6); boot_h_ring holds the path end to end
+    # at N = 2^BOOT_H_RING_LOGN. Here each phase is held to its own function
+    # of its own decrypted input, which a faulty phase would miss by far more.
     notes, phase_err = boot_h_phase_errors(params, be, bs, chest, phases, out, z)
     for name, err in phase_err.items():
         if not err < DECODE_TOL:
@@ -902,7 +965,10 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
         f"level {out.level}, scale 2^{math.log2(out.scale):.6f}; each phase against its "
         f"function of its decrypted input, max |.|: " + ", ".join(
             f"{k} {v:.3e}" for k, v in phase_err.items()) + f" < {DECODE_TOL}; end to end max "
-        f"|dec - z| = {err:.6e}; ModRaise |I| max {notes['|I| max']:.0f} (k_bound "
+        f"|dec - z| = {err:.6e} (not gated at this width: boot_h_ring gates it at N=2^"
+        f"{BOOT_H_RING_LOGN}); CoeffToSlot output off u / (q0 k_bound) by max "
+        f"{notes['CtS real']:.3e} in its real part, {notes['CtS imag']:.3e} in its imaginary "
+        f"part; ModRaise |I| max {notes['|I| max']:.0f} (k_bound "
         f"{BOOT_H_K_BOUND}); the decrypted CoeffToSlot output through the exact sine and "
         f"SlotToCoeff: max |. - z| = {notes['CtS noise end to end']:.6e}; launches per phase "
         f"{per_phase}  [{smi}]", t)
@@ -950,11 +1016,12 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
 
     held = boot_h_check(params, ctx, chest, ct, phases["mod_raise"][0], smi)
     bound = bounds.report(f"bootstrap at {BOOT_H_PRESET} (steady)", lambda: bs(ct))
+    shapes = boot_h_shapes(params, ctx, chest, bounds, smi)
     return {"keygen_s": keygen_s, "threefry_s": threefry_ms / 1e3, "plan_s": plan_s,
             "first_s": first_s, "event_ms": steady_ms, "busy_ms": busy, "span_ms": span,
             "per_group": per_group, "per_call": steady_launches, "bound": bound,
             "max_err": err, "phase_err": phase_err, "notes": notes, "held": held, "peak": peak,
-            "shapes": boot_h_shapes(params, ctx, chest, bounds, smi)}
+            "shapes": shapes, "ring_err": boot_h_ring(dev, smi)}
 
 
 def boot_h_shapes(params, ctx, chest, bounds, smi) -> dict:
@@ -2106,16 +2173,17 @@ def main() -> None:
           f"No single PyTorch call computes any of these functions mod q, so library_ms is null; "
           f"total {time.perf_counter() - T0:.1f} s", flush=True)
     print(f"# boot_h path at {BOOT_H_PRESET}: device_keygen {boot_h['keygen_s']:.2f} s (threefry "
-          f"{boot_h['threefry_s']:.3f} s), plans {boot_h['plan_s']:.2f} s, first call "
+          f"at its shapes, alone, {boot_h['threefry_s']:.3f} s), plans {boot_h['plan_s']:.2f} s, first call "
           f"{boot_h['first_s']:.3f} s, steady calls {[round(x, 3) for x in boot_h['event_ms']]} "
           f"ms by CUDA events (median {np.median(boot_h['event_ms']):.3f}); one profiled call "
           f"{boot_h['busy_ms']:.3f} ms device busy in {boot_h['span_ms']:.3f} ms; each phase "
           f"against its function " + ", ".join(f"{k} {v:.3e}" for k, v in boot_h["phase_err"].items())
-          + f"; end to end max |dec - z| {boot_h['max_err']:.6e}; peak device memory "
+          + f"; end to end max |dec - z| {boot_h['max_err']:.6e} (printed), at N=2^"
+          f"{BOOT_H_RING_LOGN} {boot_h['ring_err']:.6e} (gated); peak device memory "
           + ", ".join(f"{k} {gib(v)}" for k, v in boot_h["peak"].items()) + f"  [{smi}]",
           flush=True)
     print(f"# boot path at {BOOT_PRESET}: device_keygen {boot['keygen_s']:.2f} s (threefry "
-          f"{boot['threefry_s']:.3f} s), plans "
+          f"at its shapes, alone, {boot['threefry_s']:.3f} s), plans "
           f"{boot['plan_s']:.2f} s, first call {boot['first_s']:.3f} s, steady calls "
           f"{[round(x, 4) for x in boot['steady_s']]} s on the host clock, "
           f"{[round(x, 3) for x in boot['event_ms']]} ms by CUDA events (median "

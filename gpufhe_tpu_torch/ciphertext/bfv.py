@@ -57,10 +57,10 @@ class BFVKeyChest(dkeys.IntegerKeyChest):
 def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, ...] = (), *,
            ctx: Context | None = None) -> BFVKeyChest:
     """The BFV key chest (CKKS keys): sk, pk, rlk and one Galois key per
-    step, in the reference's draw order (keys.keygen; ctx defaults to the
+    step, in the reference's draw order (keys.integer_chest_fields; ctx defaults to the
     parameters' context on the card)."""
-    chest = dkeys.keygen(params, rng, rotations, ctx=ctx)
-    return BFVKeyChest.of(chest)
+    ctx = dkeys.default_context(params, ctx)
+    return BFVKeyChest(**dkeys.integer_chest_fields(params, rng, rotations, ctx, 1))
 
 
 def _ckks_ksc(params: CKKSParams, level: int, device) -> KSContext:

@@ -50,10 +50,10 @@ class BGVKeyChest(dkeys.IntegerKeyChest):
 def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, ...] = (), *,
            ctx: Context | None = None) -> BGVKeyChest:
     """The BGV key chest: sk, pk, rlk and one Galois key per step, every
-    error times t, in the reference's draw order (keys.keygen; ctx defaults
+    error times t, in the reference's draw order (keys.integer_chest_fields; ctx defaults
     to the parameters' context on the card)."""
-    chest = dkeys.keygen(params, rng, rotations, ctx=ctx, err_factor=params.plain_modulus)
-    return BGVKeyChest.of(chest)
+    ctx = dkeys.default_context(params, ctx)
+    return BGVKeyChest(**dkeys.integer_chest_fields(params, rng, rotations, ctx, params.plain_modulus))
 
 
 def encrypt(pt_coeff: np.ndarray, params: CKKSParams, pk: DevicePublicKey, ctx: Context,

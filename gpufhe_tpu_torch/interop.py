@@ -14,10 +14,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from gpufhe_tpu_torch.ciphertext.bfv import BFVCiphertext
-from gpufhe_tpu_torch.ciphertext.bgv import BGVCiphertext
+from gpufhe_tpu_torch.ciphertext.bfv import BFVCiphertext, BFVKeyChest
+from gpufhe_tpu_torch.ciphertext.bgv import BGVCiphertext, BGVKeyChest
 from gpufhe_tpu_torch.ciphertext.ct import Ciphertext
 from gpufhe_tpu_torch.golden import ckks as gckks
+from gpufhe_tpu_torch.keys.device_keygen import DeviceKeyChest
 from gpufhe_tpu_torch.keys.keys import (DeviceKSKey, DevicePublicKey, DeviceSecretKey,
                                         KeyChest)
 from gpufhe_tpu_torch.params.params import CKKSParams
@@ -74,54 +75,45 @@ def params_from_reference(ref_params) -> CKKSParams:
 
 
 def chest_from_reference(ref_chest, device="cuda"):
-    """A reference key chest as the port's, carried as numpy arrays
-    (np.asarray of the reference's arrays), host and device halves:
-    - a KeyChest gives a KeyChest: sk, pk, rlk, every Galois key, the
-      conjugation key and the encapsulation keys;
-    - a BGVKeyChest or BFVKeyChest gives the port's chest of that scheme
-      (sk, pk, rlk, Galois keys), params with their plain_modulus;
-    - a DeviceKeyChest (device_keygen) gives a DeviceKeyChest: no canonical
-      pk, rlk or switching-key halves (None where the reference has None, an
-      `a` dropped by drop_galois_a too), and its seeds copied."""
-    from gpufhe_tpu_torch.ciphertext.bfv import BFVKeyChest
-    from gpufhe_tpu_torch.ciphertext.bgv import BGVKeyChest
-    from gpufhe_tpu_torch.keys.device_keygen import DeviceKeyChest
+    """A reference key chest as the port's chest of the same name (KeyChest,
+    BGVKeyChest, BFVKeyChest or DeviceKeyChest), carried as numpy arrays
+    (np.asarray of the reference's arrays), field by field: secret keys and
+    public keys, every switching key with its canonical half on the host
+    (None where the reference has None: a DeviceKeyChest has no canonical
+    halves, and an `a` dropped by drop_galois_a stays dropped), the
+    encapsulation keys, and a DeviceKeyChest's seeds."""
+    cls = {c.__name__: c for c in (KeyChest, BGVKeyChest, BFVKeyChest,
+                                   DeviceKeyChest)}[type(ref_chest).__name__]
 
     def dev_ks(key) -> DeviceKSKey:
         a = None if key.a_mont is None else _tensor(np.asarray(key.a_mont), device)
         return DeviceKSKey(b_mont=_tensor(np.asarray(key.b_mont), device), a_mont=a)
 
-    def ks(pair) -> tuple:  # the canonical half on the host, as keygen keeps it
-        golden, dev = pair
-        host = None if golden is None else gckks.KSKey(b=_tensor(golden.b, "cpu"),
-                                                         a=_tensor(golden.a, "cpu"))
-        return host, dev_ks(dev)
+    def host_ks(key) -> gckks.KSKey | None:  # the canonical half, where keygen keeps it
+        return None if key is None else gckks.KSKey(b=_tensor(key.b, "cpu"),
+                                                     a=_tensor(key.a, "cpu"))
 
-    dpk = ref_chest.device_pk
-    fields = dict(
-        params=params_from_reference(ref_chest.params),
-        sk=gckks.SecretKey(np.asarray(ref_chest.sk.s).astype(np.int64)),
-        device_sk=secret_key_from_numpy(np.asarray(ref_chest.device_sk.s_mont), device),
-        device_pk=public_key_from_numpy(np.asarray(dpk.b_mont), np.asarray(dpk.a_mont), device),
-        device_rlk=dev_ks(ref_chest.device_rlk),
-        galois={s: ks(pair) for s, pair in ref_chest.galois.items()},
-    )
-    kind = type(ref_chest).__name__
-    if kind in ("BGVKeyChest", "BFVKeyChest"):
-        cls = BGVKeyChest if kind == "BGVKeyChest" else BFVKeyChest
-    else:
-        eph, conj = ref_chest.eph, ref_chest.conj
-        if eph is not None:
-            eph = {"s_eph": np.asarray(eph["s_eph"]).astype(np.int64),
-                   **{k: ks(eph[k]) for k in ("to_eph", "from_eph")}}
-        fields.update(conj=None if conj is None else ks(conj), eph=eph)
-        if kind == "DeviceKeyChest":
-            fields["seeds"] = {name: torch.from_numpy(np.asarray(v).astype(np.int64))
-                               for name, v in ref_chest.seeds.items()}
-            return DeviceKeyChest(**fields)
-        cls = KeyChest
-    pk = ref_chest.pk
-    fields.update(pk=gckks.PublicKey(b=_tensor(pk.b, device), a=_tensor(pk.a, device)),
-                  rlk=gckks.KSKey(b=_tensor(ref_chest.rlk.b, "cpu"),
-                                  a=_tensor(ref_chest.rlk.a, "cpu")))
-    return cls(**fields)
+    def ks(pair) -> tuple | None:
+        return None if pair is None else (host_ks(pair[0]), dev_ks(pair[1]))
+
+    def eph(e) -> dict | None:
+        return None if e is None else {"s_eph": np.asarray(e["s_eph"]).astype(np.int64),
+                                       **{k: ks(e[k]) for k in ("to_eph", "from_eph")}}
+
+    carry = {
+        "params": params_from_reference,
+        "sk": lambda sk: gckks.SecretKey(np.asarray(sk.s).astype(np.int64)),
+        "pk": lambda pk: gckks.PublicKey(b=_tensor(pk.b, device), a=_tensor(pk.a, device)),
+        "rlk": host_ks,
+        "device_sk": lambda k: secret_key_from_numpy(np.asarray(k.s_mont), device),
+        "device_pk": lambda k: public_key_from_numpy(np.asarray(k.b_mont),
+                                                     np.asarray(k.a_mont), device),
+        "device_rlk": dev_ks,
+        "galois": lambda g: {s: ks(pair) for s, pair in g.items()},
+        "conj": ks,
+        "eph": eph,
+        "seeds": lambda seeds: None if seeds is None else {
+            name: torch.from_numpy(np.asarray(v).astype(np.int64)) for name, v in seeds.items()},
+    }
+    return cls(**{f.name: carry[f.name](getattr(ref_chest, f.name))
+                  for f in dataclasses.fields(cls)})

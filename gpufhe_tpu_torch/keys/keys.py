@@ -76,10 +76,11 @@ def upload_secret_key(sk: gckks.SecretKey, params: CKKSParams, *,
 
 
 @dataclasses.dataclass
-class KeyChest:
-    """The key material of a CKKS workload: host secret + device keys. The
-    integer schemes' chests (IntegerKeyChest) carry its first eight fields,
-    drawn by this keygen (BGV's with every error times t, err_factor)."""
+class IntegerKeyChest:
+    """The key material every scheme's chest holds, in the reference's field
+    order: host secret + device keys. The integer schemes' chests
+    (ciphertext/bgv.py BGVKeyChest, bfv.py BFVKeyChest) are exactly these
+    fields; KeyChest adds the conjugation and encapsulation keys."""
 
     params: CKKSParams
     sk: gckks.SecretKey  # host only
@@ -90,14 +91,20 @@ class KeyChest:
     device_rlk: DeviceKSKey
     # Every switching key is kept twice: its canonical KSKey on the host and
     # its Montgomery device form, which is what the ops read.
-    galois: dict = dataclasses.field(default_factory=dict)  # steps -> (KSKey, DeviceKSKey)
+    galois: dict  # steps -> (KSKey, DeviceKSKey)
+
+    def galois_key(self, steps: int) -> DeviceKSKey:
+        return self.galois[steps][1]
+
+
+@dataclasses.dataclass
+class KeyChest(IntegerKeyChest):
+    """The key material of a CKKS workload."""
+
     conj: tuple | None = None  # (KSKey, DeviceKSKey)
     # sparse-secret encapsulation (params.eph_hamming_weight > 0):
     # {"s_eph": int64[N], "to_eph": (KSKey, DeviceKSKey), "from_eph": (...)}
     eph: dict | None = None
-
-    def galois_key(self, steps: int) -> DeviceKSKey:
-        return self.galois[steps][1]
 
     def conj_key(self) -> DeviceKSKey:
         if self.conj is None:
@@ -105,26 +112,26 @@ class KeyChest:
         return self.conj[1]
 
 
-@dataclasses.dataclass
-class IntegerKeyChest:
-    """The chest of an integer scheme (ciphertext/bgv.py BGVKeyChest, bfv.py
-    BFVKeyChest): a KeyChest's first eight fields, the reference's."""
+def _pair(key: gckks.KSKey, params: CKKSParams, ctx: Context) -> tuple:
+    return host(key), upload_ks_key(key, params, ctx=ctx)
 
-    params: CKKSParams
-    sk: gckks.SecretKey  # host only
-    pk: gckks.PublicKey
-    rlk: gckks.KSKey
-    device_sk: DeviceSecretKey
-    device_pk: DevicePublicKey
-    device_rlk: DeviceKSKey
-    galois: dict  # steps -> (KSKey on the host, DeviceKSKey)
 
-    def galois_key(self, steps: int) -> DeviceKSKey:
-        return self.galois[steps][1]
-
-    @classmethod
-    def of(cls, chest: KeyChest):
-        return cls(**{f.name: getattr(chest, f.name) for f in dataclasses.fields(cls)})
+def integer_chest_fields(params: CKKSParams, rng: np.random.Generator,
+                         rotations: tuple[int, ...], ctx: Context, err_factor: int) -> dict:
+    """The IntegerKeyChest fields, drawn from rng in the reference's order:
+    sk and pk, the relinearisation key, one Galois key per rotation step (in
+    the given order), every error times err_factor."""
+    if err_factor != 1 and (params.hamming_weight or params.eph_hamming_weight):
+        # the reference's BGV keygen draws a dense ternary secret and nothing more
+        raise ValueError("BGV keys take a dense ternary secret and no encapsulation keys")
+    sk, pk = gckks.keygen(params, rng, ctx, err_factor)
+    rlk = gckks.make_relin_key(params, sk, rng, ctx, err_factor)
+    galois = {s: _pair(gckks.make_galois_key(params, s, sk, rng, ctx, err_factor), params, ctx)
+              for s in rotations}
+    return dict(params=params, sk=sk, pk=pk, rlk=host(rlk),
+                device_sk=upload_secret_key(sk, params, ctx=ctx),
+                device_pk=upload_public_key(pk, params, ctx=ctx),
+                device_rlk=upload_ks_key(rlk, params, ctx=ctx), galois=galois)
 
 
 def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, ...] = (),
@@ -140,20 +147,12 @@ def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, .
     moved to the host: the ops read only the device form, and at N=2^16
     with dnum=5 a canonical copy on the card would be another 304 MB per
     key."""
-    if err_factor != 1 and (conjugation or params.hamming_weight or params.eph_hamming_weight):
-        # the reference's BGV keygen draws a dense ternary secret and nothing more
-        raise ValueError("BGV keys take a dense ternary secret, no conjugation or "
-                         "encapsulation keys")
+    if err_factor != 1 and conjugation:
+        raise ValueError("BGV keys take no conjugation key")
     ctx = default_context(params, ctx)
-    sk, pk = gckks.keygen(params, rng, ctx, err_factor)
-    rlk = gckks.make_relin_key(params, sk, rng, ctx, err_factor)
-
-    def pair(key: gckks.KSKey) -> tuple:
-        return host(key), upload_ks_key(key, params, ctx=ctx)
-
-    galois = {s: pair(gckks.make_galois_key(params, s, sk, rng, ctx, err_factor))
-              for s in rotations}
-    conj = pair(gckks.make_conj_key(params, sk, rng, ctx)) if conjugation else None
+    fields = integer_chest_fields(params, rng, rotations, ctx, err_factor)
+    sk = fields["sk"]
+    conj = _pair(gckks.make_conj_key(params, sk, rng, ctx), params, ctx) if conjugation else None
     eph = None
     if params.eph_hamming_weight:
         s_eph = gckks.sample_sparse_ternary(rng, params.n, params.eph_hamming_weight)
@@ -165,21 +164,11 @@ def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, .
         eph = {
             "s_eph": s_eph,
             # decrypts under s_eph what decrypted under s, and back
-            "to_eph": pair(gckks.make_kskey(params, target(sk.s), sk_eph, rng, ctx)),
-            "from_eph": pair(gckks.make_kskey(params, target(s_eph), sk, rng, ctx)),
+            "to_eph": _pair(gckks.make_kskey(params, target(sk.s), sk_eph, rng, ctx), params, ctx),
+            "from_eph": _pair(gckks.make_kskey(params, target(s_eph), sk, rng, ctx), params,
+                              ctx),
         }
-    return KeyChest(
-        params=params,
-        sk=sk,
-        pk=pk,
-        rlk=host(rlk),
-        device_sk=upload_secret_key(sk, params, ctx=ctx),
-        device_pk=upload_public_key(pk, params, ctx=ctx),
-        device_rlk=upload_ks_key(rlk, params, ctx=ctx),
-        galois=galois,
-        conj=conj,
-        eph=eph,
-    )
+    return KeyChest(**fields, conj=conj, eph=eph)
 
 
 def truncate_galois_device(chest: KeyChest, step_levels: dict, conj_level: int | None,
