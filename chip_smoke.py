@@ -6,7 +6,7 @@
 Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
 against its plain PyTorch version on the card: K1 (NTT), K3 (base
 conversion), K4 (key-switch MAC), and the two probes, the integer rate (P2)
-and the K1 ablation builds (P1). Then it drives nine paths through the
+and the K1 ablation builds (P1). Then it drives twelve paths through the
 package's entry points, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -76,7 +76,31 @@ and read just after:
           (boot_h_shapes) each kernel alone at those shapes; and
           (boot_h_ring) the chain and settings at N = 2^BOOT_H_RING_LOGN on
           the card and on the CPU, every phase == limb for limb, decoded
-          end to end within DECODE_TOL.
+          end to end within DECODE_TOL;
+  deep_mlp the 5-layer d=8 MLP at config5_boot_dw entered at level 8, as the
+          reference's scripts/deep_mlp_n16.py drives it, after boot_h's keys
+          are freed: its own device_keygen (the bootstrap's 63 steps and the
+          MLP's, conj), Bootstrapper(factored, radix 3, cheb, k_bound 10,
+          lean_keys), keys truncated per step; one first and two steady
+          forwards (each == the first), two mid-inference bootstraps each,
+          timed apart by CUDA events; the logits within 1e-2 of the
+          cleartext forward, printed beside DEEP_MLP_N16.json's error;
+  mlp_n15 the MNIST-shaped MLP (784 -> 128 -> 10, square activation) at
+          config3_ckks (N=2^15, 12 q-limbs, 3 special primes, dnum 4), as
+          scripts/mlp_n15.py drives it, its plans built from the layers'
+          blocks: device_keygen of the stack's 134 rotation steps, one first
+          forward (its plans timed apart) and three steady forwards (each ==
+          the first) by CUDA events, one profiled forward; the logits within
+          1e-2, printed beside MLP_N15.json's error; then (mlp_n15_check) one
+          key switch of the input taken apart, K1 at 12 and 15 limbs, K3 at
+          3->15 and 3->12 and K4 at D = 4 x 15 each == plain on those
+          operands, and (mlp_n15_shapes) each kernel alone at those shapes;
+  models_ci the libraries and models at CI size (MODELS_CI_SMOKE: approx's
+          inverse and layer_norm, EncryptedCNN, threshold's device partial,
+          ct_mul_batched), on the card and on the CPU with the same keys and
+          draws, every output == limb for limb, each decoded within its
+          reference test's tolerance; tests/test_torch_kernels_gpu.py runs
+          every item of MODELS_CI_ITEMS the same way.
 
 Each path's ciphertexts are checked == the same path on the CPU and decoded
 against the cleartext result; the kernels and stage leaves are timed with
@@ -152,6 +176,20 @@ BOOT_H_RING_LOGN = 10
 INT_PRESET = "bfv_n16"
 INT_ROTATIONS = (1, 3)
 INT_TIMED = 7  # ct_mul calls timed one by one with CUDA events, per scheme
+# the models: the MNIST-shaped MLP (784 -> 128 -> 10, square activation) at
+# config3_ckks as scripts/mlp_n15.py drives it, and the 5-layer d=8 MLP at
+# config5_boot_dw entered at level 8 and refreshed mid-inference by the
+# flagship's Bootstrapper, as scripts/deep_mlp_n16.py drives it; beside each
+# error the reference's record of it (MLP_N15.json, DEEP_MLP_N16.json)
+MLP_PRESET = "config3_ckks"
+MLP_STEADY = 3
+MLP_TOL = 1e-2  # scripts/mlp_n15.py:117
+MLP_RECORD = 0.00800225619296624  # MLP_N15.json max_logit_err
+DEEP_PRESET = "config5_boot_dw"
+DEEP_LAYERS, DEEP_D, DEEP_IN_LEVEL = 5, 8, 8
+DEEP_STEADY = 2
+DEEP_TOL = 1e-2  # scripts/deep_mlp_n16.py:170
+DEEP_RECORD = 2.294809462073666e-08  # DEEP_MLP_N16.json logits_max_err
 
 T0 = time.perf_counter()
 
@@ -315,6 +353,15 @@ def event_ms(events: list) -> dict:
 
 def gib(nbytes: float) -> str:
     return f"{nbytes / 2**30:.3f} GiB"
+
+
+def peak_marker(dev, peak: dict):
+    """mark(what): the peak device memory since the last mark, kept as peak[what]."""
+    def mark(what):
+        torch.cuda.synchronize()
+        peak[what] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    return mark
 
 
 def key_bytes(chest) -> int:
@@ -588,11 +635,7 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
     params = preset(BOOT_PRESET)
     ctx = make_context(params, dev)
     peak = {}
-
-    def mark_peak(what):
-        torch.cuda.synchronize()
-        peak[what] = torch.cuda.max_memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+    mark_peak = peak_marker(dev, peak)
 
     t = time.perf_counter()
     reset()
@@ -767,6 +810,56 @@ def boot_h_phase_errors(params, be, bs, chest, phases: dict, out, z) -> tuple[di
     }
 
 
+def key_switch_apart(tag, params, ctx, c1, chest, step, back=False) -> dict:
+    """One key switch of c1 (NTT domain, at its level) against Galois key
+    `step`, taken apart with each kernel == its plain version on these
+    operands: K1 (the iNTT of c1, the NTT of the dnum raised digits, the iNTT
+    of both Q+P accumulators; with `back`, the NTT of both ModDown outputs),
+    K3 (ModUp per digit group, ModDown per component) and K4 (the digits
+    against the key, its automorphism folded in). Returns the shapes held."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.golden import ckks as gckks
+    from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda
+    from gpufhe_tpu_torch.primitives import keyswitch, rns
+
+    level, n = c1.shape[0], params.n
+    key = chest.galois_key(step)
+    ksc = rns.make_ks_context(params, level, ctx.device)
+    qp = keyswitch.qp_indices(params, level)
+    idx_q, idx_qp = ctx.index(range(level), torch.int32), ctx.index(qp, torch.int32)
+    held = {}
+
+    def k1(v, idx, inverse, what):
+        got = ntt_cuda.fourstep_cuda(v.reshape(-1, n).contiguous(), idx, ctx, inverse)
+        exact(got, ntt_cuda.fourstep_plain(v.reshape(-1, n).contiguous(), idx, ctx, inverse),
+              f"{tag} K1 {what}")
+        held[f"K1 {what}"] = tuple(v.shape[:-1])
+        return got.view(v.shape)
+
+    def k3(v, tabs, what):
+        got = convert_cuda.base_convert_cuda(v.contiguous(), tabs)
+        exact(got, convert_cuda.base_convert_plain(v.contiguous(), tabs), f"{tag} K3 {what}")
+        held[f"K3 {what}"] = f"{tabs.sq.numel()}->{tabs.dq.numel()}"
+        return got
+
+    coeff = k1(c1, idx_q, True, f"inv {level}")
+    digits = torch.stack([k3(coeff[d0:d1], ksc.modup[g], f"ModUp group {g}")
+                          for g, (d0, d1) in enumerate(rns.ks_groups(params, level))])
+    digits = k1(digits, idx_qp, False, f"fwd {len(qp)} x {digits.shape[0]}")
+    perm = dct.galois_perm(gckks.galois_exponent(step, n), ctx, torch.int32)
+    rows = ctx.index(keyswitch.key_row_index(params, level, key.b_mont.shape[1]), torch.int32)
+    args = (digits, key.b_mont, key.a_mont, rows, idx_qp, ctx, perm)
+    acc = mac_cuda.mac_cuda(*args)
+    exact(acc, mac_cuda.mac_plain(*args), f"{tag} K4")
+    held["K4"] = f"D={digits.shape[0]} x T={len(qp)}, key {step}"
+    acc = k1(acc, idx_qp, True, f"inv {len(qp)} x 2")
+    down = torch.stack([k3(acc[i, level:], ksc.p2q, f"ModDown component {i}")
+                        for i in range(2)])
+    if back:
+        k1(down, idx_q, False, f"fwd {level} x 2")
+    return held
+
+
 def boot_h_check(params, ctx, chest, ct, raised, smi) -> dict:
     """After the boot_h path's counts are read: the path's ModRaise stage ==
     the CPU path; regen_pk_a of the chest's pk seed on the card == on the CPU
@@ -777,11 +870,8 @@ def boot_h_check(params, ctx, chest, ct, raised, smi) -> dict:
     (ModUp 5->35 per group, ModDown 5->30 per component) and K4 (D = 6 x 35
     against the key, its automorphism folded in). Returns the shapes held."""
     from gpufhe_tpu_torch.ciphertext import ct as dct
-    from gpufhe_tpu_torch.golden import ckks as gckks
     from gpufhe_tpu_torch.keys import device_keygen as dkg
-    from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda
     from gpufhe_tpu_torch.ops.context import make_context
-    from gpufhe_tpu_torch.primitives import keyswitch, rns
 
     t = time.perf_counter()
     t1 = time.perf_counter()
@@ -795,42 +885,10 @@ def boot_h_check(params, ctx, chest, ct, raised, smi) -> dict:
           "boot_h regen_pk_a on the card against the CPU")
     exact(pk_a, chest.device_pk.a_mont, "boot_h regen_pk_a against the public key's a")
     step = next(iter(chest.galois))
-    key = chest.galois_key(step)
-    exact(dkg.regen_ks_a(params, ctx, chest.seeds[f"gk{step}"]), key.a_mont,
+    exact(dkg.regen_ks_a(params, ctx, chest.seeds[f"gk{step}"]), chest.galois_key(step).a_mont,
           f"boot_h regen_ks_a against Galois key {step}")
 
-    level, n = params.num_limbs, params.n
-    ksc = rns.make_ks_context(params, level, ctx.device)
-    qp = keyswitch.qp_indices(params, level)
-    idx_q, idx_qp = ctx.index(range(level), torch.int32), ctx.index(qp, torch.int32)
-    held = {}
-
-    def k1(v, idx, inverse, what):
-        got = ntt_cuda.fourstep_cuda(v.reshape(-1, n).contiguous(), idx, ctx, inverse)
-        exact(got, ntt_cuda.fourstep_plain(v.reshape(-1, n).contiguous(), idx, ctx, inverse),
-              f"boot_h K1 {what}")
-        held[f"K1 {what}"] = tuple(v.shape[:-1])
-        return got.view(v.shape)
-
-    def k3(v, tabs, what):
-        got = convert_cuda.base_convert_cuda(v.contiguous(), tabs)
-        exact(got, convert_cuda.base_convert_plain(v.contiguous(), tabs), f"boot_h K3 {what}")
-        held[f"K3 {what}"] = f"{tabs.sq.numel()}->{tabs.dq.numel()}"
-        return got
-
-    coeff = k1(raised.c[1], idx_q, True, f"inv {level}")
-    digits = torch.stack([k3(coeff[d0:d1], ksc.modup[g], f"ModUp group {g}")
-                          for g, (d0, d1) in enumerate(rns.ks_groups(params, level))])
-    digits = k1(digits, idx_qp, False, f"fwd {len(qp)} x {digits.shape[0]}")
-    perm = dct.galois_perm(gckks.galois_exponent(step, n), ctx, torch.int32)
-    rows = ctx.index(keyswitch.key_row_index(params, level, key.b_mont.shape[1]), torch.int32)
-    args = (digits, key.b_mont, key.a_mont, rows, idx_qp, ctx, perm)
-    acc = mac_cuda.mac_cuda(*args)
-    exact(acc, mac_cuda.mac_plain(*args), "boot_h K4")
-    held["K4"] = f"D={digits.shape[0]} x T={len(qp)}, key {step}"
-    acc = k1(acc, idx_qp, True, f"inv {len(qp)} x 2")
-    for i in range(2):
-        k3(acc[i, level:], ksc.p2q, f"ModDown component {i}")
+    held = key_switch_apart("boot_h", params, ctx, raised.c[1], chest, step)
     say("boot_h_check", f"ModRaise stage (ct_mod_raise from level 1) == the CPU path at "
         f"{params.num_limbs} limbs x 2 (CPU context {ctx_s:.2f} s); regen_pk_a card == CPU == "
         f"pk.a; regen_ks_a == Galois key {step}'s a; one key switch of the raised c1 against "
@@ -897,11 +955,7 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
 
     params = preset(BOOT_H_PRESET)
     peak = {}
-
-    def mark_peak(what):
-        torch.cuda.synchronize()
-        peak[what] = torch.cuda.max_memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+    mark_peak = peak_marker(dev, peak)
 
     t = time.perf_counter()
     resident = torch.cuda.memory_allocated(dev)
@@ -1016,7 +1070,7 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
 
     held = boot_h_check(params, ctx, chest, ct, phases["mod_raise"][0], smi)
     bound = bounds.report(f"bootstrap at {BOOT_H_PRESET} (steady)", lambda: bs(ct))
-    shapes = boot_h_shapes(params, ctx, chest, bounds, smi)
+    shapes = kernel_shapes("boot_h", params, ctx, chest, bounds, smi)
     return {"keygen_s": keygen_s, "threefry_s": threefry_ms / 1e3, "plan_s": plan_s,
             "first_s": first_s, "event_ms": steady_ms, "busy_ms": busy, "span_ms": span,
             "per_group": per_group, "per_call": steady_launches, "bound": bound,
@@ -1024,12 +1078,13 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
             "shapes": shapes, "ring_err": boot_h_ring(dev, smi)}
 
 
-def boot_h_shapes(params, ctx, chest, bounds, smi) -> dict:
-    """K1, K3 and K4 alone at the shapes the boot_h path gives them at its top
-    level (the hoist's NTT of 6 x 35 digits, ModUp 5->35, ModDown 5->30, the
-    MAC at D = 6 x 35 against one of its keys), on random canonical
-    operands: CUDA-event and device ms per call, the bound, the plain
-    version's ms."""
+def kernel_shapes(tag, params, ctx, chest, bounds, smi, inv_q=False) -> dict:
+    """K1, K3 and K4 alone at the shapes a path's key switch at its top level
+    gives them (the hoist's NTT of the dnum raised digits over Q+P: 6 x 35 at
+    boot_h; ModUp of one digit group: 5->35; ModDown: 5->30; the MAC against
+    one of its Galois keys: D = 6 x 35; with inv_q also the iNTT of one
+    component over Q), on random canonical operands: CUDA-event and device
+    ms per call, the bound, the plain version's ms."""
     from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda
     from gpufhe_tpu_torch.ops.probes import cuda_ms
     from gpufhe_tpu_torch.primitives import keyswitch, rns
@@ -1050,7 +1105,13 @@ def boot_h_shapes(params, ctx, chest, bounds, smi) -> dict:
     x_up, x_down = rand(range(alpha)), rand(range(level, level + alpha))
     mac_rows = ctx.index(keyswitch.key_row_index(params, level, key.b_mont.shape[1]), torch.int32)
     flat = digits.reshape(-1, n)
+    x_q = rand(range(level)) if inv_q else None
     cases = {
+        **({f"ntt inv {level} x 1": (
+            K1_NAME, 2, bounds.ntt(level, level),
+            lambda: ntt_cuda.fourstep_cuda(x_q, ctx.index(range(level), torch.int32), ctx, True),
+            lambda: ntt_cuda.fourstep_plain(x_q, ctx.index(range(level), torch.int32), ctx,
+                                            True))} if inv_q else {}),
         f"ntt fwd {len(qp)} x {params.dnum}": (
             K1_NAME, 2, bounds.ntt(flat.shape[0], len(qp)),
             lambda: ntt_cuda.fourstep_cuda(flat, idx_qp, ctx, False),
@@ -1070,11 +1131,11 @@ def boot_h_shapes(params, ctx, chest, bounds, smi) -> dict:
     }
     out = {}
     for what, (pattern, kinds, work, call, plain) in cases.items():
-        exact(call(), plain(), f"boot_h {what}")
+        exact(call(), plain(), f"{tag} {what}")
         b_ms, b_by = bounds.ms(*work)
         out[what] = {"ms": cuda_ms(call), "device_ms": or_null(kernel_ms(call, pattern, kinds)[0]),
                      "plain_ms": cuda_ms(plain, iters=3), "bound_ms": b_ms, "bound_by": b_by}
-    say("boot_h_shapes", "alone at the boot_h path's shapes, == plain; CUDA-event / device / "
+    say(f"{tag}_shapes", f"alone at the {tag} path's shapes, == plain; CUDA-event / device / "
         "bound / plain ms per call: " + "; ".join(
             f"{k} {v['ms']:.4f} / {v['device_ms'] or math.nan:.4f} / {v['bound_ms']:.5f} "
             f"({v['bound_by']}) / "
@@ -1562,6 +1623,573 @@ def int_timing(bgv: dict, bfv: dict, ik: dict, bounds: Bounds, counts, smi) -> d
     return out
 
 
+# ---------------------------------------------------------------------------
+# The models: the MNIST-shaped MLP at MLP_PRESET, the deep MLP refreshed by
+# the flagship bootstrap at DEEP_PRESET, and every library and model at CI
+# size on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+
+def timed_plans(model) -> list:
+    """Time the plans an EncryptedMLP builds on first use (host clock, the
+    device synchronised): returns a one-element list that sums them."""
+    spent, build = [0.0], model._plan
+
+    def plan(i, level):
+        if (i, level) not in model._plans:
+            t = time.perf_counter()
+            build(i, level)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+        return model._plans[(i, level)]
+
+    model._plan = plan
+    return spent
+
+
+def profiled(fn, counts) -> dict:
+    """One call under the profiler: device busy ms, its own event ms, per
+    kernel group ms and launches traced, and the launches the call made."""
+    before = counts()
+    busy, span, top = device_profile(fn, iters=1)
+    made = {k: v - before[k] for k, v in counts().items()}
+    groups = {"K1": "k1_pass", "K3": K3_NAME, "K4": K4_NAME}
+    return {"busy_ms": busy, "span_ms": span,
+            "per_group": {g: sum(ms for ms, name, _ in top if key in name)
+                          for g, key in groups.items()},
+            "traced": {g: sum(c for _, name, c in top if key in name)
+                       for g, key in groups.items()},
+            # device_profile runs fn once unprofiled first, then once traced
+            "made": {k: v // 2 for k, v in made.items()}}
+
+
+def mlp_n15_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
+    """Path mlp_n15: the MNIST-shaped MLP at MLP_PRESET, nothing cut, as
+    scripts/mlp_n15.py:43-88 drives it: weights and input from default_rng(1),
+    device_keygen from default_rng(0) with the stack's own rotation steps and
+    no conjugation key, the input encrypted at the full level from
+    default_rng(2); one first forward (its plans timed apart) and MLP_STEADY
+    steady forwards by CUDA events, each == the first limb for limb; one
+    profiled forward; the logits within MLP_TOL of model.reference(x). After
+    its counts are read, one key switch of the input taken apart (each kernel
+    == plain at N=2^15) and each kernel alone at those shapes."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.keys.device_keygen import device_keygen
+    from gpufhe_tpu_torch.models.mlp import EncryptedMLP, mlp_rotations_for
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    params = preset(MLP_PRESET)
+    peak = {}
+    mark_peak = peak_marker(dev, peak)
+    t = time.perf_counter()
+    ctx = make_context(params, dev)
+    rng = np.random.default_rng(1)
+    d_in, d_h, d_out = 784, 128, 10
+    layers = [(rng.normal(size=(d_h, d_in)) * 0.1, rng.normal(size=d_h) * 0.1),
+              (rng.normal(size=(d_out, d_h)) * 0.1, rng.normal(size=d_out) * 0.1)]
+    reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rots = mlp_rotations_for(layers, params.slots)
+    t1 = time.perf_counter()
+    chest = device_keygen(params, np.random.default_rng(0), rotations=tuple(rots),
+                          conjugation=False, ctx=ctx)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t1
+    mark_peak("keygen")
+    be = DeviceBackend(params, ctx, chest)
+    model = EncryptedMLP(be, layers)
+    x = rng.normal(size=d_in) * 0.5
+    slots_x = np.zeros(params.slots, dtype=np.complex128)
+    slots_x[:d_in] = x
+    ct = dct.encrypt(encoder.encode(slots_x, params), params, chest.device_pk, ctx,
+                     np.random.default_rng(2), params.scale)
+    key_gib = sum(8 * (k.b_mont.numel() + k.a_mont.numel()) for _, k in chest.galois.values())
+    say("mlp_n15_setup", f"{MLP_PRESET} (N={params.n}, {params.num_limbs} q-limbs, "
+        f"{len(params.p_primes)} special primes, dnum {params.dnum}): {d_in} -> {d_h} -> "
+        f"{d_out}, square activation; device_keygen (rlk, {len(rots)} Galois keys, no conj) "
+        f"{keygen_s:.2f} s, Galois keys {gib(key_gib)}; peak device memory keygen "
+        f"{gib(peak['keygen'])}  [{smi}]", t)
+
+    t = time.perf_counter()
+    plan_s = timed_plans(model)
+    m0, t1 = be.encode_misses, time.perf_counter()
+    first = model(ct)
+    torch.cuda.synchronize()
+    first_s, first_misses = time.perf_counter() - t1, be.encode_misses - m0
+    mark_peak("first forward")
+    got = np.real(be.decrypt_decode(first)[:d_out])
+    want = model.reference(x)
+    err = float(np.abs(got - want).max())
+    if got.shape != (d_out,) or not np.isfinite(got).all() or not err < MLP_TOL:
+        raise AssertionError(f"mlp_n15 logits off model.reference by {err} (gate {MLP_TOL})")
+    say("mlp_n15_first", f"first forward {first_s:.3f} s, of it plans {plan_s[0]:.3f} s "
+        f"({len(model._plans)} plans, {first_misses} host encodes); output level "
+        f"{first.level}; max |logit - reference| = {err!r} < {MLP_TOL} (MLP_N15.json: "
+        f"{MLP_RECORD!r}; |reference| max {np.abs(want).max():.3f})  [{smi}]", t)
+
+    t = time.perf_counter()
+    steady_ms, per_forward, misses = [], None, []
+    for i in range(MLP_STEADY):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        m0, before = be.encode_misses, counts()
+        start.record()
+        out = model(ct)
+        stop.record()
+        torch.cuda.synchronize()
+        steady_ms.append(start.elapsed_time(stop))
+        per_forward = {k: v - before[k] for k, v in counts().items()}
+        misses.append(be.encode_misses - m0)
+        same_limbs(out, first, f"mlp_n15 steady forward {i} against the first")
+    # each forward encodes its layers' bias vectors (add_plain of a vector that
+    # is not uniform encodes it, in the reference's backend as in the port's);
+    # the plans' diagonals are encoded once
+    if misses != [len(layers)] * MLP_STEADY:
+        raise AssertionError(f"mlp_n15 steady forwards made {misses} host encodes, not "
+                             f"{len(layers)} (the biases) each")
+    prof = profiled(lambda: model(ct), counts)
+    mark_peak("steady forwards")
+    launches["mlp_n15"] = counts()
+    call_ms = float(np.median(steady_ms))
+    say("mlp_n15_steady", f"{MLP_STEADY} steady forwards by CUDA events "
+        f"{[round(v, 3) for v in steady_ms]} ms, median {call_ms:.3f}, spread "
+        f"{min(steady_ms):.3f} to {max(steady_ms):.3f}; host encodes per forward {misses} "
+        f"(the {len(layers)} biases); launches per forward {per_forward}; one profiled forward: "
+        f"device busy {prof['busy_ms']:.3f} ms, {prof['busy_ms'] / prof['span_ms']:.1%} of its "
+        f"own CUDA-event time ({prof['span_ms']:.3f} ms), {prof['busy_ms'] / call_ms:.1%} of "
+        f"the median; per kernel (ms) " + ", ".join(
+            f"{g} {ms:.3f}" for g, ms in prof["per_group"].items())
+        + f", the rest {prof['busy_ms'] - sum(prof['per_group'].values()):.3f}; launches "
+        f"traced {prof['traced']}; peak device memory " + ", ".join(
+            f"{k} {gib(v)}" for k, v in peak.items())
+        + f"; every steady forward == the first limb for limb; launches {launches['mlp_n15']}"
+        f"  [{smi}]", t)
+
+    t = time.perf_counter()
+    step = next(iter(chest.galois))
+    held = key_switch_apart("mlp_n15", params, ctx, ct.c[1], chest, step, back=True)
+    say("mlp_n15_check", f"one key switch of the input's c1 (level {ct.level}) against "
+        f"Galois key {step}, each kernel == plain: " + "; ".join(
+            f"{k} {v}" for k, v in held.items()) + f"  [{smi}]", t)
+    bound = bounds.report(f"MLP forward at {MLP_PRESET}", lambda: model(ct))
+    shapes = kernel_shapes("mlp_n15", params, ctx, chest, bounds, smi, inv_q=True)
+    return {"keygen_s": keygen_s, "plan_s": plan_s[0], "first_s": first_s,
+            "event_ms": steady_ms, "per_forward": per_forward, "bound": bound,
+            "prof": prof, "peak": peak, "max_err": err, "keys": len(rots), "held": held,
+            "shapes": shapes}
+
+
+def deep_mlp_path(dev, smi, counts, reset, launches: dict) -> dict:
+    """Path deep_mlp: scripts/deep_mlp_n16.py:40-150 at DEEP_PRESET, nothing
+    cut: DEEP_LAYERS layers of width DEEP_D from default_rng(11), entered at
+    level DEEP_IN_LEVEL, refreshed mid-inference by Bootstrapper(factored,
+    radix 3, cheb, k_bound 10, lean_keys=True) (fuse_evalmod is inert in the
+    port: EvalMod runs eagerly). Its own chest, as the script draws it:
+    device_keygen(default_rng(7)) with the bootstrap's steps and the MLP's,
+    conj; every Galois key truncated to the highest level it is used at, the
+    MLP's steps at max(bootstrap output level, entry level). One first and
+    DEEP_STEADY steady forwards (each == the first limb for limb), each with
+    its mid-inference bootstraps timed apart by CUDA events; one profiled
+    forward; the logits within DEEP_TOL of model.reference(x)."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bootstrap import Bootstrapper, bootstrap_rotations
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.keys.device_keygen import device_keygen
+    from gpufhe_tpu_torch.keys.keys import truncate_galois_device
+    from gpufhe_tpu_torch.models.mlp import EncryptedMLP, mlp_rotations_for
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    params = preset(DEEP_PRESET)
+    peak = {}
+    mark_peak = peak_marker(dev, peak)
+    t = time.perf_counter()
+    resident = torch.cuda.memory_allocated(dev)
+    ctx = make_context(params, dev)
+    rng = np.random.default_rng(11)
+    layers = [(rng.normal(size=(4 if i == DEEP_LAYERS - 1 else DEEP_D, DEEP_D))
+               * (0.5 / np.sqrt(DEEP_D)),
+               rng.normal(size=4 if i == DEEP_LAYERS - 1 else DEEP_D) * 0.05)
+              for i in range(DEEP_LAYERS)]
+    mlp_steps = mlp_rotations_for(layers, params.slots)
+    boot_rots = bootstrap_rotations(params, transform="factored", radix_log=BOOT_RADIX)
+    rots = sorted(set(boot_rots) | set(mlp_steps))
+    reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    chest = device_keygen(params, np.random.default_rng(7), rotations=tuple(rots),
+                          conjugation=True, ctx=ctx)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t1
+    mark_peak("keygen")
+    t1 = time.perf_counter()
+    be = DeviceBackend(params, ctx, chest)
+    bs = Bootstrapper(be, transform="factored", radix_log=BOOT_RADIX, evalmod="cheb",
+                      k_bound=BOOT_K_BOUND, fuse_evalmod=True, lean_keys=True)
+    boot_plan_s = time.perf_counter() - t1
+    steps, conj_level = bs.galois_step_levels()
+    boot_out = bs.f_stc.first_lo.level - bs.f_stc.levels_used
+    mlp_level = max(boot_out, DEEP_IN_LEVEL)
+    for s_ in mlp_steps:
+        steps[s_] = max(steps.get(s_, 0), mlp_level)
+    full_bytes = key_bytes(chest)
+    truncate_galois_device(chest, steps, conj_level, params)
+    mark_peak("plans and truncation")
+    model = EncryptedMLP(be, layers, refresh=bs)
+    x = rng.normal(size=DEEP_D) * 0.3
+    slots_x = np.zeros(params.slots, dtype=np.complex128)
+    slots_x[:DEEP_D] = x
+    ct = dct.encrypt(encoder.encode(slots_x, params), params, chest.device_pk, ctx,
+                     np.random.default_rng(2), params.scale, level=DEEP_IN_LEVEL)
+    say("deep_mlp_setup", f"{DEEP_PRESET}: {DEEP_LAYERS} layers, d={DEEP_D}, input at level "
+        f"{DEEP_IN_LEVEL}; device memory held before it {gib(resident)}; device_keygen (rlk, "
+        f"eph h={params.eph_hamming_weight}, {len(boot_rots)} bootstrap + {len(mlp_steps)} MLP "
+        f"steps = {len(rots)} Galois keys, conj) {keygen_s:.2f} s; Bootstrapper(factored, radix "
+        f"{BOOT_RADIX}, cheb, k_bound {BOOT_K_BOUND}, lean_keys) plans {boot_plan_s:.2f} s; "
+        f"keys truncated per step (MLP steps at level {mlp_level}, bootstrap output level "
+        f"{boot_out}): Galois and conj keys {gib(full_bytes)} -> {gib(key_bytes(chest))}; peak "
+        f"device memory keygen {gib(peak['keygen'])}, plans {gib(peak['plans and truncation'])}"
+        f"  [{smi}]", t)
+
+    boots = []  # (start, stop) CUDA events of each mid-inference bootstrap
+
+    def refresh(c):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = bs(c)
+        stop.record()
+        boots.append((start, stop))
+        return out
+
+    model.refresh = refresh
+    t = time.perf_counter()
+    plan_s = timed_plans(model)
+    m0, t1 = be.encode_misses, time.perf_counter()
+    first = model(ct)
+    torch.cuda.synchronize()
+    first_s, first_misses = time.perf_counter() - t1, be.encode_misses - m0
+    mark_peak("first forward")
+    first_boot_ms = [a.elapsed_time(b) for a, b in boots]
+    if model.refreshes != 2:
+        raise AssertionError(f"deep_mlp: {model.refreshes} mid-inference bootstraps, not 2")
+    d_out = layers[-1][0].shape[0]
+    got = np.real(be.decrypt_decode(first)[:d_out])
+    want = model.reference(x)
+    err = float(np.abs(got - want).max())
+    if got.shape != (d_out,) or not np.isfinite(got).all() or not err <= DEEP_TOL:
+        raise AssertionError(f"deep_mlp logits off model.reference by {err} (gate {DEEP_TOL})")
+    say("deep_mlp_first", f"first forward {first_s:.3f} s ({model.refreshes} mid-inference "
+        f"bootstraps, by CUDA events {[round(v, 3) for v in first_boot_ms]} ms, the first "
+        f"with the lean keys' drop and redraw), of it MLP plans {plan_s[0]:.3f} s, "
+        f"{first_misses} host encodes; output level {first.level}; max |logit - reference| = "
+        f"{err!r} <= {DEEP_TOL} (DEEP_MLP_N16.json: {DEEP_RECORD!r})  [{smi}]", t)
+
+    t = time.perf_counter()
+    steady_ms, boot_ms, per_forward, misses = [], [], None, []
+    for i in range(DEEP_STEADY):
+        boots.clear()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        m0, before = be.encode_misses, counts()
+        start.record()
+        out = model(ct)
+        stop.record()
+        torch.cuda.synchronize()
+        steady_ms.append(start.elapsed_time(stop))
+        boot_ms.append(sum(a.elapsed_time(b) for a, b in boots))
+        per_forward = {k: v - before[k] for k, v in counts().items()}
+        misses.append(be.encode_misses - m0)
+        if model.refreshes != 2:
+            raise AssertionError(f"deep_mlp steady forward {i}: {model.refreshes} bootstraps")
+        same_limbs(out, first, f"deep_mlp steady forward {i} against the first")
+    prof = profiled(lambda: model(ct), counts)
+    mark_peak("steady forwards")
+    launches["deep_mlp"] = counts()
+    layer_ms = [a - b for a, b in zip(steady_ms, boot_ms)]
+    say("deep_mlp_steady", f"{DEEP_STEADY} steady forwards by CUDA events "
+        f"{[round(v, 3) for v in steady_ms]} ms: the 2 bootstraps {[round(v, 3) for v in boot_ms]}"
+        f" ms, the layers {[round(v, 3) for v in layer_ms]} ms; host encodes per forward "
+        f"{misses} (the {DEEP_LAYERS} biases); launches per forward {per_forward}; one profiled "
+        f"forward: device busy {prof['busy_ms']:.3f} ms, "
+        f"{prof['busy_ms'] / prof['span_ms']:.1%} of its own CUDA-event time "
+        f"({prof['span_ms']:.3f} ms), {prof['busy_ms'] / float(np.median(steady_ms)):.1%} of "
+        f"the median; per kernel (ms) " + ", ".join(
+            f"{g} {ms:.3f}" for g, ms in prof["per_group"].items())
+        + f", the rest {prof['busy_ms'] - sum(prof['per_group'].values()):.3f}; launches "
+        f"traced {prof['traced']}; peak device memory " + ", ".join(
+            f"{k} {gib(v)}" for k, v in peak.items())
+        + f"; every steady forward == the first limb for limb; launches {launches['deep_mlp']}"
+        f"  [{smi}]", t)
+    return {"keygen_s": keygen_s, "plan_s": boot_plan_s + plan_s[0], "first_s": first_s,
+            "event_ms": steady_ms, "boot_ms": boot_ms, "per_forward": per_forward,
+            "prof": prof, "peak": peak, "max_err": err, "keys": len(rots)}
+
+
+# models_ci: the items the smoke runs on the card and on the CPU (the modules
+# whose port code differs most from the reference: the MLP's block-built plans
+# through EncryptedCNN, approx, threshold's device partial, the batched
+# multiply), and the rest, which tests/test_torch_kernels_gpu.py runs card ==
+# CPU on the card (the smoke's time budget holds these five)
+MODELS_CI_SMOKE = ("approx.inverse", "approx.layer_norm", "EncryptedCNN",
+                   "threshold.partial_decrypt_device", "ct_mul_batched")
+MODELS_CI_ITEMS = MODELS_CI_SMOKE + ("compare.relu", "exact.ct_equals_plain", "pir_retrieve",
+                                     "EncryptedAttention", "EncryptedTransformerBlock",
+                                     "EncryptedLogRegTrainer step")
+
+
+def models_ci_run(device, counts, names=MODELS_CI_SMOKE) -> tuple[dict, dict, dict]:
+    """The named library and model items at CI size on `device`, each at the
+    preset and with the inputs of the reference's own test, its keys drawn
+    there from numpy seeds (the same host draws on every device): ({item:
+    [outputs]}, {item: decode error, or the slots held exact}, {item:
+    launches and seconds})."""
+    from gpufhe_tpu_torch.ciphertext import approx, batch, threshold
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.ciphertext import compare as cmp
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bfv_backend import BFVDeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bgv_backend import BGVDeviceBackend
+    from gpufhe_tpu_torch.ciphertext.exact import ct_equals_plain
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.golden import bfv as gbfv
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+    from gpufhe_tpu_torch.keys import keys as dkeys
+    from gpufhe_tpu_torch.models import attention, cnn, logreg_train, pir, transformer
+    from gpufhe_tpu_torch.models.mlp import mlp_rotations_for
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    d, seq = 8, 8  # the attention packing's block and sequence length
+
+    def ckks(name, rots=(), seed=0):
+        params = preset(name)
+        ctx = make_context(params, device)
+        chest = dkeys.keygen(params, np.random.default_rng(seed), rotations=tuple(rots), ctx=ctx)
+        be = DeviceBackend(params, ctx, chest)
+
+        def enc(v, seed_):
+            z = np.zeros(params.slots, dtype=np.complex128)
+            z[: np.size(v)] = np.reshape(v, -1)
+            return dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                               np.random.default_rng(seed_), params.scale)
+        return params, be, enc
+
+    def integer(name, keygen, backend, gold, mod, seed, rots=()):
+        params = preset(name)
+        ctx = make_context(params, device)
+        chest = keygen(params, np.random.default_rng(seed), tuple(rots), ctx=ctx)
+        be = backend(params, ctx, chest)
+
+        def enc(v, seed_):
+            raw = np.empty(params.n, dtype=np.int64)
+            raw[be.rings[0]], raw[be.rings[1]] = v, v
+            return mod.encrypt(gold.encode(raw, params), params, chest.device_pk, ctx,
+                               np.random.default_rng(seed_))
+        return params, be, enc
+
+    def close(got, want, tol, what):
+        return decode_err(np.asarray(got, dtype=np.complex128),
+                          np.asarray(want, dtype=np.complex128), len(got), what, tol)
+
+    # each item: () -> (the call, the check of its output)
+    def relu():  # tests/test_compare.py:58 at ci_deep
+        _, be, enc = ckks("ci_deep")
+        r = np.random.default_rng(3)
+        x = r.uniform(0.08, 0.9, size=64) * r.choice([-1.0, 1.0], size=64)
+        return (lambda: cmp.relu(be, enc(x, 4)), lambda o: close(
+            np.real(be.decrypt_decode(o)[:64]), np.maximum(x, 0.0), 0.02, "relu"))
+
+    def inverse():  # tests/test_approx.py:34 at ci_deep
+        params, be, enc = ckks("ci_deep")
+        x = np.random.default_rng(1).uniform(0.2, 1.0, size=params.slots)
+        return (lambda: approx.inverse(be, enc(x, 2), iters=5), lambda o: close(
+            np.real(be.decrypt_decode(o)) * x, np.ones_like(x), 5e-3, "inverse"))
+
+    def layer_norm():  # tests/test_approx.py:133 at ci_attn
+        slots = preset("ci_attn").slots
+        _, be, enc = ckks("ci_attn", approx.rotations_for_layernorm(slots, d), seed=30)
+        r = np.random.default_rng(31)
+        x = r.uniform(-1.0, 1.0, size=slots)
+        gamma, beta = r.uniform(0.5, 1.5, size=d), r.uniform(-0.3, 0.3, size=d)
+        blocks = x.reshape(-1, d)
+        want = ((blocks - blocks.mean(axis=1, keepdims=True))
+                / np.sqrt(blocks.var(axis=1, keepdims=True) + 5e-2) * gamma + beta).reshape(-1)
+        return (lambda: approx.layer_norm(be, enc(x, 32), d, eps=5e-2, gamma=gamma, beta=beta,
+                                          var_bound=1.0, iters=4),
+                lambda o: close(np.real(be.decrypt_decode(o)), want, 5e-2, "layer_norm"))
+
+    def cnn_item():  # tests/test_cnn.py:41 at ci_small, its plans from the blocks
+        r = np.random.default_rng(1)
+        kernels, bias = r.normal(size=(2, 1, 3, 3)) * 0.4, r.normal(size=2) * 0.2
+        dense_w, dense_b = r.normal(size=(4, 18)) * 0.3, r.normal(size=4) * 0.2
+        img = (r.normal(size=(1, 8, 8)) * 0.5).reshape(-1)
+        slots = preset("ci_small").slots
+        rots = mlp_rotations_for(cnn.compile_cnn(kernels, bias, (8, 8), dense_w, dense_b), slots)
+        _, be, enc = ckks("ci_small", rots)
+        net = cnn.EncryptedCNN(be, kernels, bias, (8, 8), dense_w, dense_b)
+        return (lambda: net(enc(img, 2)), lambda o: close(
+            np.real(be.decrypt_decode(o))[:4], net.reference(img), 1e-2, "cnn"))
+
+    def trainer():  # tests/test_logreg_train.py:61 at ci_small
+        slots = preset("ci_small").slots
+        _, be, enc = ckks("ci_small", logreg_train.train_rotations(slots), seed=7)
+        r = np.random.default_rng(0)
+        m, f = 32, 2
+        x = r.normal(size=(m, f))
+        y = (x @ r.normal(size=f) > 0).astype(np.float64)
+        tr = logreg_train.EncryptedLogRegTrainer(be, n_samples=m, lr=1.0)
+        w0 = np.zeros(f)
+        return (lambda: tr.fit([enc(np.full(slots, w0[j]), 30 + j) for j in range(f)],
+                               [enc(x[:, j], 10 + j) for j in range(f)], enc(y, 20), iters=1),
+                lambda o: close(np.array([np.real(be.decrypt_decode(w)[0]) for w in o]),
+                                tr.reference(w0, x, y, 1), 1e-3, "trainer step"))
+
+    def attention_item():  # tests/test_attention.py:36 at ci_attn
+        slots = preset("ci_attn").slots
+        _, be, enc = ckks("ci_attn", attention.attention_rotations(slots, d))
+        r = np.random.default_rng(1)
+        xs = r.uniform(-0.5, 0.5, size=(seq, d))
+        wq, wk, wv, wo = (r.uniform(-0.4, 0.4, size=(d, d)) for _ in range(4))
+        head = attention.EncryptedAttention(be, wq, wk, wv, wo=wo, seq_len=seq)
+        return (lambda: head(enc(xs, 2)), lambda o: close(
+            np.real(be.decrypt_decode(o))[:d],
+            attention.attention_reference(xs, wq, wk, wv, wo=wo), 2e-2, "attention"))
+
+    def transformer_item():  # tests/test_transformer.py:24 at ci_xf
+        slots = preset("ci_xf").slots
+        _, be, enc = ckks("ci_xf", transformer.transformer_rotations(slots, d))
+        r = np.random.default_rng(1)
+        xs = r.uniform(-0.5, 0.5, size=(seq, d))
+        att = tuple(r.uniform(-0.4, 0.4, size=(d, d)) for _ in range(4))
+        w1, w2 = r.uniform(-0.3, 0.3, size=(16, d)), r.uniform(-0.3, 0.3, size=(d, 16))
+        b1, b2 = r.uniform(-0.1, 0.1, size=16), r.uniform(-0.1, 0.1, size=d)
+        g1, g2 = (r.uniform(0.8, 1.2, size=d) for _ in range(2))
+        be1, be2 = (r.uniform(-0.2, 0.2, size=d) for _ in range(2))
+        block = transformer.EncryptedTransformerBlock(
+            be, att, (w1, b1, w2, b2), ln_weights=(g1, be1, g2, be2), seq_len=seq, ln_iters=5)
+        return (lambda: block(enc(xs, 2)), lambda o: close(
+            np.real(be.decrypt_decode(o))[:d], block.reference(xs), 5e-2, "transformer"))
+
+    def equals_plain():  # tests/test_exact_predicates.py:54 at bfv_eq: exact
+        params, be, enc = integer("bfv_eq", dbfv.keygen, BFVDeviceBackend, gbfv, dbfv, 51)
+        r = np.random.default_rng(3)
+        v, w = r.integers(0, 10, size=params.slots), r.integers(0, 10, size=params.slots)
+        return (lambda: ct_equals_plain(be, enc(v, 4), w), lambda o: exact_slots(
+            be.decrypt_decode(o), np.stack([v == w] * 2).astype(np.int64), "ct_equals_plain"))
+
+    def pir_item():  # tests/test_pir.py:12 at bgv_tiny, index 17: exact
+        rots = pir.pir_rotations(preset("bgv_tiny").slots)
+        params, be, enc = integer("bgv_tiny", dbgv.keygen, BGVDeviceBackend, gbgv, dbgv, 3, rots)
+        db = np.random.default_rng(4).integers(0, params.plain_modulus, size=(50, 8))
+        query = pir.encode_query(be, 17, 50)
+        return (lambda: pir.pir_retrieve(be, enc(query, 67), db), lambda o: exact_slots(
+            be.decrypt_decode(o)[0][:8], db[17], "pir_retrieve"))
+
+    def partial():  # tests/test_threshold.py:84 at tiny2, == the host partial
+        params = preset("tiny2")
+        ctx = make_context(params, device)
+        a = threshold.common_a(params, 7)
+        shares = [threshold.party_keygen(params, a, np.random.default_rng(100 + i))
+                  for i in range(3)]
+        pk = dkeys.upload_public_key(
+            threshold.aggregate_public_key(params, a, [s.b for s in shares]), params, ctx=ctx)
+        z = np.random.default_rng(8).uniform(-1, 1, size=params.slots)
+        ct = dct.encrypt(encoder.encode(z + 0j, params), params, pk, ctx,
+                         np.random.default_rng(9), params.scale)
+        s_mont = threshold.upload_share(shares[0], params, ctx=ctx)
+
+        def check(o):
+            exact(o.cpu(), torch.from_numpy(threshold.partial_decrypt(
+                ct, params, shares[0], np.random.default_rng(50))), "partial_decrypt_device")
+            return o.numel()
+        return (lambda: threshold.partial_decrypt_device(
+            ct, params, ctx, s_mont, shares[0], np.random.default_rng(50)), check)
+
+    def batched():  # tiny2, B = 3: each element == ct_mul_full of its pair
+        params = preset("tiny2")
+        ctx = make_context(params, device)
+        chest = dkeys.keygen(params, np.random.default_rng(0), ctx=ctx)
+        r = np.random.default_rng(1)
+        zs = [r.uniform(-1, 1, size=(2, params.slots)) for _ in range(3)]
+        pairs = [[dct.encrypt(encoder.encode(z[k] + 0j, params), params, chest.device_pk, ctx,
+                              np.random.default_rng(10 + 2 * i + k), params.scale)
+                  for k in range(2)] for i, z in enumerate(zs)]
+
+        def call():
+            return batch.unstack(batch.ct_mul_batched(
+                *(batch.stack([p[k] for p in pairs]) for k in range(2)), params, ctx,
+                chest.device_rlk))
+
+        def check(o):
+            for i, (got, (x, y)) in enumerate(zip(o, pairs)):
+                same_limbs(got, dct.ct_mul_full(x, y, params, ctx, chest.device_rlk),
+                           f"ct_mul_batched element {i} against ct_mul_full")
+            return max(close(dct.decrypt_decode(got, params, chest.device_sk, ctx), z[0] * z[1],
+                             DECODE_TOL, "ct_mul_batched") for got, z in zip(o, zs))
+        return call, check
+
+    items = {"compare.relu": relu, "approx.inverse": inverse, "approx.layer_norm": layer_norm,
+             "EncryptedCNN": cnn_item, "EncryptedLogRegTrainer step": trainer,
+             "EncryptedAttention": attention_item,
+             "EncryptedTransformerBlock": transformer_item,
+             "exact.ct_equals_plain": equals_plain, "pir_retrieve": pir_item,
+             "threshold.partial_decrypt_device": partial, "ct_mul_batched": batched}
+    outs, errs, per_item = {}, {}, {}
+    for name in names:
+        call, check = items[name]()
+        before, t = counts(), time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        per_item[name] = {k: v - before[k] for k, v in counts().items()}
+        per_item[name]["s"] = round(time.perf_counter() - t, 3)
+        outs[name] = out if isinstance(out, list) else [out]
+        errs[name] = check(out)
+    return outs, errs, per_item
+
+
+def same_outputs(got: dict, want: dict, what: str) -> int:
+    """Every output of models_ci_run == its twin: ciphertexts limb for limb,
+    tensors element for element. Returns how many were held."""
+    n = 0
+    for name, outs in got.items():
+        for i, (g, w) in enumerate(zip(outs, want[name], strict=True)):
+            if isinstance(g, torch.Tensor):
+                exact(g.cpu(), w.cpu(), f"{what} {name} [{i}]")
+            else:
+                same_limbs(g, w, f"{what} {name} [{i}]")
+            n += 1
+    return n
+
+
+def models_ci(dev, smi, counts, reset, launches: dict) -> dict:
+    """Path models_ci: the MODELS_CI_SMOKE items of models_ci_run on the card,
+    then on the CPU with the same keys and draws: every output == limb for
+    limb; each decoded within the tolerance of the reference's test. Returns
+    the launches per item."""
+    t = time.perf_counter()
+    reset()
+    outs, errs, per_item = models_ci_run(dev, counts)
+    launches["models_ci"] = counts()
+    for name, per in per_item.items():
+        if per["ntt"] <= 0:
+            raise AssertionError(f"models_ci {name}: K1 did not run ({per})")
+    if min(launches["models_ci"].values()) <= 0:
+        raise AssertionError(f"models_ci: a kernel did not run ({launches['models_ci']})")
+    say("models_ci", "on the card: " + "; ".join(
+        f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v} values exact"
+        for k, v in errs.items()) + f"; launches and seconds per item {per_item}  [{smi}]", t)
+    t = time.perf_counter()
+    n = same_outputs(outs, models_ci_run("cpu", counts)[0], "models_ci")
+    say("models_ci_check", f"{n} outputs of {len(outs)} items == the CPU path limb for limb "
+        f"({', '.join(outs)}); the other items ({', '.join(MODELS_CI_ITEMS[len(outs):])}) run "
+        f"card == CPU in tests/test_torch_kernels_gpu.py  [{smi}]", t)
+    return per_item
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -2016,6 +2644,19 @@ def main() -> None:
     # 10a. path "boot_h": the single-word bootstrap at config5_boot_h (its
     #      own keys, drawn after the flagship's were freed)
     boot_h = boot_h_path(dev, smi, counts, reset, launches, bounds)
+
+    # 10b. the models: "deep_mlp" (its own chest at config5_boot_dw, drawn after
+    #      boot_h's keys were freed), "mlp_n15" at N=2^15 and "models_ci"
+    gc.collect()
+    if torch.cuda.memory_allocated(dev) > 8 * 2**30:
+        raise AssertionError(f"{gib(torch.cuda.memory_allocated(dev))} still allocated: the "
+                             "boot_h path's chest outlived its path")
+    deep = deep_mlp_path(dev, smi, counts, reset, launches)
+    gc.collect()
+    ctx15 = make_context(preset(MLP_PRESET), dev)
+    bounds15 = Bounds(ctx15.n, ctx15.n1, ctx15.n2, mod_rate, rates["muladd"])
+    mlp = mlp_n15_path(dev, smi, counts, reset, launches, bounds15)
+    ci_items = models_ci(dev, smi, counts, reset, launches)
     ntt45 = ntt_work(qp, qp)
     s_up, t_up = params.alpha, qp
     conv_up = conv_work(s_up, t_up)
@@ -2142,6 +2783,22 @@ def main() -> None:
                 "shapes": {k: v for k, v in boot_h["shapes"].items()
                            if k.startswith(key)},
             },
+            # the models: launches, summed bound and device ms per steady
+            # forward of the MNIST MLP at config3_ckks (N=2^15) and this kernel
+            # alone at its shapes there; launches and device ms per steady
+            # forward of the deep MLP (two bootstraps); launches per item of
+            # models_ci
+            "mlp_n15": {
+                "launches_per_forward": mlp["per_forward"][key],
+                "bound_ms_per_forward": mlp["bound"][key][0],
+                "device_ms_per_forward": mlp["prof"]["per_group"][group],
+                "shapes": {k: v for k, v in mlp["shapes"].items() if k.startswith(key)},
+            },
+            "deep_mlp": {
+                "launches_per_forward": deep["per_forward"][key],
+                "device_ms_per_forward": deep["prof"]["per_group"][group],
+            },
+            "models_ci": {name: per[key] for name, per in ci_items.items()},
         })
     for mix in probes.MIXES:
         r, err, plain, n_launch = rate_rows[mix]
@@ -2190,6 +2847,16 @@ def main() -> None:
           f"{np.median(boot['event_ms']):.3f}); one profiled call {boot['busy_ms']:.3f} ms device "
           f"busy in {boot['span_ms']:.3f} ms of its own event time; max |dec - z| "
           f"{boot['max_err']:.3e}  [{smi}]", flush=True)
+    for what, m, record in (("mlp_n15", mlp, MLP_RECORD), ("deep_mlp", deep, DEEP_RECORD)):
+        ms = m["event_ms"]
+        print(f"# {what} path: device_keygen {m['keygen_s']:.2f} s ({m['keys']} Galois keys), "
+              f"plans {m['plan_s']:.2f} s, first forward {m['first_s']:.3f} s, steady forwards "
+              f"{[round(x, 3) for x in ms]} ms by CUDA events (median {np.median(ms):.3f}); one "
+              f"profiled forward {m['prof']['busy_ms']:.3f} ms device busy in "
+              f"{m['prof']['span_ms']:.3f} ms; launches per forward {m['per_forward']}; max "
+              f"|logit - reference| {m['max_err']!r} (the reference's record {record!r}); peak "
+              f"device memory " + ", ".join(f"{k} {gib(v)}" for k, v in m["peak"].items())
+              + f"  [{smi}]", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -98,13 +98,21 @@ def rotate_composed(be, ct, steps: int):
 
     Binary-decomposes `steps` (mod slots) into at most log2(slots)
     single-key rotations — the standard key-storage/latency trade against
-    holding a key per step."""
+    holding a key per step. Uses the backend's one-shot rotate where it has
+    one (the integer backends), as the reference does: a one-shot and a
+    hoisted rotation agree only up to multiples of Q in their limbs."""
+
+    def rot1(c, s):
+        if hasattr(be, "rotate"):
+            return be.rotate(c, s)
+        return be.rotate_hoisted(c, [s])[s]
+
     n_s = be.params.slots
     steps %= n_s
     s = 1
     while steps:
         if steps & 1:
-            ct = be.rotate_hoisted(ct, [s])[s]
+            ct = rot1(ct, s)
         steps >>= 1
         s *= 2
     return ct
@@ -121,16 +129,57 @@ class BsgsPlan:
 
     def __init__(self, be, a: np.ndarray, b: np.ndarray | None, level: int,
                  scale: float | None = None):
-        self.be = be
         n_s = be.params.slots
         assert a.shape == (n_s, n_s)
+        self._setup(be, b is not None, level, scale)
+        mats = ((a, False), (b, True)) if self.has_conj else ((a, False),)
+        self._encode([(lambda r, m=mat: _diag(m, r), is_conj) for mat, is_conj in mats])
+
+    @classmethod
+    def _from_block(cls, be, w: np.ndarray, level: int, scale: float | None = None):
+        """The plan of an (out, in) block w embedded at the top-left corner of
+        a zero slots x slots matrix, built from the block: diagonal r holds
+        w[j, (j + r) mod slots] at the rows j whose column falls inside the
+        block, and only the r = (k - i) mod slots of w's nonzero entries are
+        formed. No slots x slots matrix is built (at N=2^15 it would be 4.3 GB
+        of host memory per layer); the encoded diagonals are the dense
+        route's, handle for handle."""
+        n_s = be.params.slots
+        w = np.asarray(w, dtype=np.complex128)
+        out_d, in_d = w.shape
+        assert out_d <= n_s and in_d <= n_s, (w.shape, n_s)
+        plan = cls.__new__(cls)
+        plan._setup(be, False, level, scale)
+        i, k = np.nonzero(w)
+        diags = set(((k - i) % n_s).tolist())
+        rows = np.arange(out_d)
+
+        def diag(r):
+            if r not in diags:
+                return None
+            cols = (rows + r) % n_s
+            inside = cols < in_d
+            d = np.zeros(n_s, dtype=np.complex128)
+            d[rows[inside]] = w[rows[inside], cols[inside]]
+            return d
+
+        plan._encode([(diag, False)])
+        return plan
+
+    def _setup(self, be, has_conj: bool, level: int, scale: float | None):
+        self.be = be
+        n_s = be.params.slots
         self.g = max(1, math.isqrt(n_s))
         self.n_giant = math.ceil(n_s / self.g)
-        self.has_conj = b is not None
+        self.has_conj = has_conj
         self.level = level
-        scale = scale if scale is not None else be.params.scale
-        self.scale = scale
+        self.scale = scale if scale is not None else be.params.scale
 
+    def _encode(self, diag_fns):
+        """Encode rot_{-gG}(diag_r) for every nonzero diagonal r = gG + b of
+        each (diag_fn, is_conj): diag_fn(r) is diagonal r, or None where it
+        is known to be zero."""
+        n_s = self.be.params.slots
         j = np.arange(n_s)
         self.pt = {}  # (g_idx, b_idx, is_conj) -> encoded diagonal
         for gi in range(self.n_giant):
@@ -138,13 +187,14 @@ class BsgsPlan:
                 r = gi * self.g + bi
                 if r >= n_s:
                     break
-                for mat, is_conj in ((a, False), (b, True)) if self.has_conj else (
-                    (a, False),
-                ):
-                    d = _diag(mat, r)[(j - gi * self.g) % n_s]  # rot_{-gG}(diag_r)
+                for diag_fn, is_conj in diag_fns:
+                    dr = diag_fn(r)
+                    if dr is None:
+                        continue
+                    d = dr[(j - gi * self.g) % n_s]  # rot_{-gG}(diag_r)
                     if np.abs(d).max() == 0.0:
                         continue
-                    self.pt[(gi, bi, is_conj)] = be.encode_slots(d, scale, level)
+                    self.pt[(gi, bi, is_conj)] = self.be.encode_slots(d, self.scale, self.level)
 
     def apply(self, ct):
         be = self.be

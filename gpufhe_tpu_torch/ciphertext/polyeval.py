@@ -45,12 +45,21 @@ def _ones(be):
     return np.ones(be.params.slots, dtype=np.complex128)
 
 
+def _rescale_prod(be, from_level: int) -> float:
+    """The product of the primes a rescale from `from_level` divides by: the
+    backend's own where it has one, else the single top prime (a
+    single-word backend without the method)."""
+    if hasattr(be, "rescale_prod"):
+        return be.rescale_prod(from_level)
+    return float(be.params.q_primes[from_level - 1])
+
+
 def _align_to(be, ct, scale: float, level: int):
     """Bring ct to exactly (scale, level): one const-multiply + rescale."""
     w = be.params.scale_words
     assert ct.level >= level + w, (ct.level, level)
     ct = be.drop_to_level(ct, level + w)
-    s_x = scale * be.rescale_prod(ct.level) / ct.scale
+    s_x = scale * _rescale_prod(be, ct.level) / ct.scale
     pt = be.encode_slots(_ones(be), s_x, ct.level)
     if hasattr(be, "plain_mac"):  # fused: one dispatch (bit-exact)
         return be.plain_mac([(ct, pt)])
@@ -110,7 +119,7 @@ class ChebyshevEvaluator:
             assert target is not None or True
             w = be.params.scale_words
             lvl, s_t = (
-                (target[0] + w, target[1] * be.rescale_prod(target[0] + w))
+                (target[0] + w, target[1] * _rescale_prod(be, target[0] + w))
                 if target is not None
                 else (T[1].level, T[1].scale * delta)
             )
@@ -125,7 +134,7 @@ class ChebyshevEvaluator:
             s_t = max(ct.scale for ct, _ in terms) * delta
         else:
             lvl = target[0] + be.params.scale_words
-            s_t = target[1] * be.rescale_prod(lvl)
+            s_t = target[1] * _rescale_prod(be, lvl)
         assert all(be.level(ct) >= lvl for ct, _ in terms)
         pairs = []
         for ct, coeff in terms:
@@ -163,7 +172,7 @@ class ChebyshevEvaluator:
             # plaintext scales inside the q-branch absorb the adjustment
             lv = target[0] + be.params.scale_words
             assert T[m].level >= lv, (T[m].level, lv)
-            s_q = target[1] * be.rescale_prod(lv) / T[m].scale
+            s_q = target[1] * _rescale_prod(be, lv) / T[m].scale
             qv = self._eval(q, T, target=(lv, s_q))
             prod = be.mul(qv, be.drop_to_level(T[m], lv))
         rv = self._eval(r, T, target=(prod.level, prod.scale))

@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from gpufhe_tpu_torch.golden import ntt as gn
 from gpufhe_tpu_torch.ops.context import Context
 from gpufhe_tpu_torch.ops.modops import add_mod, mul_mod, neg_mod
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd
@@ -106,6 +107,44 @@ def sample_gauss(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
 def small_to_rns(small: np.ndarray, primes: tuple[int, ...]) -> np.ndarray:
     """Signed small poly int64[N] -> canonical residues int64[K, N]."""
     return np.remainder(small[None, :], np.asarray(primes, dtype=np.int64)[:, None])
+
+
+# ---------------------------------------------------------------------------
+# Host NTT helpers over limb stacks (numpy, the reference's golden ones): the
+# host code of ciphertext/threshold.py runs on them
+# ---------------------------------------------------------------------------
+
+
+def _psis(params: CKKSParams, primes: tuple[int, ...]) -> tuple[int, ...]:
+    lookup = dict(zip(params.q_primes + params.p_primes, params.psi))
+    return tuple(lookup[q] for q in primes)
+
+
+def ntt_limbs(x: np.ndarray, params: CKKSParams, primes: tuple[int, ...]) -> np.ndarray:
+    psis = _psis(params, primes)
+    return np.stack([gn.ntt_fwd(x[i], primes[i], psis[i]) for i in range(len(primes))])
+
+
+def intt_limbs(x: np.ndarray, params: CKKSParams, primes: tuple[int, ...]) -> np.ndarray:
+    psis = _psis(params, primes)
+    return np.stack([gn.ntt_inv(x[i], primes[i], psis[i]) for i in range(len(primes))])
+
+
+def _pointwise(op, a: np.ndarray, b: np.ndarray, primes: tuple[int, ...]) -> np.ndarray:
+    q = np.array(primes, dtype=np.int64)[:, None]
+    return op(a, b) % q
+
+
+def poly_add(a, b, primes):
+    return _pointwise(lambda x, y: x + y, a, b, primes)
+
+
+def poly_sub(a, b, primes):
+    return _pointwise(lambda x, y: x - y, a, b, primes)
+
+
+def poly_mul(a, b, primes):
+    return _pointwise(lambda x, y: x * y, a, b, primes)  # eval-domain pointwise
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from gpufhe_tpu_torch.ciphertext.batch import CiphertextBatch
 from gpufhe_tpu_torch.ciphertext.bfv import BFVCiphertext, BFVKeyChest
 from gpufhe_tpu_torch.ciphertext.bgv import BGVCiphertext, BGVKeyChest
 from gpufhe_tpu_torch.ciphertext.ct import Ciphertext
+from gpufhe_tpu_torch.ciphertext.threshold import PartyShare
 from gpufhe_tpu_torch.golden import ckks as gckks
 from gpufhe_tpu_torch.keys.device_keygen import DeviceKeyChest
 from gpufhe_tpu_torch.keys.keys import (DeviceKSKey, DevicePublicKey, DeviceSecretKey,
@@ -54,6 +56,21 @@ def ciphertext_from_numpy(components, level: int, scale: float, device="cuda") -
 def ciphertext_to_numpy(ct: Ciphertext) -> tuple[list[np.ndarray], int, float]:
     """Port Ciphertext -> (int64 limb arrays, level, scale) for the reference."""
     return [c.cpu().numpy() for c in ct.c], ct.level, ct.scale
+
+
+def batch_from_numpy(components, level: int, scale: float, device="cuda") -> CiphertextBatch:
+    """Reference CiphertextBatch limbs (one [B, K, N] array per component) ->
+    CiphertextBatch."""
+    comps = [_tensor(c, device) for c in components]
+    if any(c.dim() != 3 or c.shape[1] != level for c in comps):
+        raise ValueError(f"components are not [B, {level}, N] stacks")
+    return CiphertextBatch(comps, level, float(scale))
+
+
+def party_share_from_reference(share) -> PartyShare:
+    """A reference threshold PartyShare (numpy s and b) as the port's."""
+    return PartyShare(s=np.asarray(share.s).astype(np.int64),
+                      b=np.asarray(share.b).astype(np.int64))
 
 
 def integer_ciphertext_from_numpy(components, level: int, pt_factor: int | None = None,

@@ -23,6 +23,15 @@ from gpufhe_tpu_torch.ops.modops import mont_mul
 from gpufhe_tpu_torch.params.params import CKKSParams
 
 
+def _mont_np(x: np.ndarray, primes, lead_axes: int = 0) -> torch.Tensor:
+    """Host canonical int64[..., L, N] -> its Montgomery form x * 2^32 mod q
+    as an int64 tensor on the host (the reference's helper of this name,
+    whose result is a device array: callers move this one to their device)."""
+    q = np.asarray(primes, dtype=np.int64).reshape((1,) * lead_axes + (-1, 1))
+    x = np.asarray(x, dtype=np.int64)
+    return torch.from_numpy(x * ((1 << 32) % q) % q)
+
+
 class DevicePublicKey(NamedTuple):
     b_mont: torch.Tensor  # int64[L, N] NTT domain, Montgomery
     a_mont: torch.Tensor  # int64[L, N]
@@ -46,9 +55,12 @@ def default_context(params: CKKSParams, ctx: Context | None) -> Context:
 
 
 def mont_form(x: torch.Tensor, ctx: Context) -> torch.Tensor:
-    """Canonical int64[..., L, N] over the chain prefix -> x * 2^32 mod q."""
+    """Canonical int64[..., L, N] over the chain prefix (on any device: the
+    chest keeps canonical keys on the host) -> x * 2^32 mod q on ctx's
+    device."""
     rows = range(x.shape[-2])
-    return mont_mul(x, ctx.col("r2", rows), ctx.col("q", rows), ctx.col("qinv_neg", rows))
+    return mont_mul(x.to(ctx.device), ctx.col("r2", rows), ctx.col("q", rows),
+                    ctx.col("qinv_neg", rows))
 
 
 def upload_public_key(pk: gckks.PublicKey, params: CKKSParams, *,

@@ -36,8 +36,12 @@ def test_scan_covers_the_port():
     assert "gpufhe_tpu_torch/keys/prng.py" in names
     assert "gpufhe_tpu_torch/keys/device_keygen.py" in names
     for module in ("backend", "linalg", "fftboot", "polyeval", "bootstrap", "bgv", "bfv",
-                   "bgv_backend", "bfv_backend"):
+                   "bgv_backend", "bfv_backend", "approx", "compare", "exact", "batch",
+                   "threshold"):
         assert f"gpufhe_tpu_torch/ciphertext/{module}.py" in names
+    for module in ("__init__", "linear", "mlp", "cnn", "logreg", "logreg_train", "pir",
+                   "attention", "transformer"):
+        assert f"gpufhe_tpu_torch/models/{module}.py" in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gpufhe_tpu_torch.ciphertext import ct as dct
 from gpufhe_tpu_torch.encoding import encoder
 from gpufhe_tpu_torch.keys import device_keygen as dkg
@@ -422,3 +423,112 @@ def test_device_keygen_on_card_equals_cpu(cuda_device):
     assert card.drop_galois_a() == 3
     assert card.regen_galois_a(make_context(params, cuda_device)) == 3
     assert torch.equal(card.galois_key(5).a_mont, want)
+
+
+# --- the MNIST MLP's shapes at config3_ckks (N = 2^15, 12 q-limbs, alpha 3,
+#     dnum 4) and a model forward -----------------------------------------------
+
+
+@pytest.mark.parametrize("rows,batch", [(15, 4), (12, 2), (15, 2), (12, 1)])
+def test_ntt_kernel_at_the_mlp_n15_shapes(cuda_device, rows, batch):
+    """K1 at N = 2^15: the hoist's 4 raised digits over Q+P (15 limbs), both
+    accumulators over Q+P, both components over Q and one, fwd and inv."""
+    params = preset("config3_ckks")
+    ctx = make_context(params, cuda_device)
+    sel = list(range(rows))
+    idx = ctx.index(sel, torch.int32)
+    x = torch.from_numpy(_rand(ctx.primes, sel * batch, params.n, 12)).to(cuda_device)
+    for inverse in (False, True):
+        assert torch.equal(ntt_cuda.fourstep_cuda(x, idx, ctx, inverse),
+                           ntt_cuda.fourstep_plain(x, idx, ctx, inverse))
+
+
+@pytest.mark.parametrize("which", ["modup", "moddown"])
+def test_convert_kernel_at_the_mlp_n15_shapes(cuda_device, which):
+    """config3_ckks at its top level: ModUp 3 -> 15 for every group and
+    ModDown 3 -> 12, random and x = q - 1, == plain."""
+    params = preset("config3_ckks")
+    level, alpha = params.num_limbs, len(params.p_primes)
+    ksc = rns.make_ks_context(params, level, cuda_device)
+    primes = params.q_primes + params.p_primes
+    cases = ([(ksc.modup[g], range(d0, d1)) for g, (d0, d1) in
+              enumerate(rns.ks_groups(params, level))] if which == "modup"
+             else [(ksc.p2q, range(level, level + alpha))])
+    for tabs, rows in cases:
+        assert tabs.dq.numel() == (level + alpha if which == "modup" else level)
+        x = torch.from_numpy(_rand(primes, rows, params.n, 13)).to(cuda_device)
+        top = (tabs.sq[:, None] - 1).expand(alpha, params.n).contiguous()
+        for data in (x, top):
+            assert torch.equal(convert_cuda.base_convert_cuda(data, tabs),
+                               convert_cuda.base_convert_plain(data, tabs))
+
+
+def test_mac_kernel_at_the_mlp_n15_shape(cuda_device):
+    """K4 at D = 4 x T = 15 against a key stored over the full chain, with a
+    rotation's automorphism folded in, == plain."""
+    params = preset("config3_ckks")
+    ctx = make_context(params, cuda_device)
+    level = params.num_limbs
+    rows = ctx.index(keyswitch.key_row_index(params, level, ctx.num_total), torch.int32)
+    chain_rows = keyswitch.qp_indices(params, level)
+    chain = ctx.index(chain_rows, torch.int32)
+    x = torch.from_numpy(np.stack([_rand(ctx.primes, chain_rows, params.n, 14 + d)
+                                   for d in range(params.dnum)])).to(cuda_device)
+    y0, y1 = (torch.from_numpy(np.stack([_rand(ctx.primes, range(ctx.num_total), params.n, s + d)
+                                         for d in range(params.dnum)])).to(cuda_device)
+              for s in (30, 50))
+    perm = dct.galois_perm(5, ctx, torch.int32)
+    assert len(chain_rows) == 15 and params.dnum == 4
+    assert torch.equal(mac_cuda.mac_cuda(x, y0, y1, rows, chain, ctx, perm),
+                       mac_cuda.mac_plain(x, y0, y1, rows, chain, ctx, perm))
+
+
+def test_mlp_forward_on_card_equals_cpu_path(cuda_device):
+    """A two-layer EncryptedMLP at ci_small (its plans built from the
+    blocks): the card's logits ciphertext == the CPU path's limb for limb,
+    and it decodes within 1e-2 of the cleartext forward
+    (tests/test_models_utils.py:73)."""
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.models.mlp import EncryptedMLP, mlp_rotations_for
+
+    params = preset("ci_small")
+    rng = np.random.default_rng(1)
+    layers = [(rng.normal(size=(8, 12)) * 0.3, rng.normal(size=8) * 0.3),
+              (rng.normal(size=(4, 8)) * 0.3, rng.normal(size=4) * 0.3)]
+    x = rng.normal(size=12) * 0.5
+    z = np.zeros(params.slots, dtype=np.complex128)
+    z[:12] = x
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        ctx = make_context(params, dev)
+        chest = dkeys.keygen(params, np.random.default_rng(0),
+                             tuple(mlp_rotations_for(layers, params.slots)), ctx=ctx)
+        be = DeviceBackend(params, ctx, chest)
+        model = EncryptedMLP(be, layers)
+        ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                         np.random.default_rng(2), params.scale)
+        outs.append((be, model, model(ct)))
+    (be, model, card), (_, _, cpu) = outs
+    assert (card.level, card.scale) == (cpu.level, cpu.scale)
+    for g, c in zip(card.c, cpu.c):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
+    got = np.real(be.decrypt_decode(card)[:4])
+    assert np.abs(got - model.reference(x)).max() < 1e-2
+
+
+@pytest.mark.parametrize("name", chip_smoke.MODELS_CI_ITEMS)
+def test_models_ci_item_on_card_equals_cpu(cuda_device, name):
+    """Each library and model item of chip_smoke.py's models_ci (at the
+    preset and on the inputs of the reference's test) on the card and on the
+    CPU with the same keys and draws: every output == limb for limb, decoded
+    within the reference test's tolerance (or exact), K1 launched on the
+    card. The smoke runs MODELS_CI_SMOKE of them; this runs all."""
+    kernels = (ntt_cuda.KERNEL, convert_cuda.KERNEL, mac_cuda.KERNEL)
+
+    def counts():
+        return dict(zip(("ntt", "convert", "mac"), (k.launches for k in kernels)))
+
+    card, _, per = chip_smoke.models_ci_run(cuda_device, counts, (name,))
+    cpu, _, _ = chip_smoke.models_ci_run("cpu", counts, (name,))
+    assert chip_smoke.same_outputs(card, cpu, "card against CPU") >= 1
+    assert per[name]["ntt"] > 0

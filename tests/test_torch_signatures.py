@@ -276,3 +276,79 @@ def test_device_keygen_called_the_reference_way_equals_reference(cpu_by_default)
     assert cpu_by_default == [params]
     assert (got.galois_key(1).a_mont.numpy() == np.asarray(want.galois_key(1).a_mont)).all()
     assert (got.conj_key().b_mont.numpy() == np.asarray(want.conj_key().b_mont)).all()
+
+
+# --- the function libraries and the models: every public name of each
+#     reference module, with its parameters ----------------------------------
+
+LIBRARIES = ["ciphertext.approx", "ciphertext.compare", "ciphertext.exact",
+             "ciphertext.batch", "ciphertext.threshold", "models.linear", "models.mlp",
+             "models.cnn", "models.logreg", "models.logreg_train", "models.pir",
+             "models.attention", "models.transformer"]
+# the reference's parameters first, then keyword-only extras with defaults
+LIBRARY_EXTENDED = {("ciphertext.threshold", "upload_share")}
+
+
+def _modules(path):
+    import importlib
+
+    return (importlib.import_module(f"gpufhe_tpu_torch.{path}"),
+            importlib.import_module(f"gpufhe_tpu.{path}"))
+
+
+def _public(module) -> dict:
+    """The functions and classes a module defines whose names are public."""
+    return {name: obj for name, obj in vars(module).items()
+            if not name.startswith("_") and (inspect.isfunction(obj) or inspect.isclass(obj))
+            and obj.__module__ == module.__name__}
+
+
+def _callables(obj) -> dict:
+    """A function, or a class's __init__ and public methods and properties."""
+    if inspect.isfunction(obj):
+        return {"": obj}
+    out = {name: f for name, f in vars(obj).items()
+           if inspect.isfunction(f) and (not name.startswith("_") or name == "__init__")}
+    out.update({name: p.fget for name, p in vars(obj).items() if isinstance(p, property)})
+    return out
+
+
+LIBRARY_NAMES = [(path, name) for path in LIBRARIES for name in _public(_modules(path)[1])]
+
+
+@pytest.mark.parametrize("path", LIBRARIES)
+def test_library_modules_define_the_reference_names(path):
+    port, ref = _modules(path)
+    assert sorted(_public(port)) == sorted(_public(ref))
+
+
+@pytest.mark.parametrize("path,name", LIBRARY_NAMES, ids=lambda x: x)
+def test_library_signatures_match_the_reference(path, name):
+    import dataclasses
+
+    port, ref = (getattr(m, name) for m in _modules(path))
+    if dataclasses.is_dataclass(ref):
+        assert ([f.name for f in dataclasses.fields(port)]
+                == [f.name for f in dataclasses.fields(ref)])
+    pc, rc = _callables(port), _callables(ref)
+    assert sorted(pc) == sorted(rc)
+    for key, rf in rc.items():
+        p = list(inspect.signature(pc[key]).parameters.values())
+        r = list(inspect.signature(rf).parameters.values())
+        if (path, name) in LIBRARY_EXTENDED:
+            extras = p[len(r):]
+            assert extras and all(x.kind is inspect.Parameter.KEYWORD_ONLY
+                                  and x.default is not inspect.Parameter.empty
+                                  for x in extras)
+            p = p[: len(r)]
+        assert [(x.name, x.kind, x.default) for x in p] == [
+            (x.name, x.kind, x.default) for x in r], f"{name}.{key}"
+
+
+def test_models_package_exports_the_reference_names():
+    import gpufhe_tpu.models as rmodels
+    import gpufhe_tpu_torch.models as pmodels
+
+    names = lambda m: sorted(n for n in vars(m) if not n.startswith("_")  # noqa: E731
+                             and not inspect.ismodule(getattr(m, n)))
+    assert names(pmodels) == names(rmodels)
