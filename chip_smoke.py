@@ -6,7 +6,7 @@
 Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
 against its plain PyTorch version on the card: K1 (NTT), K3 (base
 conversion), K4 (key-switch MAC), and the two probes, the integer rate (P2)
-and the K1 ablation builds (P1). Then it drives twelve paths through the
+and the K1 ablation builds (P1). Then it drives seventeen paths through the
 package's entry points, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -101,6 +101,32 @@ and read just after:
           draws, every output == limb for limb, each decoded within its
           reference test's tolerance; tests/test_torch_kernels_gpu.py runs
           every item of MODELS_CI_ITEMS the same way.
+  session_ckks the Session facade (gpufhe_tpu_torch.api) at config5_boot:
+          Session.create(rotations=(1,), seed), two unit-disk vectors
+          encrypted at the preset's 2^28, mul, add, mul_plain, add_plain,
+          rotate 1, rescale and level, each decrypted (the rotation gated at
+          SESSION_ROT_TOL, the others at DECODE_TOL); each op timed by CUDA
+          events, mul, add and rotate in turns with the call below the
+          Session (the facade's own cost), beside phase timing's;
+  session_bfv Session.create(bfv_n16, scheme="bfv", rotations=(1,)):
+          encrypt, mul, add and rotate 1, each decrypt exact in all 65536
+          slots, noise_budget falling after the multiply;
+  session_ci Sessions at CI size (SESSION_CI_SMOKE: CKKS at tiny2 and BFV
+          at bfv_tiny with the BSGS keys and a matmul each, a 3-party
+          ThresholdSession at tiny2 through its combine) on the card and on
+          the CPU, every output == limb for limb; tests/test_torch_kernels_gpu.py
+          runs every item of SESSION_CI_ITEMS (BGV at bgv_tiny and
+          Session.bootstrap at boot_dw_ci_enc too) the same way;
+  session_io Session.save and save_ct of session_ckks's session (the
+          reference's npz format, written in a background thread beside
+          session_bfv and session_ci), then Session.load and load_ct on the
+          card: the loaded ciphertexts and their decrypts == the originals,
+          the loaded session's mul == the original's limb for limb; seconds
+          and bytes of each file;
+  cli     python -m gpufhe_tpu_torch.cli in process: security at
+          config5_boot_dw, keygen at tiny2 loaded by Session.load on the
+          card, kernels at config5_boot (each row beside its bound), and
+          demo-bfv and demo-mlp on the card == with --cpu.
 
 Each path's ciphertexts are checked == the same path on the CPU and decoded
 against the cleartext result; the kernels and stage leaves are timed with
@@ -132,6 +158,8 @@ import time
 import numpy as np
 import torch
 
+from gpufhe_tpu_torch.utils.benchkit import HBM_BYTES_PER_S, Bounds
+
 BUDGET_S = 300  # the whole run, builds included
 PRESET = "config5_boot"
 DW_PRESET = "config5_boot_dw"
@@ -146,7 +174,6 @@ ROTATIONS = (1, 3)
 # rotation from the scheme's noise. (The multiply's key switch runs at the
 # product's scale 2^56 and is rescaled away.)
 ROT_SCALE_BITS = 40
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM peak outside the tensor cores (float32 rate): the bound of the
 # integer-rate probe's own rows; the kernels' bounds use the measured rates
 ALU_OPS_PER_S = 67e12
@@ -399,102 +426,6 @@ def timed_keygen(params, rots, ctx) -> tuple:
     stop.record()
     torch.cuda.synchronize()
     return chest, keygen_s, start.elapsed_time(stop), 2 * len(shapes)
-
-
-class Bounds:
-    """The least time the card could take for each kernel launch's work, at
-    this run's shapes and rates: the larger of the bytes (each input read
-    once, each output written once) at HBM_BYTES_PER_S and the operations
-    the function needs: modular products of 30-bit residues (and reductions
-    of a 64-bit sum) at the best modular rate measured by P2 (shoup32), and
-    32 x 32 -> 64-bit multiply-adds at the muladd rate. Modular additions
-    are not counted. Sums of products below 2^60 stay unreduced for up to
-    16 terms (below 2^64), so a sum of m terms needs ceil(m / 16)
-    reductions.
-    K1 needs its data and, per selected prime, q, mu, the n1/2 + n2/2 roots
-    of its two passes, the n1 psi1 twists and the n1 + 2 n2 twiddle
-    factors; a negacyclic NTT of N points needs N/2 log N products (the
-    twist merged into the butterflies' roots, no four-step twiddle).
-    K3 needs its data and tables; per coefficient, v_i = x_i Qhat_i^-1 once
-    per source limb (S N products), then per destination S multiply-adds
-    and ceil(S / 16) reductions.
-    K4 needs x, its key stacks, its outputs and per row q, mu, qinv_neg and
-    two indices (a permutation: N more words); per output, D multiply-adds,
-    ceil(D / 16) reductions and one REDC.
-    A work is (bytes, modular products, multiply-adds)."""
-
-    def __init__(self, n: int, n1: int, n2: int, mod_rate: float, muladd_rate: float):
-        self.n, self.n1, self.n2 = n, n1, n2
-        self.mod_rate, self.muladd_rate = mod_rate, muladd_rate
-
-    @staticmethod
-    def _reductions(terms):
-        return -(-terms // 16)
-
-    def ntt(self, rows, limbs):
-        n, n1, n2 = self.n, self.n1, self.n2
-        per_prime = 2 + n1 // 2 + n2 // 2 + n1 + n1 + 2 * n2
-        nbytes = 8 * (2 * rows * n + limbs * per_prime) + 4 * limbs
-        return nbytes, rows * (n // 2) * (n.bit_length() - 1), 0
-
-    def conv(self, s_dim, t_dim):
-        n = self.n
-        nbytes = 8 * (s_dim * n + t_dim * n + 3 * s_dim + 2 * t_dim + s_dim * t_dim)
-        return nbytes, s_dim * n + t_dim * n * self._reductions(s_dim), s_dim * t_dim * n
-
-    def mac(self, d_dim, t_dim, permuted=False, outs=2):
-        n = self.n
-        nbytes = (8 * n * ((1 + outs) * d_dim * t_dim + outs * t_dim) + 32 * t_dim
-                  + 4 * n * permuted)
-        return (nbytes, outs * t_dim * n * (self._reductions(d_dim) + 1),
-                outs * d_dim * t_dim * n)
-
-    def ms(self, nbytes, nmod, nmuladd) -> tuple[float, str]:
-        b = nbytes / HBM_BYTES_PER_S * 1e3
-        o = (nmod / self.mod_rate + nmuladd / self.muladd_rate) * 1e3
-        return (b, "bytes") if b >= o else (o, "operations")
-
-    def record(self, fn) -> dict:
-        """Call fn once with the three kernels' wrappers recording the work of
-        each launch: {"ntt": [work, ...], "convert": [...], "mac": [...]}."""
-        from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda
-
-        seen = {"ntt": [], "convert": [], "mac": []}
-        real = (ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda)
-
-        def ntt_rec(x, idx_, ctx_, inverse, kernel=ntt_cuda.KERNEL):
-            seen["ntt"].append(self.ntt(x.shape[0], idx_.numel()))
-            return real[0](x, idx_, ctx_, inverse, kernel)
-
-        def conv_rec(x, tabs):
-            seen["convert"].append(self.conv(x.shape[0], tabs.dq.numel()))
-            return real[1](x, tabs)
-
-        def mac_rec(x, y0, y1, rows, chain, ctx_, perm=None, out=None):
-            seen["mac"].append(self.mac(x.shape[0], x.shape[1], perm is not None,
-                                        1 if y1 is None else 2))
-            return real[2](x, y0, y1, rows, chain, ctx_, perm, out)
-
-        ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = (
-            ntt_rec, conv_rec, mac_rec)
-        try:
-            fn()
-        finally:
-            ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = real
-        return seen
-
-    def report(self, what: str, fn) -> dict:
-        """Print each kernel's summed bound over one call of fn; returns
-        {kernel: (bound ms, launches)}."""
-        out = {}
-        for key, work in self.record(fn).items():
-            ms = sum(self.ms(*w)[0] for w in work)
-            out[key] = (ms, len(work))
-            print(f"bound per {what} {key}: {ms:.4f} ms over {len(work)} launches, "
-                  f"{sum(w[0] for w in work) / 1e6:.2f} MB, "
-                  f"{sum(w[1] for w in work) / 1e6:.1f} M modular products, "
-                  f"{sum(w[2] for w in work) / 1e6:.1f} M multiply-adds", flush=True)
-        return out
 
 
 def boot_ci_path(dev, counts, reset, launches: dict) -> None:
@@ -2190,6 +2121,388 @@ def models_ci(dev, smi, counts, reset, launches: dict) -> dict:
     return per_item
 
 
+# The Session facade at N=2^16: config5_boot (CKKS) and bfv_n16 (BFV), through
+# gpufhe_tpu_torch.api as a user would call it. Session.encrypt encrypts at the
+# preset's Delta = 2^28, where a rotation's key switch decodes off by 0.068 in
+# the reference's golden model as in the port (ROT_SCALE_BITS above;
+# tests/test_torch_rotation_noise.py), above DECODE_TOL for any input. A wrong
+# rotation (the wrong slot) is off by about 1 on unit-disk slots, so the
+# session's rotation is gated below SESSION_ROT_TOL, ten times that noise's
+# scale below a wrong slot.
+SESSION_ROT_TOL = 0.1
+# session_ci runs SESSION_CI_SMOKE; tests/test_torch_kernels_gpu.py runs every
+# item of SESSION_CI_ITEMS card == CPU (with all five the smoke ran past 270 s of its
+# budget on an H100 80GB HBM3 whose host ran the earlier CPU checks slowly)
+SESSION_CI_SMOKE = ("ckks tiny2", "bfv bfv_tiny", "threshold tiny2")
+SESSION_CI_ITEMS = SESSION_CI_SMOKE + ("bgv bgv_tiny", "bootstrap boot_dw_ci_enc")
+
+
+def session_ckks(dev, smi, counts, reset, launches: dict, times: dict) -> dict:
+    """Path session_ckks: Session.create(PRESET, rotations=(1,), seed=SEED) on
+    the card, two unit-disk vectors encrypted, mul, add, mul_plain,
+    add_plain, rotate(ct, 1), rescale (of the raw plaintext product, ==
+    mul_plain's result) and level, each decrypted; then each op timed by
+    CUDA events beside the lower-level call's time from phase timing."""
+    from gpufhe_tpu_torch.api import Session
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ops import probes
+
+    t = time.perf_counter()
+    reset()
+    t0 = time.perf_counter()
+    s = Session.create(PRESET, rotations=(1,), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    slots, top = s.params.slots, s.params.num_limbs
+    zr = np.random.default_rng(SEED + 40)
+    za, zb = unit_disk(zr, slots), unit_disk(zr, slots)
+    t0 = time.perf_counter()
+    ca = s.encrypt(za)
+    torch.cuda.synchronize()
+    encrypt_s = time.perf_counter() - t0
+    cb = s.encrypt(zb)
+    pt = s.be.encode_slots(zb, s.params.scale, s.level(ca))
+    ops = {
+        "mul": (lambda: s.mul(ca, cb), za * zb),
+        "add": (lambda: s.add(ca, cb), za + zb),
+        "mul_plain": (lambda: s.mul_plain(ca, zb), za * zb),
+        "add_plain": (lambda: s.add_plain(ca, zb), za + zb),
+        "rotate": (lambda: s.rotate(ca, 1), np.roll(za, -1)),
+        "rescale": (lambda: s.rescale(s.be.mul_plain(ca, pt)), za * zb),
+    }
+    outs = {name: op() for name, (op, _) in ops.items()}
+    levels = {name: s.level(o) for name, o in outs.items()}
+    want_levels = {"mul": top - 1, "add": top, "mul_plain": top - 1, "add_plain": top,
+                   "rotate": top, "rescale": top - 1}
+    if levels != want_levels:
+        raise AssertionError(f"session levels {levels}, not {want_levels}")
+    same_limbs(outs["rescale"], outs["mul_plain"], "session rescale of the plaintext product")
+    errs, decrypt_s = {}, []
+    for name, (_, want) in ops.items():
+        t0 = time.perf_counter()
+        got = s.decrypt(outs[name])
+        decrypt_s.append(time.perf_counter() - t0)
+        tol = SESSION_ROT_TOL if name == "rotate" else DECODE_TOL
+        errs[name] = decode_err(got, want, slots, f"session {name}", tol)
+    launches["session_ckks"] = counts()
+    if min(launches["session_ckks"].values()) <= 0:
+        raise AssertionError(f"session_ckks: a kernel did not run ({launches['session_ckks']})")
+    say("session_ckks", f"Session.create({PRESET!r}, rotations=(1,), seed={SEED}) {create_s:.2f} "
+        f"s, encrypt {encrypt_s:.3f} s, decrypt {np.median(decrypt_s):.3f} s (median); max |dec "
+        "- want| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (< {DECODE_TOL}; rotate < {SESSION_ROT_TOL}, the rotation's own noise at 2^"
+        f"{s.params.scale_bits} being 0.068); levels {levels}; launches "
+        f"{launches['session_ckks']}  [{smi}]", t)
+    t = time.perf_counter()
+    op_ms = {name: probes.cuda_ms(op, iters=10) for name, (op, _) in ops.items()}
+    # the facade's own cost: each op and the call it makes below the Session,
+    # timed here in turns (lower, Session, Session, lower; medians), beside
+    # the lower-level time of phase timing
+    key1 = {1: s.chest.galois_key(1)}
+    lower = {
+        "mul": ("ct_mul_full", lambda: dct.ct_mul_full(ca, cb, s.params, s.ctx,
+                                                       s.chest.device_rlk)),
+        "add": ("ct_add", lambda: dct.ct_add(ca, cb, s.ctx)),
+        "rotate": ("ct_rotate_hoisted [1]",
+                   lambda: dct.ct_rotate_hoisted(ca, [1], s.params, s.ctx, key1)),
+    }
+    turns = {}
+    for name, (_, low) in lower.items():
+        a, b, c, d = (probes.cuda_ms(f, iters=10) for f in (low, ops[name][0], ops[name][0], low))
+        turns[name] = (float(np.median([a, d])), float(np.median([b, c])))
+    phase_ms = {"mul": ("ct_mul_full", times["mul_full"]), "rotate": ("ct_rotate", times["ct_rotate"])}
+    say("session_timing", "ms per op by CUDA events: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in op_ms.items()) + "; in turns, Session against the call "
+        "below it: " + ", ".join(
+            f"{k} {turns[k][1]:.4f} against {low_name} {turns[k][0]:.4f} (facade "
+            f"{turns[k][1] - turns[k][0]:+.4f})" for k, (low_name, _) in lower.items())
+        + "; phase timing's " + ", ".join(f"{n} {v:.4f}" for n, v in phase_ms.values())
+        + f"  [{smi}]", t)
+    return {"session": s, "cts": (ca, cb), "prod": outs["mul"], "errs": errs, "op_ms": op_ms,
+            "turns": turns, "create_s": create_s}
+
+
+def session_save(sess: dict) -> dict:
+    """Start Session.save and save_ct of session_ckks's session and two
+    ciphertexts in a background thread, into a temporary directory: zlib
+    over ~220 MB of keys on the host, which overlaps the card's next paths
+    (session_bfv, session_ci). session_io joins it."""
+    import os
+    import tempfile
+    import threading
+
+    s, (ca, cb) = sess["session"], sess["cts"]
+    tmp = tempfile.TemporaryDirectory()
+    job = {"tmp": tmp, "secs": {}, "error": None,
+           "paths": {"session": os.path.join(tmp.name, "session.npz"),
+                     "ct_a": os.path.join(tmp.name, "ct_a.npz"),
+                     "ct_b": os.path.join(tmp.name, "ct_b.npz")}}
+
+    def save():
+        try:
+            t0 = time.perf_counter()
+            s.save(job["paths"]["session"])
+            job["secs"]["save"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            s.save_ct(job["paths"]["ct_a"], ca)
+            job["secs"]["save_ct"] = time.perf_counter() - t0
+            s.save_ct(job["paths"]["ct_b"], cb)
+        except BaseException as e:  # re-raised by session_io
+            job["error"] = e
+
+    job["thread"] = threading.Thread(target=save, name="session_save")
+    job["thread"].start()
+    return job
+
+
+def session_io(dev, smi, counts, reset, launches: dict, sess: dict, job: dict) -> dict:
+    """Path session_io: session_save's files (the reference's npz format)
+    loaded on the card (Session.load, load_ct): the loaded ciphertexts ==
+    the originals limb for limb, their decrypts == the originals', and the
+    loaded session's mul of them == the original's (the multiply draws
+    nothing, so this holds the re-uploaded keys ==)."""
+    import os
+
+    from gpufhe_tpu_torch.api import Session
+
+    t = time.perf_counter()
+    job["thread"].join()
+    waited = time.perf_counter() - t
+    if job["error"] is not None:
+        raise job["error"]
+    s, (ca, cb), paths, secs = sess["session"], sess["cts"], job["paths"], job["secs"]
+    with job["tmp"]:
+        sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+        reset()
+        t0 = time.perf_counter()
+        r = Session.load(paths["session"], device=dev)
+        torch.cuda.synchronize()
+        secs["load"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ca2 = r.load_ct(paths["ct_a"])
+        torch.cuda.synchronize()
+        secs["load_ct"] = time.perf_counter() - t0
+        cb2 = r.load_ct(paths["ct_b"])
+    if r.scheme != s.scheme or r.params != s.params:
+        raise AssertionError("the loaded session's scheme or parameters differ")
+    same_limbs(ca2, ca, "load_ct a")
+    same_limbs(cb2, cb, "load_ct b")
+    if not (r.decrypt(ca2) == s.decrypt(ca)).all():
+        raise AssertionError("the loaded session decrypts the loaded ciphertext differently")
+    prod = r.mul(ca2, cb2)
+    same_limbs(prod, sess["prod"], "the loaded session's mul")
+    launches["session_io"] = counts()
+    if min(launches["session_io"].values()) <= 0:
+        raise AssertionError(f"session_io: a kernel did not run ({launches['session_io']})")
+    say("session_io", "save / load " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+        + f" (the saves in a background thread beside session_bfv and session_ci; "
+        f"{waited:.2f} s waited for it here); files " + ", ".join(
+            f"{k} {v / 2**20:.1f} MiB" for k, v in sizes.items())
+        + "; loaded ciphertexts == the originals, their decrypts ==, the loaded session's mul "
+        f"== the original's limb for limb; launches {launches['session_io']}  [{smi}]", t)
+    return {"secs": secs, "sizes": sizes, "waited": waited}
+
+
+def session_bfv(dev, smi, counts, reset, launches: dict) -> dict:
+    """Path session_bfv: Session.create(INT_PRESET, scheme="bfv",
+    rotations=(1,)) on the card (config5_boot's chain, t = 786433): encrypt,
+    mul, add and rotate(ct, 1) of two random slot-ring pairs mod t, each
+    decrypt exact in all N slots; noise_budget (host, the secret key) falls
+    after the multiply."""
+    from gpufhe_tpu_torch.api import Session
+
+    t = time.perf_counter()
+    reset()
+    t0 = time.perf_counter()
+    s = Session.create(INT_PRESET, scheme="bfv", rotations=(1,), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    tmod, slots = s.params.plain_modulus, s.params.slots
+    vr = np.random.default_rng(SEED + 50)
+    va, vb = (vr.integers(0, tmod, size=(2, slots), dtype=np.int64) for _ in range(2))
+    ca, cb = s.encrypt(va), s.encrypt(vb)
+    outs = {"encrypt": ca, "mul": s.mul(ca, cb), "add": s.add(ca, cb), "rotate": s.rotate(ca, 1)}
+    want = {"encrypt": va, "mul": va * vb % tmod, "add": (va + vb) % tmod,
+            "rotate": np.roll(va, -1, axis=1)}
+    n = {name: exact_slots(s.decrypt(o), want[name], f"session_bfv {name}")
+         for name, o in outs.items()}
+    t0 = time.perf_counter()
+    budgets = [s.noise_budget(ca), s.noise_budget(outs["mul"])]
+    budget_s = (time.perf_counter() - t0) / 2
+    if not budgets[1] < budgets[0]:
+        raise AssertionError(f"session_bfv: noise_budget did not fall after mul: {budgets}")
+    if s.level(outs["mul"]) != s.level(ca):
+        raise AssertionError("session_bfv: the BFV multiply changed the level")
+    launches["session_bfv"] = counts()
+    if min(launches["session_bfv"].values()) <= 0:
+        raise AssertionError(f"session_bfv: a kernel did not run ({launches['session_bfv']})")
+    say("session_bfv", f"Session.create({INT_PRESET!r}, scheme='bfv', rotations=(1,)) "
+        f"{create_s:.2f} s; encrypt, mul, add, rotate 1 each exact in "
+        + ", ".join(f"{k} {v}" for k, v in n.items()) + f" slots; noise_budget {budgets[0]:.2f} "
+        f"-> {budgets[1]:.2f} bits after mul ({budget_s:.2f} s each on the host); launches "
+        f"{launches['session_bfv']}  [{smi}]", t)
+    return {"budgets": budgets, "create_s": create_s}
+
+
+def session_ci_run(device, counts, names=SESSION_CI_SMOKE) -> tuple[dict, dict, dict]:
+    """The named Session items at CI size on `device`, keys and draws from
+    numpy seeds (the same host draws on every device): ({item: [outputs]},
+    {item: decode error, or the slots held exact}, {item: launches})."""
+    from gpufhe_tpu_torch.api import Session, ThresholdSession
+
+    def session_ops(name, scheme):
+        s = Session.create(name, scheme=scheme, rotations="bsgs", seed=3, device=device)
+        rng = np.random.default_rng(4)
+        if scheme == "ckks":
+            va, vb = rng.uniform(-1, 1, size=(2, s.params.slots))
+            a_mat = rng.uniform(-0.5, 0.5, size=(s.params.slots, s.params.slots))
+        else:
+            tmod = s.params.plain_modulus
+            va, vb = rng.integers(0, tmod, size=(2, s.params.slots), dtype=np.int64)
+            a_mat = rng.integers(0, tmod, size=(s.params.slots, s.params.slots))
+        ca, cb = s.encrypt(va), s.encrypt(vb)
+        outs = [ca, cb, s.mul(ca, cb), s.add(ca, cb), s.sub(ca, cb), s.mul_plain(ca, vb),
+                s.add_plain(ca, vb), s.rotate(ca, 1), s.rescale(s.mul(ca, cb)),
+                s.matmul(ca, a_mat)]
+
+        def check(outs):
+            got = s.decrypt(outs[2])
+            if scheme == "ckks":
+                return decode_err(got, va * vb, s.params.slots, f"session_ci {name} mul")
+            return exact_slots(got[0], va * vb % s.params.plain_modulus, f"session_ci {name}")
+        return outs, check
+
+    def threshold():
+        ts = ThresholdSession.create_threshold("tiny2", n_parties=3, rotations=(1,),
+                                               device=device)
+        v = np.random.default_rng(5).uniform(-0.5, 0.5, size=ts.params.slots)
+        ct = ts.encrypt(v)
+        out = ts.rotate(ts.mul(ct, ct), 1)
+        partials = [ts.partial_decrypt(out, i, np.random.default_rng(20 + i)) for i in range(3)]
+        outs = [ct, out, *(torch.from_numpy(p) for p in partials)]
+
+        def check(outs):
+            got = ts.combine(outs[1], [p.numpy() for p in outs[2:]])
+            return decode_err(got, np.roll(v * v, -1), ts.params.slots, "session_ci combine")
+        return outs, check
+
+    def bootstrap():
+        s = Session.create(BOOT_CI_PRESET, bootstrap={
+            "transform": "factored", "radix_log": BOOT_RADIX, "evalmod": "cheb",
+            "k_bound": BOOT_CI_K_BOUND}, seed=7, device=device)
+        zr = np.random.default_rng(0)
+        z = (zr.normal(size=s.params.slots) + 1j * zr.normal(size=s.params.slots)) * 0.2
+        ct = s.encrypt(z, level=s.params.scale_words)
+        outs = [ct, s.bootstrap(ct)]
+
+        def check(outs):
+            return decode_err(s.decrypt(outs[1]), z, s.params.slots, "session_ci bootstrap",
+                              BOOT_TOL)
+        return outs, check
+
+    items = {
+        "ckks tiny2": lambda: session_ops("tiny2", "ckks"),
+        "bgv bgv_tiny": lambda: session_ops("bgv_tiny", "bgv"),
+        "bfv bfv_tiny": lambda: session_ops("bfv_tiny", "bfv"),
+        "threshold tiny2": threshold,
+        "bootstrap boot_dw_ci_enc": bootstrap,
+    }
+    outs, errs, per_item = {}, {}, {}
+    for name in names:
+        before = counts()
+        outs[name], check = items[name]()
+        per_item[name] = {k: v - before[k] for k, v in counts().items()}
+        errs[name] = check(outs[name])
+    return outs, errs, per_item
+
+
+def session_ci(dev, smi, counts, reset, launches: dict) -> dict:
+    """Path session_ci: SESSION_CI_SMOKE on the card, then on the CPU with
+    the same keys and draws: every output == limb for limb."""
+    t = time.perf_counter()
+    reset()
+    outs, errs, per_item = session_ci_run(dev, counts)
+    launches["session_ci"] = counts()
+    if min(launches["session_ci"].values()) <= 0:
+        raise AssertionError(f"session_ci: a kernel did not run ({launches['session_ci']})")
+    say("session_ci", "on the card: " + "; ".join(
+        f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v} slots exact"
+        for k, v in errs.items()) + f"; launches per item {per_item}  [{smi}]", t)
+    t = time.perf_counter()
+    n = same_outputs(outs, session_ci_run("cpu", counts)[0], "session_ci")
+    say("session_ci_check", f"{n} outputs of {len(outs)} items ({', '.join(outs)}) == the CPU "
+        f"path limb for limb; the other items ({', '.join(SESSION_CI_ITEMS[len(outs):])}) run "
+        f"card == CPU in tests/test_torch_kernels_gpu.py  [{smi}]", t)
+    return per_item
+
+
+def cli_phase(dev, smi, counts, reset, launches: dict, bounds: Bounds, params) -> list:
+    """Path cli: python -m gpufhe_tpu_torch.cli's subcommands, in process:
+    security at config5_boot_dw; keygen at tiny2, its file loaded by
+    Session.load on the card; kernels at PRESET on the card, each row beside
+    its bound (utils/benchkit.py, the smoke's own Bounds class), the byte-bound
+    rows' bounds == this run's Bounds at the same shapes; demo-bfv and
+    demo-mlp at their default presets on the card == with --cpu (no times in
+    their lines)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from gpufhe_tpu_torch import cli
+    from gpufhe_tpu_torch.api import Session
+
+    def run(*argv) -> list[dict]:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(list(argv))
+        return [json.loads(line) for line in out.getvalue().splitlines()]
+
+    t = time.perf_counter()
+    reset()
+    (sec,) = run("security", "--preset", "config5_boot_dw")
+    print(f"cli security: {json.dumps(sec)}", flush=True)
+    if sec["security_bits"] < 128:
+        raise AssertionError(f"cli security: config5_boot_dw reaches {sec['security_bits']} bits")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "keys.npz")
+        (kg,) = run("keygen", "--preset", "tiny2", "--out", path, "--rotations", "1")
+        s = Session.load(path, device=dev)
+    z = np.random.default_rng(SEED + 60).uniform(-1, 1, size=s.params.slots)
+    kg_err = decode_err(s.decrypt(s.rotate(s.encrypt(z), 1)), np.roll(z, -1), s.params.slots,
+                        "cli keygen file, Session.load, rotate")
+    rows = run("kernels", "--preset", PRESET)
+    for row in rows:
+        print(f"cli kernels {PRESET}: {json.dumps(row)}  [{smi}]", flush=True)
+    L = params.num_limbs
+    own = {"ntt_fwd": bounds.ms(*bounds.ntt(L, L)), "ntt_inv": bounds.ms(*bounds.ntt(L, L))}
+    for row in rows:
+        if row["kernel"] in own and own[row["kernel"]][1] == "bytes" == row["bound_by"]:
+            if round(own[row["kernel"]][0], 5) != row["bound_ms"]:
+                raise AssertionError(f"cli kernels {row['kernel']}: bound {row['bound_ms']} is "
+                                     f"not the smoke's {own[row['kernel']][0]:.5f}")
+    demos = {}
+    for cmd in ("demo-bfv", "demo-mlp"):
+        card_line, cpu_line = run(cmd), run("--cpu", cmd)
+        if card_line != cpu_line:
+            raise AssertionError(f"cli {cmd}: the card's line {card_line} is not the CPU's "
+                                 f"{cpu_line}")
+        demos[cmd] = card_line[0]
+        print(f"cli {cmd}: {json.dumps(card_line[0])} (== --cpu)", flush=True)
+    launches["cli"] = counts()
+    if not (demos["demo-bfv"]["matvec_exact"] and demos["demo-bfv"]["mult_exact"]):
+        raise AssertionError(f"cli demo-bfv is not exact: {demos['demo-bfv']}")
+    if demos["demo-mlp"]["max_abs_err"] >= DECODE_TOL:
+        raise AssertionError(f"cli demo-mlp off by {demos['demo-mlp']['max_abs_err']}")
+    say("cli", f"security {sec['security_bits']} bits (log QP {sec['log_qp']}); keygen "
+        f"{kg['preset']} -> Session.load on the card, rotate decoded within {kg_err:.3e}; "
+        f"kernels at {PRESET}: " + ", ".join(
+            f"{r['kernel']} {r['ms']:.4f} ms ({r['x_bound']}x its {r['bound_ms']:.5f} ms bound)"
+            for r in rows) + f"; demo-bfv, demo-mlp card == --cpu; launches {launches['cli']}"
+        f"  [{smi}]", t)
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -2657,6 +2970,19 @@ def main() -> None:
     bounds15 = Bounds(ctx15.n, ctx15.n1, ctx15.n2, mod_rate, rates["muladd"])
     mlp = mlp_n15_path(dev, smi, counts, reset, launches, bounds15)
     ci_items = models_ci(dev, smi, counts, reset, launches)
+
+    # 10c. the Session facade and the CLI: "session_ckks" and "session_io" at
+    #      PRESET, "session_bfv" at INT_PRESET, "session_ci" (card == CPU at CI
+    #      size), "cli" (the subcommands, in process)
+    gc.collect()
+    sess = session_ckks(dev, smi, counts, reset, launches, times)
+    saving = session_save(sess)
+    sess_bfv = session_bfv(dev, smi, counts, reset, launches)
+    sess_ci = session_ci(dev, smi, counts, reset, launches)
+    io_stats = session_io(dev, smi, counts, reset, launches, sess, saving)
+    sess_stats = {k: sess[k] for k in ("create_s", "op_ms", "turns", "errs")}
+    del sess, saving  # the config5_boot session's keys
+    cli_rows = cli_phase(dev, smi, counts, reset, launches, bounds, params)
     ntt45 = ntt_work(qp, qp)
     s_up, t_up = params.alpha, qp
     conv_up = conv_work(s_up, t_up)
@@ -2799,6 +3125,11 @@ def main() -> None:
                 "device_ms_per_forward": deep["prof"]["per_group"][group],
             },
             "models_ci": {name: per[key] for name, per in ci_items.items()},
+            # the Session facade: launches per path (session_ckks, session_io at
+            # PRESET, session_bfv at INT_PRESET) and per session_ci item
+            "session": {**{p: launches[p][key]
+                           for p in ("session_ckks", "session_io", "session_bfv", "cli")},
+                        "session_ci": {name: per[key] for name, per in sess_ci.items()}},
         })
     for mix in probes.MIXES:
         r, err, plain, n_launch = rate_rows[mix]
@@ -2857,6 +3188,19 @@ def main() -> None:
               f"|logit - reference| {m['max_err']!r} (the reference's record {record!r}); peak "
               f"device memory " + ", ".join(f"{k} {gib(v)}" for k, v in m["peak"].items())
               + f"  [{smi}]", flush=True)
+    print(f"# session paths: Session.create at {PRESET} {sess_stats['create_s']:.2f} s, ms per op "
+          "by CUDA events " + ", ".join(f"{k} {v:.4f}" for k, v in sess_stats["op_ms"].items())
+          + " (in turns, Session / the call below it: " + ", ".join(
+              f"{k} {v[1]:.4f} / {v[0]:.4f}" for k, v in sess_stats["turns"].items())
+          + f"; phase timing's ct_mul_full {times['mul_full']:.4f}, ct_rotate "
+          f"{times['ct_rotate']:.4f}); decode errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sess_stats["errs"].items())
+          + "; save/load " + ", ".join(f"{k} {v:.2f} s" for k, v in io_stats["secs"].items())
+          + ", files " + ", ".join(f"{k} {v} bytes" for k, v in io_stats["sizes"].items())
+          + f"; at {INT_PRESET} (BFV) Session.create {sess_bfv['create_s']:.2f} s, noise_budget "
+          f"{sess_bfv['budgets'][0]:.2f} -> {sess_bfv['budgets'][1]:.2f} bits; cli kernels rows "
+          + ", ".join(f"{r['kernel']} {r['ms']} ms / bound {r['bound_ms']} ms" for r in cli_rows)
+          + f"  [{smi}]", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -20,6 +20,12 @@ same path under the other package:
                the Chebyshev evaluator and the CKKS Bootstrapper; BGV
                (bgv.py) and BFV (bfv.py: the BEHZ multiply, scheme
                switching) and their linalg backends
+  models/      the encrypted models (MLP, CNN, logistic regression and its
+               trainer, PIR, attention, the transformer block)
+  utils/       serialization (the reference's npz format), security
+               estimates, noise reports, profiling, kernel bounds
+  api          Session and ThresholdSession, the facade over all of it
+  cli          python -m gpufhe_tpu_torch.cli
   interop      carrying gpufhe_tpu state (numpy arrays) into this package
 
 Residues are int64 tensors holding canonical values in [0, q) for primes
@@ -30,3 +36,6 @@ kernel. This package imports neither jax nor gpufhe_tpu.
 """
 
 __version__ = "0.1.0"
+
+from gpufhe_tpu_torch.params.params import CKKSParams, make_context  # noqa: F401
+from gpufhe_tpu_torch.api import Session  # noqa: F401

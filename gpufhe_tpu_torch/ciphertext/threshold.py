@@ -46,13 +46,6 @@ from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul
 from gpufhe_tpu_torch.params.params import CKKSParams
 
 
-def _host(x) -> np.ndarray:
-    """A limb array (a tensor on any device, or numpy) as int64 numpy."""
-    if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
-    return np.asarray(x).astype(np.int64)
-
-
 def _tensor(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64))
 
@@ -300,7 +293,7 @@ def partial_decrypt(
         e = t * e
     e_ntt = gckks.ntt_limbs(gckks.small_to_rns(e, primes), params, primes)
     return gckks.poly_add(
-        gckks.poly_mul(_host(ct.c[1]), s_ntt, primes), e_ntt, primes
+        gckks.poly_mul(gckks.host_limbs(ct.c[1]), s_ntt, primes), e_ntt, primes
     )
 
 
@@ -310,9 +303,9 @@ def combine_partials(ct, params: CKKSParams, partials: list) -> np.ndarray:
     Interpret per scheme: CKKS -> golden decode(., ct.scale); BGV ->
     centered mod t (times pt_factor); BFV -> round(t x / Q) mod t."""
     primes = params.q_primes[: ct.level]
-    acc = _host(ct.c[0])
+    acc = gckks.host_limbs(ct.c[0])
     for p in partials:
-        acc = gckks.poly_add(acc, _host(p), primes)
+        acc = gckks.poly_add(acc, gckks.host_limbs(p), primes)
     return gckks.intt_limbs(acc, params, primes)
 
 

@@ -1,8 +1,8 @@
 """Host side of BFV: the auxiliary basis, Delta, the rounding decode.
 
 Counterpart of the host parts of gpufhe_tpu/golden/bfv.py (bfv_aux_params,
-_ckks_view, delta_rns, round_decode_coeff, and the aliases of its packing
-and keys). BFV keys are CKKS keys (errors not times t) and its slots are
+_ckks_view, delta_rns, round_decode_coeff, _inner_product_centered,
+noise_budget_bits, and the aliases of its packing and keys). BFV keys are CKKS keys (errors not times t) and its slots are
 BGV's (golden/bgv.py); the message rides the top bits, c0 + c1 s = Delta m
 + e (mod Q) with Delta = floor(Q / t), and decryption rounds t x / Q.
 """
@@ -97,3 +97,26 @@ def round_decode_coeff(centered, t: int, big_q: int) -> np.ndarray:
     half up (Python's floor division does so for negative x too)."""
     return np.array([((int(x) * t * 2 + big_q) // (2 * big_q)) % t for x in centered],
                     dtype=np.int64)
+
+
+def _inner_product_centered(ct, params: CKKSParams, sk):
+    """(centred big-integer coefficients of c0 + sum c_i s^i, big_q)."""
+    primes = params.q_primes[: ct.level]
+    coeff = gckks.inner_product_coeff(ct, params, sk.s)
+    return gckks.crt_compose_centered(coeff, primes), math.prod(primes)
+
+
+def noise_budget_bits(ct, params: CKKSParams, sk) -> float:
+    """log2(Delta / (2*|e|_inf)): bits of rounding margin left. `ct` is any
+    BFV ciphertext (the device one, its components on any device, or numpy
+    limbs)."""
+    t = params.plain_modulus
+    centered, big_q = _inner_product_centered(ct, params, sk)
+    m = round_decode_coeff(centered, t, big_q)
+    delta = big_q // t
+    worst = 0
+    for x, mm in zip(centered, m):
+        e = int(x) - delta * int(mm)
+        e = ((e + big_q // 2) % big_q) - big_q // 2  # centre mod Q
+        worst = max(worst, abs(e))
+    return math.log2(delta / (2 * worst)) if worst else float("inf")

@@ -2,7 +2,7 @@
 
 Counterpart of the host parts of gpufhe_tpu/golden/bgv.py (encode, decode,
 slot_rotation_perm, slot_orbit_rings, keygen, make_relin_key,
-make_galois_key). Slots are integers mod the plaintext modulus t (prime,
+make_galois_key, noise_budget_bits). Slots are integers mod the plaintext modulus t (prime,
 t = 1 mod 2N), packed by the exact negacyclic NTT mod t on the host
 (golden/ntt.py), so BGV and BFV share this packing. BGV's keys are CKKS's
 with every error drawn times t, in the reference's draw order; as in
@@ -13,6 +13,7 @@ the context's device.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 
@@ -106,3 +107,21 @@ def make_galois_key(params: CKKSParams, steps: int, sk: gckks.SecretKey,
                     rng: np.random.Generator, ctx: Context) -> gckks.KSKey:
     """Gadget rows b_d = -a s + t e + g_d sigma_g(s) for the rotation by `steps`."""
     return gckks.make_galois_key(params, steps, sk, rng, ctx, params.plain_modulus)
+
+
+# ---------------------------------------------------------------------------
+# Noise budget (diagnostic: reads the secret key)
+# ---------------------------------------------------------------------------
+
+
+def noise_budget_bits(ct, params: CKKSParams, sk) -> float:
+    """log2(Q / (2*|m + t*e|_inf)): bits of headroom before t*e wraps Q.
+
+    Decryption fails once the centred inner product |m + t*e| reaches Q/2.
+    `ct` is any BGV ciphertext (the device one, its components on any
+    device, or numpy limbs)."""
+    primes = params.q_primes[: ct.level]
+    centered = gckks.crt_compose_centered(gckks.inner_product_coeff(ct, params, sk.s), primes)
+    big_q = math.prod(primes)
+    worst = max(abs(int(x)) for x in centered)
+    return math.log2(big_q / (2 * worst)) if worst else float("inf")

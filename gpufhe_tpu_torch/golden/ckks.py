@@ -147,6 +147,27 @@ def poly_mul(a, b, primes):
     return _pointwise(lambda x, y: x * y, a, b, primes)  # eval-domain pointwise
 
 
+def host_limbs(x) -> np.ndarray:
+    """A limb array (a tensor on any device, or numpy) as int64 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x).astype(np.int64)
+
+
+def inner_product_coeff(ct, params: CKKSParams, s: np.ndarray) -> np.ndarray:
+    """c0 + sum_k c_k s^k in the coefficient domain, int64[level, N], on the
+    host: the decryption's inner product over the ciphertext's primes, for
+    any scheme's ciphertext (its components on any device, or numpy)."""
+    primes = params.q_primes[: ct.level]
+    s_ntt = ntt_limbs(small_to_rns(s, primes), params, primes)
+    acc = host_limbs(ct.c[0])
+    s_pow = s_ntt
+    for comp in ct.c[1:]:
+        acc = poly_add(acc, poly_mul(host_limbs(comp), s_pow, primes), primes)
+        s_pow = poly_mul(s_pow, s_ntt, primes)
+    return intt_limbs(acc, params, primes)
+
+
 # ---------------------------------------------------------------------------
 # Keys (canonical, NTT domain, on the context's device)
 # ---------------------------------------------------------------------------

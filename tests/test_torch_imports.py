@@ -1,8 +1,13 @@
 """The port stands alone: no file of gpufhe_tpu_torch/, and not chip_smoke.py,
-imports jax or gpufhe_tpu (gpufhe_tpu/__init__.py pulls in jax through api.py)."""
+imports jax or gpufhe_tpu (gpufhe_tpu/__init__.py pulls in jax through api.py);
+`import gpufhe_tpu_torch` exports Session, CKKSParams and make_context and
+builds nothing, needs no card, and loads neither jax nor the reference."""
 
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -42,6 +47,24 @@ def test_scan_covers_the_port():
     for module in ("__init__", "linear", "mlp", "cnn", "logreg", "logreg_train", "pir",
                    "attention", "transformer"):
         assert f"gpufhe_tpu_torch/models/{module}.py" in names
+    for module in ("api", "cli", "__init__"):
+        assert f"gpufhe_tpu_torch/{module}.py" in names
+    for module in ("__init__", "serialization", "security", "noise", "profiling", "benchkit"):
+        assert f"gpufhe_tpu_torch/utils/{module}.py" in names
+
+
+def test_package_import_builds_nothing_and_needs_no_card():
+    build = ROOT / "gpufhe_tpu_torch" / "csrc" / "build"
+    before = sorted(build.iterdir()) if build.exists() else []
+    code = ("import sys, gpufhe_tpu_torch as g; "
+            "assert g.Session.__module__ == 'gpufhe_tpu_torch.api'; "
+            "assert g.CKKSParams.__module__ == 'gpufhe_tpu_torch.params.params'; "
+            "assert g.make_context.__module__ == 'gpufhe_tpu_torch.params.params'; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpufhe_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
+                   env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT)})
+    assert (sorted(build.iterdir()) if build.exists() else []) == before
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -532,3 +532,50 @@ def test_models_ci_item_on_card_equals_cpu(cuda_device, name):
     cpu, _, _ = chip_smoke.models_ci_run("cpu", counts, (name,))
     assert chip_smoke.same_outputs(card, cpu, "card against CPU") >= 1
     assert per[name]["ntt"] > 0
+
+
+@pytest.mark.parametrize("name", chip_smoke.SESSION_CI_ITEMS)
+def test_session_ci_item_on_card_equals_cpu(cuda_device, name):
+    """Each Session item of chip_smoke.py's session_ci (a CKKS, BGV and BFV
+    Session with the BSGS keys through every op and a matmul, a 3-party
+    ThresholdSession through its combine, Session.bootstrap at
+    boot_dw_ci_enc) on the card and on the CPU with the same seeds: every
+    output == limb for limb, decoded within its tolerance (or exact), K1,
+    K3 and K4 launched on the card."""
+    kernels = (ntt_cuda.KERNEL, convert_cuda.KERNEL, mac_cuda.KERNEL)
+
+    def counts():
+        return dict(zip(("ntt", "convert", "mac"), (k.launches for k in kernels)))
+
+    card, _, per = chip_smoke.session_ci_run(cuda_device, counts, (name,))
+    cpu, _, _ = chip_smoke.session_ci_run("cpu", counts, (name,))
+    assert chip_smoke.same_outputs(card, cpu, "card against CPU") >= 2
+    assert min(per[name].values()) > 0
+
+
+@pytest.mark.parametrize("scheme", ["ckks", "bgv", "bfv"])
+def test_session_save_load_on_card_equals_cpu(cuda_device, scheme, tmp_path):
+    """A Session saved on the card loads on the CPU and back: the keys and a
+    ciphertext round-trip, and the loaded sessions' multiplies == limb for
+    limb on both devices."""
+    from gpufhe_tpu_torch.api import Session
+
+    name = {"ckks": "tiny2", "bgv": "bgv_tiny", "bfv": "bfv_tiny"}[scheme]
+    s = Session.create(name, scheme=scheme, rotations=(1,), seed=9, device=cuda_device)
+    rng = np.random.default_rng(10)
+    if scheme == "ckks":
+        v = rng.uniform(-1, 1, size=s.params.slots)
+    else:
+        v = rng.integers(0, s.params.plain_modulus, size=s.params.slots, dtype=np.int64)
+    ct = s.encrypt(v)
+    s.save(tmp_path / "s.npz")
+    s.save_ct(tmp_path / "ct.npz", ct)
+    cpu = Session.load(tmp_path / "s.npz", device="cpu")
+    card = Session.load(tmp_path / "s.npz", device=cuda_device)
+    outs = []
+    for sess in (card, cpu):
+        c = sess.load_ct(tmp_path / "ct.npz")
+        chip_smoke.same_limbs(c, ct, f"{scheme} load_ct")
+        outs.append(sess.rotate(sess.mul(c, c), 1))
+    chip_smoke.same_limbs(outs[0], outs[1], f"{scheme} loaded mul and rotate")
+    chip_smoke.same_limbs(outs[0], s.rotate(s.mul(ct, ct), 1), f"{scheme} against the original")

@@ -9,7 +9,10 @@ name; keygen (CKKS, BGV, BFV), the three uploads, make_context and
 device_keygen taking the reference's parameters first, in its order with
 its defaults, and only keyword-only extras with defaults (ctx, err_factor,
 device), each also called the reference's way and == the reference; the
-fields of CKKSParams and of the four key chests in the reference's order."""
+fields of CKKSParams and of the four key chests in the reference's order;
+the public surface (api.py Session and ThresholdSession with their class
+methods, cli.py and its subcommands' arguments and defaults, utils/*) name
+for name and parameter for parameter, the port's extras keyword-only."""
 
 import inspect
 
@@ -352,3 +355,129 @@ def test_models_package_exports_the_reference_names():
     names = lambda m: sorted(n for n in vars(m) if not n.startswith("_")  # noqa: E731
                              and not inspect.ismodule(getattr(m, n)))
     assert names(pmodels) == names(rmodels)
+
+
+# --- the public surface: Session / ThresholdSession, the CLI, the utilities ----
+
+SURFACE = ["api", "cli", "utils.serialization", "utils.security", "utils.noise",
+           "utils.profiling", "utils.benchkit"]
+# names only the port has: the card's bounds, which chip_smoke.py and
+# bench_all share (the reference's benchkit holds a TPU's peaks instead)
+SURFACE_EXTRAS = {"utils.benchkit": {"Bounds", "measured_bounds"}}
+# the reference's parameters first, then keyword-only extras with defaults
+# (device: where a session lives; ctx: where a loader uploads)
+SURFACE_EXTENDED = {("api", "Session", "create"), ("api", "Session", "load"),
+                    ("api", "ThresholdSession", "create_threshold"),
+                    ("utils.serialization", "load_keychest", ""),
+                    ("utils.serialization", "load_device_keychest", ""),
+                    ("utils.serialization", "load_ciphertext", ""),
+                    ("utils.benchkit", "bench_all", "")}
+
+
+def _surface_callables(obj) -> dict:
+    """A function, or a class's __init__ and its public methods, class and
+    static methods (unwrapped) and properties."""
+    if inspect.isfunction(obj):
+        return {"": obj}
+    out = {}
+    for name, f in vars(obj).items():
+        if name.startswith("_") and name != "__init__":
+            continue
+        if isinstance(f, (classmethod, staticmethod)):
+            out[name] = f.__func__
+        elif inspect.isfunction(f):
+            out[name] = f
+        elif isinstance(f, property):
+            out[name] = f.fget
+    return out
+
+
+SURFACE_NAMES = [(path, name) for path in SURFACE for name in _public(_modules(path)[1])]
+
+
+@pytest.mark.parametrize("path", SURFACE)
+def test_surface_modules_define_the_reference_names(path):
+    port, ref = _modules(path)
+    assert sorted(set(_public(port)) - SURFACE_EXTRAS.get(path, set())) == sorted(_public(ref))
+    assert SURFACE_EXTRAS.get(path, set()) <= set(_public(port))
+
+
+@pytest.mark.parametrize("path,name", SURFACE_NAMES, ids=lambda x: x)
+def test_surface_signatures_match_the_reference(path, name):
+    import dataclasses
+
+    port, ref = (getattr(m, name) for m in _modules(path))
+    if dataclasses.is_dataclass(ref):
+        assert ([f.name for f in dataclasses.fields(port)]
+                == [f.name for f in dataclasses.fields(ref)])
+    pc, rc = _surface_callables(port), _surface_callables(ref)
+    assert sorted(pc) == sorted(rc)
+    for key, rf in rc.items():
+        p = list(inspect.signature(pc[key]).parameters.values())
+        r = list(inspect.signature(rf).parameters.values())
+        if (path, name, key) in SURFACE_EXTENDED:
+            extras = p[len(r):]
+            assert extras and all(x.kind is inspect.Parameter.KEYWORD_ONLY
+                                  and x.default is not inspect.Parameter.empty
+                                  for x in extras), f"{name}.{key}"
+            p = p[: len(r)]
+        assert [(x.name, x.kind, x.default) for x in p] == [
+            (x.name, x.kind, x.default) for x in r], f"{name}.{key}"
+
+
+def test_threshold_session_extends_session_as_the_reference_does():
+    from gpufhe_tpu import api as rapi
+    from gpufhe_tpu_torch import api as papi
+
+    assert issubclass(papi.ThresholdSession, papi.Session)
+    assert [c.__name__ for c in papi.ThresholdSession.__mro__] == [
+        c.__name__ for c in rapi.ThresholdSession.__mro__]
+    assert papi.ThresholdSession.shares is None is rapi.ThresholdSession.shares
+
+
+def test_package_and_utils_export_the_reference_names():
+    import gpufhe_tpu.utils as rutils
+    import gpufhe_tpu_torch
+    import gpufhe_tpu_torch.utils as putils
+
+    names = lambda m: sorted(n for n in vars(m) if not n.startswith("_")  # noqa: E731
+                             and not inspect.ismodule(getattr(m, n)))
+    assert names(putils) == names(rutils)
+    for name in ("CKKSParams", "make_context", "Session"):
+        assert getattr(gpufhe_tpu_torch, name).__name__ == name
+
+
+def test_cli_subcommands_and_arguments_match_the_reference(monkeypatch):
+    """Every subcommand of the reference's CLI but bench and scaling, with
+    the reference's arguments and defaults; the global --cpu flag, not
+    --cache (XLA's compile cache)."""
+    import argparse
+
+    from gpufhe_tpu import cli as rcli
+    from gpufhe_tpu_torch import cli as pcli
+
+    def parsers(main):
+        seen = []
+
+        def capture(self, argv=None, namespace=None):
+            seen.append(self)
+            raise SystemExit(0)
+
+        monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(SystemExit):
+            main([])
+        monkeypatch.undo()
+        (root,) = seen
+        sub = next(a for a in root._actions if isinstance(a, argparse._SubParsersAction))
+        spec = {name: sorted((a.dest, a.default) for a in sp._actions
+                             if a.dest not in ("help", "fn"))
+                for name, sp in sub.choices.items()}
+        flags = sorted(a.dest for a in root._actions if a.dest not in ("help", "cmd"))
+        return spec, flags
+
+    port, port_flags = parsers(pcli.main)
+    ref, ref_flags = parsers(rcli.main)
+    assert sorted(port) == sorted(set(ref) - {"bench", "scaling"})
+    for name, args in port.items():
+        assert args == ref[name], name
+    assert port_flags == ["cpu"] and ref_flags == ["cache", "cpu"]
