@@ -6,9 +6,10 @@
 Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
 against its plain PyTorch version on the card: K1 (NTT), K3 (base
 conversion), K4 (key-switch MAC), and the two probes, the integer rate (P2)
-and the K1 ablation builds (P1). Then it drives seventeen paths through the
-package's entry points, each with the launch counts set to 0 just before it
-and read just after:
+and the K1 ablation builds (P1), and K1's pass entry point (ntt_pass, the
+distributed four-step's stage, `mesh_kernels`). Then it drives the paths
+below through the package's entry points, each with the launch counts set
+to 0 just before it and read just after:
 
   mul     the CKKS multiply of config5_boot (N=2^16, 30 q-limbs, 15 special
           primes, dnum=2): keygen (with the rotation keys of the third path),
@@ -118,18 +119,38 @@ and read just after:
           runs every item of SESSION_CI_ITEMS (BGV at bgv_tiny and
           Session.bootstrap at boot_dw_ci_enc too) the same way;
   session_io Session.save and save_ct of session_ckks's session (the
-          reference's npz format, written in a background thread beside
-          session_bfv and session_ci), then Session.load and load_ct on the
+          reference's npz format, written in a background thread from
+          session_ckks on, beside deep_mlp, mlp_n15, models_ci, session_bfv
+          and session_ci), then Session.load and load_ct on the
           card: the loaded ciphertexts and their decrypts == the originals,
           the loaded session's mul == the original's limb for limb; seconds
           and bytes of each file;
   cli     python -m gpufhe_tpu_torch.cli in process: security at
           config5_boot_dw, keygen at tiny2 loaded by Session.load on the
-          card, kernels at config5_boot (each row beside its bound), and
-          demo-bfv and demo-mlp on the card == with --cpu.
+          card, kernels at config5_boot (each row beside its bound),
+          scaling at tiny2 (one card: the 1 x 1 row alone), and demo-bfv
+          and demo-mlp on the card == with --cpu;
+  mesh    gpufhe_tpu_torch/parallel on a (2, 4) mesh of eight shards on the
+          card: mesh_mul (after int_timing) the sharded multiply at
+          config5_boot == ct_mul_full, the sharded BGV and BFV multiplies at
+          bfv_n16 == bgv.ct_mul and bfv.ct_mul, each decrypt exact, ms per
+          call beside the single device's and the launches of K1's passes,
+          K3 and K4 per call; mesh_n16 (after cli) the reference's
+          scripts/exec_n16_mesh.py program set at config5_boot_dw, nothing
+          cut (eph_ks_to, mod_raise2, eph_ks_from, the first CoeffToSlot fan
+          and the multiply at level 26), each == the single device, its
+          first-call seconds, steady ms beside the single device's, peak
+          memory; mesh_ci the dw bootstrap at boot_dw_ci over
+          ShardedBackend (== the single device's) and the BGV and BFV
+          rotations and hoisted fans at CI size, card == CPU.
 
 Each path's ciphertexts are checked == the same path on the CPU and decoded
-against the cleartext result; the kernels and stage leaves are timed with
+against the cleartext result. The CPU twins run beside the card's paths and
+are joined after cli, where every check against them is made: those of mul,
+rotate, dw and one BGV and one BFV ct_mul in one process from the start, those
+of the CI-size items (boot_ci, int_ci, boot_h_ring, models_ci, session_ci,
+mesh_ci) in another (CpuTwins), and the boot path's ModRaise stage in a
+background thread. The kernels and stage leaves are timed with
 CUDA events and the kernels also by the profiler's kernel time, and every
 bound is restated with the integer rates measured in this run. K1 is also
 timed alone, forward and inverse, at config5_boot's Q+P chain (45 limbs)
@@ -137,7 +158,7 @@ and at the dw key switch's raised digits (58 limbs x 5), beside its bound
 and its achieved bandwidth; K3 alone at ModUp 15->45, ModDown 15->30 and
 ModUp 10->58 likewise, with a sweep of its launch (destinations per block,
 coefficients per thread) and its registers and spills. Every phase prints one line
-with its name, its result and its seconds. The run fails (non-zero exit,
+with its name, its result, its seconds and the seconds into the run. The run fails (non-zero exit,
 no result line) when no CUDA device is present, when a phase fails, or
 when it outlasts BUDGET_S.
 
@@ -219,12 +240,46 @@ DEEP_TOL = 1e-2  # scripts/deep_mlp_n16.py:170
 DEEP_RECORD = 2.294809462073666e-08  # DEEP_MLP_N16.json logits_max_err
 
 T0 = time.perf_counter()
+# the host seconds spent in device_profile (its calls, the trace and its
+# processing), for the run's last summary line
+PROFILER = {"windows": 0, "s": 0.0}
 
 
 def say(name: str, result: str, t_start: float) -> None:
-    print(f"phase {name}: {result} ({time.perf_counter() - t_start:.2f} s)", flush=True)
+    now = time.perf_counter()
+    print(f"phase {name}: {result} ({now - t_start:.2f} s; {now - T0:.1f} s into the run)",
+          flush=True)
     if time.perf_counter() - T0 > BUDGET_S:
         raise RuntimeError(f"over the {BUDGET_S} s budget after phase {name}")
+
+
+def in_background(fn, name: str):
+    """Start fn() in a thread of its own (host work on CPU tensors, which
+    launches no kernel); the returned callable joins it and gives its result,
+    or raises its error."""
+    import os
+    import threading
+
+    box = {}
+
+    def run():
+        # background work: the card's paths come first on the host
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 10)
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # re-raised by the join
+            box["error"] = e
+
+    thread = threading.Thread(target=run, name=name, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+
+    return join
 
 
 def card() -> tuple[str, str]:
@@ -239,14 +294,18 @@ def device_profile(fn, iters: int = 5) -> tuple[float, float, list]:
     """Profile `iters` calls: (device-busy ms per call, the profiled calls'
     own CUDA-event ms per call, [(device ms per call, kernel name, launches
     seen)] largest first). Busy over span is the device's busy share of
-    those very calls, the profiler's own host cost included."""
+    those very calls, the profiler's own host cost included. Only the CUDA
+    activity is traced: the kernels' device times are all that is read, and
+    a trace of the CPU activity (every aten op) cost the host seconds per
+    window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(iters):
             fn()
@@ -259,6 +318,8 @@ def device_profile(fn, iters: int = 5) -> tuple[float, float, list]:
             us = getattr(ev, "self_device_time_total", None)
             us = ev.self_cuda_time_total if us is None else us
             per.append((us / 1e3 / iters, ev.key, ev.count))
+    PROFILER["windows"] += 1
+    PROFILER["s"] += time.perf_counter() - t0
     return sum(ms for ms, _, _ in per), span_ms, sorted(per, reverse=True)
 
 
@@ -307,7 +368,8 @@ def or_null(ms: float) -> float | None:
 
 def exact(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
     """Max |a - b|; raises unless the two are equal element for element."""
-    torch.cuda.synchronize()
+    if a.is_cuda or b.is_cuda:
+        torch.cuda.synchronize()
     if a.shape != b.shape:
         raise AssertionError(f"{what}: shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
     err = int((a - b).abs().max().item())
@@ -428,9 +490,9 @@ def timed_keygen(params, rots, ctx) -> tuple:
     return chest, keygen_s, start.elapsed_time(stop), 2 * len(shapes)
 
 
-def boot_ci_path(dev, counts, reset, launches: dict) -> None:
-    """Paths boot_ci (the card) and its check (the CPU): the whole bootstrap
-    at BOOT_CI_PRESET, == phase for phase."""
+def boot_ci_run(device, counts) -> tuple:
+    """The whole bootstrap at BOOT_CI_PRESET on `device`, keys and draws from
+    numpy seeds: (backend, {phase: outputs}, {phase: launches}, output, z)."""
     from gpufhe_tpu_torch.ciphertext import ct as dct
     from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
     from gpufhe_tpu_torch.ciphertext.bootstrap import Bootstrapper, bootstrap_rotations
@@ -443,41 +505,50 @@ def boot_ci_path(dev, counts, reset, launches: dict) -> None:
     rots = tuple(bootstrap_rotations(params, "factored", BOOT_RADIX))
     zr = np.random.default_rng(0)
     z = (zr.normal(size=params.slots) + 1j * zr.normal(size=params.slots)) * 0.2
+    ctx = make_context(params, device)
+    chest = dkeys.keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
+    be = DeviceBackend(params, ctx, chest)
+    bs = Bootstrapper(be, transform="factored", radix_log=BOOT_RADIX, evalmod="cheb",
+                      k_bound=BOOT_CI_K_BOUND)
+    ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                     np.random.default_rng(1), params.scale, level=params.scale_words)
+    phases, per_phase = {}, {}
+    out = bs(ct, _phase=phase_hook(counts, phases, per_phase))
+    return be, phases, per_phase, out, z
 
-    def run(device):
-        ctx = make_context(params, device)
-        chest = dkeys.keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
-        be = DeviceBackend(params, ctx, chest)
-        bs = Bootstrapper(be, transform="factored", radix_log=BOOT_RADIX, evalmod="cheb",
-                          k_bound=BOOT_CI_K_BOUND)
-        ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
-                         np.random.default_rng(1), params.scale, level=params.scale_words)
-        phases, per_phase = {}, {}
-        out = bs(ct, _phase=phase_hook(counts, phases, per_phase))
-        return be, phases, per_phase, out
+
+def boot_ci_path(dev, counts, reset, launches: dict):
+    """Path boot_ci (the card): the whole bootstrap at BOOT_CI_PRESET.
+    Returns its check against the CPU twin (boot_ci_run("cpu"), run in the
+    CI twins' process): == phase for phase."""
+    from gpufhe_tpu_torch.ciphertext.bootstrap import bootstrap_rotations
 
     t = time.perf_counter()
     reset()
-    be, phases, per_phase, out = run(dev)
+    be, phases, per_phase, out, z = boot_ci_run(dev, counts)
+    params = be.params
     err = decode_err(be.decrypt_decode(out), z, params.slots, "boot_ci bootstrap", BOOT_TOL)
     launches["boot_ci"] = counts()
-    say("boot_ci_path", f"keygen ({len(rots)} Galois keys, conj, eph h="
-        f"{params.eph_hamming_weight}), Bootstrapper(factored, radix {BOOT_RADIX}, cheb, k_bound "
-        f"{BOOT_CI_K_BOUND}), one bootstrap at {BOOT_CI_PRESET} (N={params.n}); output level "
-        f"{out.level}, max |dec - z| = {err:.3e} < {BOOT_TOL}; launches {launches['boot_ci']}, "
-        f"per phase {per_phase}", t)
-    t = time.perf_counter()
-    _, phases_c, _, _ = run("cpu")
-    n_cts = 0
-    for name, outs in phases.items():
-        for i, (g, c) in enumerate(zip(outs, phases_c[name], strict=True)):
-            same_limbs(g, c, f"boot_ci {name} [{i}]")
-            n_cts += 1
     for name, per in per_phase.items():
         if min(per.values()) <= 0:
             raise AssertionError(f"boot_ci phase {name}: a kernel did not run ({per})")
-    say("boot_ci_check", f"{n_cts} phase outputs ({', '.join(phases)}) == the CPU path limb for "
-        f"limb; K1, K3 and K4 launched in every phase", t)
+    say("boot_ci_path", f"keygen ({len(bootstrap_rotations(params, 'factored', BOOT_RADIX))} Galois keys, conj, eph h="
+        f"{params.eph_hamming_weight}), Bootstrapper(factored, radix {BOOT_RADIX}, cheb, k_bound "
+        f"{BOOT_CI_K_BOUND}), one bootstrap at {BOOT_CI_PRESET} (N={params.n}); output level "
+        f"{out.level}, max |dec - z| = {err:.3e} < {BOOT_TOL}; launches {launches['boot_ci']}, "
+        f"per phase {per_phase}; K1, K3 and K4 launched in every phase", t)
+
+    def check(cpu):
+        t = time.perf_counter()
+        n_cts = 0
+        for name, outs in phases.items():
+            for i, (g, c) in enumerate(zip(outs, cpu["boot_ci"][name], strict=True)):
+                same_limbs(g, c, f"boot_ci {name} [{i}]")
+                n_cts += 1
+        say("boot_ci_check", f"{n_cts} phase outputs ({', '.join(phases)}) == the CPU path "
+            "limb for limb", t)
+
+    return check
 
 
 def boot_mac_check(params, ctx, bs, chest, smi) -> None:
@@ -662,22 +733,33 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
         f"; largest: " + "; ".join(f"{ms:.3f} {name[:50]}" for ms, name, _ in top[:6])
         + f"  [{smi}]", t)
 
-    # the ModRaise stage on the CPU, from the same input and encapsulation keys
-    t = time.perf_counter()
+    # the ModRaise stage on the CPU, from the same input and encapsulation
+    # keys, in a background thread beside the card's next phases; boot_check
+    # joins it at the end of the run
+    launches["boot"] = counts()
     eph = {k: dkeys.DeviceKSKey(*(x.cpu() for x in chest.eph[k][1]))
            for k in ("to_eph", "from_eph")}
     x = dct.Ciphertext([c.cpu() for c in ct.c], ct.level, ct.scale)
-    x = dct.ct_key_switch(x, params, ctx_cpu, eph["to_eph"])
-    x = dct.ct_mod_raise2(x, params, ctx_cpu)
-    x = dct.ct_key_switch(x, params, ctx_cpu, eph["from_eph"])
-    same_limbs(phases["mod_raise"][0], x, "boot ModRaise stage")
-    launches["boot"] = counts()
-    say("boot_check", f"ModRaise stage (to_eph, ct_mod_raise2, from_eph) == the CPU path at "
-        f"{BOOT_PRESET} ({x.level} limbs x 2); peak device memory per step "
-        + ", ".join(f"{k} {gib(v)}" for k, v in peak.items())
-        + f"; launches {launches['boot']}  [{smi}]", t)
+    raised = phases["mod_raise"][0]
+
+    def mod_raise_cpu():
+        y = dct.ct_key_switch(x, params, ctx_cpu, eph["to_eph"])
+        y = dct.ct_mod_raise2(y, params, ctx_cpu)
+        return dct.ct_key_switch(y, params, ctx_cpu, eph["from_eph"])
+
+    cpu_raise = in_background(mod_raise_cpu, "boot_check")
+
+    def check(_cpu):
+        t = time.perf_counter()
+        y = cpu_raise()
+        same_limbs(raised, y, "boot ModRaise stage")
+        say("boot_check", f"ModRaise stage (to_eph, ct_mod_raise2, from_eph) == the CPU path at "
+            f"{BOOT_PRESET} ({y.level} limbs x 2), computed in a background thread; peak "
+            "device memory per step " + ", ".join(f"{k} {gib(v)}" for k, v in peak.items())
+            + f"; launches {launches['boot']}  [{smi}]", t)
+
     boot_mac_check(params, ctx, bs, chest, smi)
-    return {"keygen_s": keygen_s, "threefry_s": threefry_ms / 1e3, "plan_s": plan_s,
+    return {"check": check, "keygen_s": keygen_s, "threefry_s": threefry_ms / 1e3, "plan_s": plan_s,
             "first_s": first_s, "steady_s": steady,
             "event_ms": steady_ms, "busy_ms": busy, "span_ms": span, "max_err": max(errs),
             "call": lambda: bs(ct)}
@@ -828,13 +910,12 @@ def boot_h_check(params, ctx, chest, ct, raised, smi) -> dict:
     return held
 
 
-def boot_h_ring(dev, smi) -> float:
+def boot_h_ring_run(device) -> tuple:
     """config5_boot_h's chain (its q and p primes, h=64, dnum 6) and the boot_h
     path's settings at N = 2^BOOT_H_RING_LOGN, with the path's draws
     (device_keygen from rng 7, z from rng 0, encryption from rng 1): the
-    bootstrap on the card and on the CPU, every phase output == limb for
-    limb, and the card's output decoded within DECODE_TOL of z, end to end.
-    Returns that error."""
+    bootstrap on `device`: (backend, {phase: outputs}, output, z, Galois
+    keys)."""
     from gpufhe_tpu_torch.ciphertext import ct as dct
     from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
     from gpufhe_tpu_torch.ciphertext.bootstrap import Bootstrapper, bootstrap_rotations
@@ -843,34 +924,44 @@ def boot_h_ring(dev, smi) -> float:
     from gpufhe_tpu_torch.ops.context import make_context
     from gpufhe_tpu_torch.params.params import preset
 
-    t = time.perf_counter()
     params = dataclasses.replace(preset(BOOT_H_PRESET), n=2**BOOT_H_RING_LOGN)
     rots = tuple(bootstrap_rotations(params, "factored", BOOT_H_RADIX))
     zr = np.random.default_rng(0)
     z = (zr.normal(size=params.slots) + 1j * zr.normal(size=params.slots)) * 0.2
-    runs = {}
-    for device in (dev, "cpu"):
-        ctx = make_context(params, device)
-        chest = device_keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
-        be = DeviceBackend(params, ctx, chest)
-        bs = Bootstrapper(be, transform="factored", radix_log=BOOT_H_RADIX, evalmod="cheb",
-                          k_bound=BOOT_H_K_BOUND)
-        ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
-                         np.random.default_rng(1), params.scale, level=1)
-        phases = {}
-        out = bs(ct, _phase=lambda name, outs: phases.__setitem__(
-            name, outs if isinstance(outs, tuple) else (outs,)))
-        runs[device] = (be, phases, out)
-    (be, card, out), (_, cpu, _) = runs[dev], runs["cpu"]
-    for name in card:
-        for i, (g, w) in enumerate(zip(card[name], cpu[name])):
-            same_limbs(g, w, f"boot_h_ring {name} output {i}")
-    err = decode_err(be.decrypt_decode(out), z, params.slots, "boot_h_ring bootstrap")
+    ctx = make_context(params, device)
+    chest = device_keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
+    be = DeviceBackend(params, ctx, chest)
+    bs = Bootstrapper(be, transform="factored", radix_log=BOOT_H_RADIX, evalmod="cheb",
+                      k_bound=BOOT_H_K_BOUND)
+    ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                     np.random.default_rng(1), params.scale, level=1)
+    phases = {}
+    out = bs(ct, _phase=lambda name, outs: phases.__setitem__(
+        name, outs if isinstance(outs, tuple) else (outs,)))
+    return be, phases, out, z, len(rots)
+
+
+def boot_h_ring(dev, smi) -> tuple:
+    """Phase boot_h_ring: boot_h_ring_run on the card, its output decoded
+    within DECODE_TOL of z, end to end. Returns that error and the check of
+    every phase output == the CPU twin's (boot_h_ring_run("cpu"), run in
+    the CI twins' process), limb for limb."""
+    t = time.perf_counter()
+    be, card, out, z, n_rots = boot_h_ring_run(dev)
+    err = decode_err(be.decrypt_decode(out), z, be.params.slots, "boot_h_ring bootstrap")
     say("boot_h_ring", f"{BOOT_H_PRESET}'s chain and settings at N=2^{BOOT_H_RING_LOGN} "
-        f"({len(rots)} Galois keys, conj): every phase output ({', '.join(card)}) on the card "
-        f"== the CPU path limb for limb; end to end max |dec - z| = {err:.6e} < {DECODE_TOL}"
-        f"  [{smi}]", t)
-    return err
+        f"({n_rots} Galois keys, conj) on the card: phases {', '.join(card)}; end to end max "
+        f"|dec - z| = {err:.6e} < {DECODE_TOL}  [{smi}]", t)
+
+    def check(cpu):
+        t = time.perf_counter()
+        for name in card:
+            for i, (g, w) in enumerate(zip(card[name], cpu["boot_h_ring"][name], strict=True)):
+                same_limbs(g, w, f"boot_h_ring {name} output {i}")
+        say("boot_h_ring_check", f"every phase output ({', '.join(card)}) of boot_h_ring on the "
+            f"card == the CPU path limb for limb  [{smi}]", t)
+
+    return err, check
 
 
 def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
@@ -1002,11 +1093,12 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
     held = boot_h_check(params, ctx, chest, ct, phases["mod_raise"][0], smi)
     bound = bounds.report(f"bootstrap at {BOOT_H_PRESET} (steady)", lambda: bs(ct))
     shapes = kernel_shapes("boot_h", params, ctx, chest, bounds, smi)
+    ring_err, ring_check = boot_h_ring(dev, smi)
     return {"keygen_s": keygen_s, "threefry_s": threefry_ms / 1e3, "plan_s": plan_s,
             "first_s": first_s, "event_ms": steady_ms, "busy_ms": busy, "span_ms": span,
             "per_group": per_group, "per_call": steady_launches, "bound": bound,
             "max_err": err, "phase_err": phase_err, "notes": notes, "held": held, "peak": peak,
-            "shapes": shapes, "ring_err": boot_h_ring(dev, smi)}
+            "shapes": shapes, "ring_err": ring_err, "ring_check": ring_check}
 
 
 def kernel_shapes(tag, params, ctx, chest, bounds, smi, inv_q=False) -> dict:
@@ -1078,11 +1170,6 @@ def kernel_shapes(tag, params, ctx, chest, bounds, smi, inv_q=False) -> dict:
 # The integer schemes: BGV and BFV at INT_PRESET (bfv_n16, one chain that
 # both read), and every op of both at CI size
 # ---------------------------------------------------------------------------
-
-
-def to_cpu(ct):
-    """The same ciphertext (CKKS, BGV or BFV) with its limbs on the host."""
-    return dataclasses.replace(ct, c=[x.cpu() for x in ct.c])
 
 
 class OpLog:
@@ -1179,6 +1266,216 @@ def _decrypt_all(log: OpLog, decrypt, what: str) -> tuple[int, float]:
     return slots, time.perf_counter() - t
 
 
+def mul_inputs(params) -> tuple:
+    """The mul path's two unit-disk slot vectors."""
+    zr = np.random.default_rng(SEED + 1)
+    return unit_disk(zr, params.slots), unit_disk(zr, params.slots)
+
+
+def mul_path(ctx_, counts) -> tuple:
+    """Path mul on ctx_'s device: keygen (rlk, Galois ROTATIONS, conj),
+    encrypt x2, ct_mul_full: (chest, cts, product, launches in ct_mul_full)."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.keys import keys as dkeys
+    from gpufhe_tpu_torch.params.params import preset
+
+    params = preset(PRESET)
+    chest = dkeys.keygen(params, np.random.default_rng(SEED), rotations=ROTATIONS,
+                         conjugation=True, ctx=ctx_)
+    cts = [dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx_,
+                       np.random.default_rng(SEED + 2 + i), params.scale)
+           for i, z in enumerate(mul_inputs(params))]
+    before = counts()
+    prod = dct.ct_mul_full(cts[0], cts[1], params, ctx_, chest.device_rlk)
+    return chest, cts, prod, {k: v - before[k] for k, v in counts().items()}
+
+
+def dw_inputs(dw) -> tuple:
+    zd = np.random.default_rng(SEED + 5)
+    return unit_disk(zd, dw.slots), unit_disk(zd, dw.slots)
+
+
+def dw_path(ctx_, counts) -> tuple:
+    """Path dw: the config5_boot_dw multiply on ctx_'s device."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.keys import keys as dkeys
+    from gpufhe_tpu_torch.params.params import preset
+
+    dw = preset(DW_PRESET)
+    chest_ = dkeys.keygen(dw, np.random.default_rng(SEED + 6), ctx=ctx_)
+    ca, cb = (dct.encrypt(encoder.encode(z, dw), dw, chest_.device_pk, ctx_,
+                          np.random.default_rng(SEED + 7 + i), dw.scale)
+              for i, z in enumerate(dw_inputs(dw)))
+    before = counts()
+    out = dct.ct_mul_full(ca, cb, dw, ctx_, chest_.device_rlk)
+    return chest_, (ca, cb), out, {k: v - before[k] for k, v in counts().items()}
+
+
+def rotate_inputs(params) -> tuple:
+    zr = np.random.default_rng(SEED + 9)
+    zs = [unit_disk(zr, params.slots) for _ in range(3)]
+    return zs, [unit_disk(zr, params.slots) for _ in range(3)]
+
+
+def rotate_path(ctx_, chest_, counts) -> tuple:
+    """Path rotate at PRESET on the mul path's keys: three ciphertexts at
+    2^ROT_SCALE_BITS, three plaintexts at the preset's scale; ({op:
+    outputs}, {op: launches})."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.params.params import preset
+
+    params = preset(PRESET)
+    zs, ws = rotate_inputs(params)
+    scale, rot_scale = params.scale, float(2**ROT_SCALE_BITS)
+    cts_ = [dct.encrypt(encoder.encode(z, params, rot_scale), params, chest_.device_pk, ctx_,
+                        np.random.default_rng(SEED + 10 + i), rot_scale)
+            for i, z in enumerate(zs)]
+    ct = cts_[0]
+    pts = [encoder.encode_to_device(w, params, ctx_) for w in ws]
+    gks = {s: chest_.galois_key(s) for s in ROTATIONS}
+    ops = {
+        "ct_rotate 1": lambda: [dct.ct_rotate(ct, 1, params, ctx_, gks[1])],
+        "ct_conjugate": lambda: [dct.ct_conjugate(ct, params, ctx_, chest_.conj_key())],
+        f"ct_rotate_hoisted {list(ROTATIONS)}":
+            lambda: dct.ct_rotate_hoisted(ct, list(ROTATIONS), params, ctx_, gks),
+        "ct_mul_plain": lambda: [dct.ct_mul_plain(ct, pts[0], scale, ctx_)],
+        "ct_plain_mac x3": lambda: [dct.ct_plain_mac(cts_, pts, None, params, ctx_,
+                                                     rot_scale * scale)],
+    }
+    outs, per_op = {}, {}
+    for name, op in ops.items():
+        before = counts()
+        outs[name] = op()
+        per_op[name] = {k: v - before[k] for k, v in counts().items()}
+    return outs, per_op
+
+
+def int_inputs(scheme: str, params, ctx) -> tuple:
+    """The bgv or bfv path's draws on ctx's device, from its seeds: (m1, m2,
+    chest, plaintexts, (a, b), keygen seconds)."""
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.golden import bfv as gbfv
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+
+    mod, gold, base, rots = ((dbgv, gbgv, SEED + 31, INT_ROTATIONS) if scheme == "bgv"
+                             else (dbfv, gbfv, SEED + 41, (1,)))
+    tm = params.plain_modulus
+    zr = np.random.default_rng(base)
+    m1, m2 = (zr.integers(0, tm, size=params.n, dtype=np.int64) for _ in range(2))
+    t = time.perf_counter()
+    chest = mod.keygen(params, np.random.default_rng(base + 1), rotations=rots, ctx=ctx)
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t
+    pts = [gold.encode(m, params) for m in (m1, m2)]
+    a, b = (mod.encrypt(pt, params, chest.device_pk, ctx, np.random.default_rng(base + 2 + i))
+            for i, pt in enumerate(pts))
+    return m1, m2, chest, pts, (a, b), keygen_s
+
+
+# torch threads of the CPU twins' processes (CpuTwins): the N=2^16 paths'
+# twins take 3, the CI-size items', which are host work in small ops, take 1;
+# the rest of the host's cores stay with the card's paths, whose launches are
+# host work
+CPU_TWIN_THREADS = {"n16": 3, "ci": 1}
+
+
+def cpu_twins(group: str, path: str) -> None:
+    """The CPU twins of one group, from the same seeds as the card's paths,
+    run in a process of their own (CpuTwins), their outputs and seconds
+    written to `path` (torch.save). "n16": the mul, rotate and dw paths and
+    one ct_mul each of bgv and bfv at INT_PRESET; "ci": the CI-size items
+    checked card == CPU (boot_ci, int_ci, boot_h_ring, models_ci,
+    session_ci, mesh_ci)."""
+    import os
+
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    torch.set_num_threads(CPU_TWIN_THREADS[group])
+    os.nice(10)  # background work: the card's paths come first on the host
+    none = dict
+    out = {}
+    secs = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        secs[name], t = time.perf_counter() - t, time.perf_counter()
+
+    if group == "n16":
+        ctx = make_context(preset(PRESET), "cpu")
+        chest, _, out["mul"], _ = mul_path(ctx, none)
+        lap("mul")
+        out["rotate"] = rotate_path(ctx, chest, none)[0]
+        del chest
+        lap("rotate")
+        out["dw"] = dw_path(make_context(preset(DW_PRESET), "cpu"), none)[2]
+        lap("dw")
+        ip = preset(INT_PRESET)
+        ictx = make_context(ip, "cpu")
+        for scheme, mod in (("bgv", dbgv), ("bfv", dbfv)):
+            _, _, chest, _, (a, b), _ = int_inputs(scheme, ip, ictx)
+            out[scheme] = mod.ct_mul(a, b, ip, ictx, chest.device_rlk)
+            lap(scheme)
+    else:
+        out["boot_ci"] = boot_ci_run("cpu", none)[1]
+        lap("boot_ci")
+        out["int_ci"] = {scheme: int_ci_ops(scheme, "cpu") for scheme in ("bgv", "bfv")}
+        lap("int_ci")
+        out["boot_h_ring"] = boot_h_ring_run("cpu")[1]
+        lap("boot_h_ring")
+        out["models_ci"] = models_ci_run("cpu", none)[0]
+        lap("models_ci")
+        out["session_ci"] = session_ci_run("cpu", none)[0]
+        lap("session_ci")
+        out["mesh_ci"] = mesh_ci_run("cpu")
+        lap("mesh_ci")
+    out["secs"] = secs
+    torch.save(out, path)
+
+
+class CpuTwins:
+    """cpu_twins(group) in a spawned process, started at once; result()
+    waits for it and loads its outputs. The process never outlives the run."""
+
+    def __init__(self, group: str):
+        import atexit
+        import multiprocessing
+        import tempfile
+
+        self.group = group
+        self._dir = tempfile.TemporaryDirectory(prefix=f"cpu_twins_{group}")
+        self._path = f"{self._dir.name}/twins.pt"
+        self._proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_twins, args=(group, self._path), name=f"cpu_twins_{group}")
+        self._proc.start()
+        self._out = None
+        atexit.register(self.stop)
+
+    def result(self) -> dict:
+        if self._out is None:
+            self._proc.join()
+            if self._proc.exitcode != 0:
+                raise RuntimeError(f"the CPU twins' process {self.group} failed (exit "
+                                   f"{self._proc.exitcode})")
+            self._out = torch.load(self._path, weights_only=False)
+            self.stop()
+        return self._out
+
+    def stop(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join()
+        self._dir.cleanup()
+
+
 def bgv_path(dev, smi, counts, reset, launches) -> dict:
     """Paths bgv (the card) and bgv_check (one ct_mul on the CPU): keygen,
     encode and encrypt two slot vectors mod t, ct_mul, three squarings
@@ -1187,25 +1484,18 @@ def bgv_path(dev, smi, counts, reset, launches) -> dict:
     decrypt exact in all N slots."""
     from gpufhe_tpu_torch.ciphertext import bgv as dbgv
     from gpufhe_tpu_torch.golden import bgv as gbgv
-    from gpufhe_tpu_torch.keys.keys import DeviceKSKey
     from gpufhe_tpu_torch.ops.context import make_context
     from gpufhe_tpu_torch.params.params import preset
 
     params = preset(INT_PRESET)
     tm, n = params.plain_modulus, params.n
-    zr = np.random.default_rng(SEED + 31)
-    m1, m2 = (zr.integers(0, tm, size=n, dtype=np.int64) for _ in range(2))
     t = time.perf_counter()
     reset()
     ctx = make_context(params, dev)
-    chest = dbgv.keygen(params, np.random.default_rng(SEED + 32), rotations=INT_ROTATIONS, ctx=ctx)
-    torch.cuda.synchronize()
-    keygen_s, t1 = time.perf_counter() - t, time.perf_counter()
-    pts = [gbgv.encode(m, params) for m in (m1, m2)]
+    m1, m2, chest, pts, (a, b), keygen_s = int_inputs("bgv", params, ctx)
+    t1 = time.perf_counter()
     perms = {s: gbgv.slot_rotation_perm(params, s) for s in INT_ROTATIONS}
     host_s, t1 = time.perf_counter() - t1, time.perf_counter()
-    a, b = (dbgv.encrypt(pt, params, chest.device_pk, ctx, np.random.default_rng(SEED + 33 + i))
-            for i, pt in enumerate(pts))
     rlk, gks = chest.device_rlk, {s: chest.galois_key(s) for s in INT_ROTATIONS}
     hoisted = f"ct_rotate_hoisted {list(INT_ROTATIONS)}"
     log = OpLog(counts)
@@ -1237,14 +1527,16 @@ def bgv_path(dev, smi, counts, reset, launches) -> dict:
         f"pt_factor {x.pt_factor}; launches {launches['bgv']}, per op {log.launches}  [{smi}]",
         t)
 
-    t = time.perf_counter()
-    got = dbgv.ct_mul(to_cpu(a), to_cpu(b), params, make_context(params, "cpu"),
-                      DeviceKSKey(*(k.cpu() for k in rlk)))
-    same_limbs(log.outs["ct_mul a*b"][0], got, "BGV ct_mul")
-    say("bgv_check", f"ct_mul limbs and pt_factor == the CPU path ({got.level} limbs x 2, "
-        f"pt_factor {got.pt_factor})", t)
-    return {"params": params, "ctx": ctx, "chest": chest, "a": a, "b": b,
+    def check(cpu):  # the CPU twin (cpu_twins), from the same seeds
+        t = time.perf_counter()
+        got = cpu["bgv"]
+        same_limbs(log.outs["ct_mul a*b"][0], got, "BGV ct_mul")
+        say("bgv_check", f"ct_mul limbs and pt_factor == the CPU path ({got.level} limbs x 2, "
+            f"pt_factor {got.pt_factor})", t)
+
+    return {"check": check, "params": params, "ctx": ctx, "chest": chest, "a": a, "b": b,
             "square_1": (log.outs["square 1"][0], log.want["square 1"][0]),
+            "mul": (log.outs["ct_mul a*b"][0], log.want["ct_mul a*b"][0]),
             "per_mul": log.launches["ct_mul a*b"]}
 
 
@@ -1259,23 +1551,16 @@ def bfv_path(dev, smi, counts, reset, launches, bgv: dict) -> dict:
     from gpufhe_tpu_torch.ciphertext import bfv as dbfv
     from gpufhe_tpu_torch.ciphertext import bgv as dbgv
     from gpufhe_tpu_torch.golden import bfv as gbfv
-    from gpufhe_tpu_torch.keys.keys import DeviceKSKey
     from gpufhe_tpu_torch.ops.context import make_context
 
     params = bgv["params"]
     tm, n = params.plain_modulus, params.n
-    zr = np.random.default_rng(SEED + 41)
-    m1, m2 = (zr.integers(0, tm, size=n, dtype=np.int64) for _ in range(2))
     t = time.perf_counter()
     reset()
     ctx = make_context(params, dev)
-    chest = dbfv.keygen(params, np.random.default_rng(SEED + 42), rotations=(1,), ctx=ctx)
-    torch.cuda.synchronize()
-    keygen_s, t1 = time.perf_counter() - t, time.perf_counter()
-    pts = [gbfv.encode(m, params) for m in (m1, m2)]
+    m1, m2, chest, pts, (a, b), keygen_s = int_inputs("bfv", params, ctx)
+    t1 = time.perf_counter()
     perm1 = gbfv.slot_rotation_perm(params, 1)
-    a, b = (dbfv.encrypt(pt, params, chest.device_pk, ctx, np.random.default_rng(SEED + 43 + i))
-            for i, pt in enumerate(pts))
     rlk = chest.device_rlk
     log = OpLog(counts)
     prod = log("ct_mul a*b", lambda: dbfv.ct_mul(a, b, params, ctx, rlk), [m1 * m2 % tm])
@@ -1315,12 +1600,14 @@ def bfv_path(dev, smi, counts, reset, launches, bgv: dict) -> dict:
         f"exactly ({decrypt_s:.2f} s for the ops'); launches {launches['bfv']}, per op "
         f"{log.launches}  [{smi}]", t)
 
-    t = time.perf_counter()
-    got = dbfv.ct_mul(to_cpu(a), to_cpu(b), params, make_context(params, "cpu"),
-                      DeviceKSKey(*(k.cpu() for k in rlk)))
-    same_limbs(prod, got, "BFV ct_mul")
-    say("bfv_check", f"ct_mul limbs == the CPU path ({got.level} limbs x 2)", t)
-    return {"ctx": ctx, "chest": chest, "a": a, "b": b, "per_mul": log.launches["ct_mul a*b"]}
+    def check(cpu):  # the CPU twin (cpu_twins), from the same seeds
+        t = time.perf_counter()
+        got = cpu["bfv"]
+        same_limbs(prod, got, "BFV ct_mul")
+        say("bfv_check", f"ct_mul limbs == the CPU path ({got.level} limbs x 2)", t)
+
+    return {"check": check, "ctx": ctx, "chest": chest, "a": a, "b": b, "per_mul": log.launches["ct_mul a*b"],
+            "mul": (prod, log.want["ct_mul a*b"][0])}
 
 
 def int_ci_ops(scheme: str, dev) -> dict:
@@ -1381,24 +1668,29 @@ def int_ci_ops(scheme: str, dev) -> dict:
     return out
 
 
-def int_ci_check(dev, smi, counts, reset, launches) -> None:
-    """Phase int_ci_check: every BGV and BFV op at bgv_ci / bfv_ci (N=2^10)
-    on the card == the CPU path, limb for limb, backends' matvecs included."""
+def int_ci(dev, smi, counts, reset, launches):
+    """Phase int_ci: every BGV and BFV op at bgv_ci / bfv_ci (N=2^10) on the
+    card, backends' matvecs included. Returns its check, int_ci_check: ==
+    the CPU twin (int_ci_ops(scheme, "cpu"), run in the CI twins' process),
+    limb for limb."""
     t = time.perf_counter()
     reset()
-    done = []
-    for scheme in ("bgv", "bfv"):
-        card = int_ci_ops(scheme, dev)
-        cpu = int_ci_ops(scheme, "cpu")
-        for name, cts in card.items():
-            for i, (g, c) in enumerate(zip(cts, cpu[name], strict=True)):
-                same_limbs(g, c, f"{scheme}_ci {name} [{i}]")
-        done.append(f"{scheme}: {', '.join(card)}")
+    card = {scheme: int_ci_ops(scheme, dev) for scheme in ("bgv", "bfv")}
     launches["int_ci"] = counts()
     if min(launches["int_ci"].values()) <= 0:
         raise AssertionError(f"int_ci: a kernel did not run ({launches['int_ci']})")
-    say("int_ci_check", "card == CPU limb for limb, " + "; ".join(done)
-        + f"; launches {launches['int_ci']}  [{smi}]", t)
+    done = "; ".join(f"{scheme}: {', '.join(ops)}" for scheme, ops in card.items())
+    say("int_ci", f"on the card, {done}; launches {launches['int_ci']}  [{smi}]", t)
+
+    def check(cpu):
+        t = time.perf_counter()
+        for scheme, ops in card.items():
+            for name, cts in ops.items():
+                for i, (g, c) in enumerate(zip(cts, cpu["int_ci"][scheme][name], strict=True)):
+                    same_limbs(g, c, f"{scheme}_ci {name} [{i}]")
+        say("int_ci_check", f"card == CPU limb for limb, {done}  [{smi}]", t)
+
+    return check
 
 
 def int_timing(bgv: dict, bfv: dict, ik: dict, bounds: Bounds, counts, smi) -> dict:
@@ -2074,7 +2366,8 @@ def models_ci_run(device, counts, names=MODELS_CI_SMOKE) -> tuple[dict, dict, di
         call, check = items[name]()
         before, t = counts(), time.perf_counter()
         out = call()
-        torch.cuda.synchronize()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
         per_item[name] = {k: v - before[k] for k, v in counts().items()}
         per_item[name]["s"] = round(time.perf_counter() - t, 3)
         outs[name] = out if isinstance(out, list) else [out]
@@ -2096,11 +2389,12 @@ def same_outputs(got: dict, want: dict, what: str) -> int:
     return n
 
 
-def models_ci(dev, smi, counts, reset, launches: dict) -> dict:
+def models_ci(dev, smi, counts, reset, launches: dict) -> tuple:
     """Path models_ci: the MODELS_CI_SMOKE items of models_ci_run on the card,
-    then on the CPU with the same keys and draws: every output == limb for
-    limb; each decoded within the tolerance of the reference's test. Returns
-    the launches per item."""
+    each decoded within the tolerance of the reference's test. Returns the
+    launches per item and the check, models_ci_check: every output == the
+    CPU twin's (models_ci_run("cpu"), with the same keys and draws, run in
+    the CI twins' process), limb for limb."""
     t = time.perf_counter()
     reset()
     outs, errs, per_item = models_ci_run(dev, counts)
@@ -2113,12 +2407,16 @@ def models_ci(dev, smi, counts, reset, launches: dict) -> dict:
     say("models_ci", "on the card: " + "; ".join(
         f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v} values exact"
         for k, v in errs.items()) + f"; launches and seconds per item {per_item}  [{smi}]", t)
-    t = time.perf_counter()
-    n = same_outputs(outs, models_ci_run("cpu", counts)[0], "models_ci")
-    say("models_ci_check", f"{n} outputs of {len(outs)} items == the CPU path limb for limb "
-        f"({', '.join(outs)}); the other items ({', '.join(MODELS_CI_ITEMS[len(outs):])}) run "
-        f"card == CPU in tests/test_torch_kernels_gpu.py  [{smi}]", t)
-    return per_item
+
+    def check(cpu):
+        t = time.perf_counter()
+        n = same_outputs(outs, cpu["models_ci"], "models_ci")
+        say("models_ci_check", f"{n} outputs of {len(outs)} items == the CPU path limb for "
+            f"limb ({', '.join(outs)}); the other items ("
+            f"{', '.join(MODELS_CI_ITEMS[len(outs):])}) run card == CPU in "
+            f"tests/test_torch_kernels_gpu.py  [{smi}]", t)
+
+    return per_item, check
 
 
 # The Session facade at N=2^16: config5_boot (CKKS) and bfv_n16 (BFV), through
@@ -2226,7 +2524,8 @@ def session_save(sess: dict) -> dict:
     """Start Session.save and save_ct of session_ckks's session and two
     ciphertexts in a background thread, into a temporary directory: zlib
     over ~220 MB of keys on the host, which overlaps the card's next paths
-    (session_bfv, session_ci). session_io joins it."""
+    (deep_mlp, mlp_n15, models_ci, session_bfv, session_ci). session_io
+    joins it."""
     import os
     import tempfile
     import threading
@@ -2239,6 +2538,8 @@ def session_save(sess: dict) -> dict:
                      "ct_b": os.path.join(tmp.name, "ct_b.npz")}}
 
     def save():
+        # background work: the card's paths come first on the host
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 10)
         try:
             t0 = time.perf_counter()
             s.save(job["paths"]["session"])
@@ -2295,7 +2596,8 @@ def session_io(dev, smi, counts, reset, launches: dict, sess: dict, job: dict) -
     if min(launches["session_io"].values()) <= 0:
         raise AssertionError(f"session_io: a kernel did not run ({launches['session_io']})")
     say("session_io", "save / load " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
-        + f" (the saves in a background thread beside session_bfv and session_ci; "
+        + f" (the saves in a background thread beside deep_mlp, mlp_n15, models_ci, "
+        f"session_bfv and session_ci; "
         f"{waited:.2f} s waited for it here); files " + ", ".join(
             f"{k} {v / 2**20:.1f} MiB" for k, v in sizes.items())
         + "; loaded ciphertexts == the originals, their decrypts ==, the loaded session's mul "
@@ -2416,9 +2718,11 @@ def session_ci_run(device, counts, names=SESSION_CI_SMOKE) -> tuple[dict, dict, 
     return outs, errs, per_item
 
 
-def session_ci(dev, smi, counts, reset, launches: dict) -> dict:
-    """Path session_ci: SESSION_CI_SMOKE on the card, then on the CPU with
-    the same keys and draws: every output == limb for limb."""
+def session_ci(dev, smi, counts, reset, launches: dict) -> tuple:
+    """Path session_ci: SESSION_CI_SMOKE on the card. Returns the launches per
+    item and the check, session_ci_check: every output == the CPU twin's
+    (session_ci_run("cpu"), with the same keys and draws, run in the CI
+    twins' process), limb for limb."""
     t = time.perf_counter()
     reset()
     outs, errs, per_item = session_ci_run(dev, counts)
@@ -2428,12 +2732,16 @@ def session_ci(dev, smi, counts, reset, launches: dict) -> dict:
     say("session_ci", "on the card: " + "; ".join(
         f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v} slots exact"
         for k, v in errs.items()) + f"; launches per item {per_item}  [{smi}]", t)
-    t = time.perf_counter()
-    n = same_outputs(outs, session_ci_run("cpu", counts)[0], "session_ci")
-    say("session_ci_check", f"{n} outputs of {len(outs)} items ({', '.join(outs)}) == the CPU "
-        f"path limb for limb; the other items ({', '.join(SESSION_CI_ITEMS[len(outs):])}) run "
-        f"card == CPU in tests/test_torch_kernels_gpu.py  [{smi}]", t)
-    return per_item
+
+    def check(cpu):
+        t = time.perf_counter()
+        n = same_outputs(outs, cpu["session_ci"], "session_ci")
+        say("session_ci_check", f"{n} outputs of {len(outs)} items ({', '.join(outs)}) == the "
+            f"CPU path limb for limb; the other items ("
+            f"{', '.join(SESSION_CI_ITEMS[len(outs):])}) run card == CPU in "
+            f"tests/test_torch_kernels_gpu.py  [{smi}]", t)
+
+    return per_item, check
 
 
 def cli_phase(dev, smi, counts, reset, launches: dict, bounds: Bounds, params) -> list:
@@ -2481,6 +2789,12 @@ def cli_phase(dev, smi, counts, reset, launches: dict, bounds: Bounds, params) -
             if round(own[row["kernel"]][0], 5) != row["bound_ms"]:
                 raise AssertionError(f"cli kernels {row['kernel']}: bound {row['bound_ms']} is "
                                      f"not the smoke's {own[row['kernel']][0]:.5f}")
+    scaling = run("scaling", "--preset", "tiny2", "--iters", "2")
+    for row in scaling:
+        print(f"cli scaling tiny2: {json.dumps(row)}  [{smi}]", flush=True)
+    if sorted({r["mesh"] for r in scaling}) != ["limb=1 x coeff=1"] or len(scaling) != 2:
+        raise AssertionError(f"cli scaling on one card printed {scaling}: only the 1 x 1 row fits "
+                             "one distinct device")
     demos = {}
     for cmd in ("demo-bfv", "demo-mlp"):
         card_line, cpu_line = run(cmd), run("--cpu", cmd)
@@ -2496,11 +2810,388 @@ def cli_phase(dev, smi, counts, reset, launches: dict, bounds: Bounds, params) -
         raise AssertionError(f"cli demo-mlp off by {demos['demo-mlp']['max_abs_err']}")
     say("cli", f"security {sec['security_bits']} bits (log QP {sec['log_qp']}); keygen "
         f"{kg['preset']} -> Session.load on the card, rotate decoded within {kg_err:.3e}; "
+        f"scaling at tiny2: the 1 x 1 row only, {scaling[0]['ms_per_mult']} ms per mult; "
         f"kernels at {PRESET}: " + ", ".join(
             f"{r['kernel']} {r['ms']:.4f} ms ({r['x_bound']}x its {r['bound_ms']:.5f} ms bound)"
             for r in rows) + f"; demo-bfv, demo-mlp card == --cpu; launches {launches['cli']}"
         f"  [{smi}]", t)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The mesh (gpufhe_tpu_torch/parallel): logical shards on this one card
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (2, 4)  # (limb, coeff): eight shards on DEVICE
+# the reference's representative N=2^16 program set (scripts/exec_n16_mesh.py
+# run_parity): the first CoeffToSlot stage at radix 3, k_bound 10, and the
+# multiply at level 26, the busiest multiply level of its inventory
+MESH_N16_MID = 26
+MESH_CI_ITEMS = ("bootstrap boot_dw_ci", "bgv_ci rotation", "bgv_ci hoisted fan",
+                 "bfv_ci rotation", "bfv_ci hoisted fan")
+
+
+def mesh_of(dev):
+    from gpufhe_tpu_torch.parallel.sharded import make_fhe_mesh
+
+    return make_fhe_mesh(*MESH_SHAPE, devices=[dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+
+
+def mesh_counts(counts):
+    """counts() with the K1 pass entry point (ntt_pass) beside it."""
+    from gpufhe_tpu_torch.ops import ntt_cuda
+
+    return lambda: {**counts(), "ntt_pass": ntt_cuda.PASS_KERNEL.launches}
+
+
+def gathered(grid) -> torch.Tensor:
+    """A component grid's eval3d blocks of limb row 0 joined on their own
+    device, in natural order (sharded.unshard_ct_component without the
+    host copy)."""
+    from gpufhe_tpu_torch.parallel.sharded import eval3d_to_natural
+
+    return eval3d_to_natural(torch.cat(grid[0], dim=-2))
+
+
+def mesh_kernels(dev, smi, params, ctx) -> dict:
+    """Phase mesh_kernels: K1's ntt_pass in each of its four kinds == its
+    plain version (fourstep_pass_plain) on the card at ctx's Q+P chain, for
+    the C = 4 blocks of each kind at their offsets; each kind timed per
+    block by CUDA events beside its plain version and its byte bound (the
+    block in and out once: 12 bytes per residue, 1/C of the limb's); the
+    distributed forward and inverse NTT on the (2, 4) mesh of eight shards
+    on the card == the single-device K1 transform, permuted to eval3d."""
+    from gpufhe_tpu_torch.ops import ntt_cuda as nc
+    from gpufhe_tpu_torch.ops.probes import cuda_ms
+    from gpufhe_tpu_torch.parallel import sharded as sh
+
+    t = time.perf_counter()
+    rows = ctx.num_total
+    n1, n2, n = ctx.n1, ctx.n2, ctx.n
+    c_dim = MESH_SHAPE[1]
+    w, h = n2 // c_dim, n1 // c_dim
+    rng = np.random.default_rng(SEED + 70)
+    q = torch.tensor(ctx.primes, dtype=torch.int64, device=dev)[:, None, None]
+
+    def rand(shape, dtype):
+        x = torch.from_numpy(rng.integers(0, 1 << 62, size=(rows, *shape))).to(dev)
+        return torch.remainder(x, q).to(dtype)
+
+    idx = ctx.index(range(rows), torch.int32)
+    kinds = {nc.FWD_A: ("fwd A", (n1, w), torch.int64), nc.FWD_B: ("fwd B", (h, n2), torch.int32),
+             nc.INV_B: ("inv B", (h, n2), torch.int64), nc.INV_A: ("inv A", (n1, w), torch.int32)}
+    timing, checked = {}, 0
+    for kind, (name, shape, dtype) in kinds.items():
+        for c in range(c_dim):
+            x = rand(shape, dtype)
+            col0 = c * w if kind in (nc.FWD_A, nc.INV_A) else 0
+            exact(nc.fourstep_pass_cuda(x, idx, ctx, kind, col0),
+                  nc.fourstep_pass_plain(x, idx, ctx, kind, col0), f"ntt_pass {name} block {c}")
+            checked += 1
+        nc.PASS_KERNEL.reset()  # count the timing's launches, not the check's
+        ms = cuda_ms(lambda: nc.fourstep_pass_cuda(x, idx, ctx, kind, col0), iters=20)
+        plain = cuda_ms(lambda: nc.fourstep_pass_plain(x, idx, ctx, kind, col0), iters=3,
+                        warmup=1)
+        nbytes = 12 * rows * n // c_dim
+        timing[name] = {"ms": ms, "plain_ms": plain, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                        "launches": nc.PASS_KERNEL.launches}
+        print(f"mesh_kernels ntt_pass {name} {rows} limbs x 1/{c_dim} of 2^{n.bit_length() - 1}: "
+              f"{ms:.4f} ms per block (plain {plain:.3f}); bound {timing[name]['bound_ms']:.5f} "
+              f"ms (bytes, {nbytes / 1e6:.2f} MB), {ms / timing[name]['bound_ms']:.2f}x  "
+              f"[{smi}]", flush=True)
+    mesh = mesh_of(dev)
+    t_all = sh.gather_ntt_tables(sh.full_ntt_tables(params, mesh=mesh), range(rows))
+    x = torch.remainder(torch.from_numpy(rng.integers(0, 1 << 62, size=(rows, n))).to(dev),
+                        q[:, :, 0])
+    x3 = sh.coeff_to_3d(x, n1, n2)
+    e = sh.ntt_fwd_body(mesh, mesh.put(lambda l, c, d: x3[:, c * h:(c + 1) * h].contiguous()),
+                        t_all)
+    exact(gathered(e), nc.fourstep_cuda(x, idx, ctx, False), "distributed forward NTT")
+    back = sh.ntt_inv_body(mesh, e, t_all)
+    for i, row in enumerate(back):
+        exact(torch.cat(row, dim=1).reshape(rows, n), x, f"distributed inverse NTT, limb row {i}")
+    say("mesh_kernels", f"ntt_pass == fourstep_pass_plain in its four kinds ({checked} blocks of "
+        f"{rows} limbs, C = {c_dim}); ms per block " + ", ".join(
+            f"{k} {v['ms']:.4f} ({v['ms'] / v['bound_ms']:.2f}x its bound)"
+            for k, v in timing.items())
+        + f"; the distributed fwd and inv NTT on {MESH_SHAPE[0]} x {MESH_SHAPE[1]} shards on "
+        f"{dev} == K1 (eval3d)", t)
+    return {"err": 0, "timing": timing}
+
+
+def mesh_mul(dev, smi, counts, reset, launches: dict, params, ctx, chest, cts, prod,
+             bgv: dict, bfv: dict) -> dict:
+    """Phase mesh_mul: on the (2, 4) mesh of eight shards on the card,
+    make_sharded_mult at PRESET (level L) == ct_mul_full limb for limb; at
+    INT_PRESET the sharded BGV multiply == bgv.ct_mul and
+    make_sharded_bfv_mult == bfv.ct_mul, each decrypt exact in every slot.
+    Each timed by CUDA events beside the single-device call, with the
+    launches of K1's passes, K3 and K4 per call."""
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ops.probes import cuda_ms
+    from gpufhe_tpu_torch.parallel import sharded as sh
+    from gpufhe_tpu_torch.parallel.bfv_sharded import make_sharded_bfv_mult
+
+    t = time.perf_counter()
+    reset()
+    mcounts = mesh_counts(counts)
+    mesh = mesh_of(dev)
+    cases = {
+        f"ckks {PRESET}": (params, sh.make_sharded_mult, chest.device_rlk, cts[0].c + cts[1].c,
+                           prod, lambda: dct.ct_mul_full(cts[0], cts[1], params, ctx,
+                                                         chest.device_rlk)),
+        f"bgv {INT_PRESET}": (bgv["params"], sh.make_sharded_mult, bgv["chest"].device_rlk,
+                              bgv["a"].c + bgv["b"].c, bgv["mul"][0],
+                              lambda: dbgv.ct_mul(bgv["a"], bgv["b"], bgv["params"], bgv["ctx"],
+                                                  bgv["chest"].device_rlk)),
+        f"bfv {INT_PRESET}": (bgv["params"], make_sharded_bfv_mult, bfv["chest"].device_rlk,
+                              bfv["a"].c + bfv["b"].c, bfv["mul"][0],
+                              lambda: dbfv.ct_mul(bfv["a"], bfv["b"], bgv["params"], bfv["ctx"],
+                                                  bfv["chest"].device_rlk)),
+    }
+    rows = {}
+    for what, (pr, make, rlk, comps, want, single) in cases.items():
+        run, prepare = make(pr, comps[0].shape[0], mesh)
+        bundle = prepare(rlk)
+        blocks = [sh.shard_ct_component(c, pr, mesh) for c in comps]
+        before = mcounts()
+        out = run(*blocks, bundle)
+        per = {k: v - before[k] for k, v in mcounts().items()}
+        got = [gathered(g) for g in out]
+        for i, (g, w) in enumerate(zip(got, want.c)):
+            exact(g, w, f"mesh_mul {what} component {i}")
+        if min(per[k] for k in ("ntt_pass", "convert", "mac")) <= 0 or per["ntt"] != 0:
+            raise AssertionError(f"mesh_mul {what}: K1's passes, K3 and K4 must all run, and no "
+                                 f"whole-limb NTT: {per}")
+        ms, single_ms = cuda_ms(lambda: run(*blocks, bundle), iters=5, warmup=1), \
+            cuda_ms(single, iters=5, warmup=1)
+        rows[what] = {"ms": ms, "single_ms": single_ms, "per_call": per,
+                      "out": dataclasses.replace(want, c=got)}
+        print(f"mesh_mul {what}: sharded {ms:.3f} ms per call by CUDA events, single device "
+              f"{single_ms:.3f} ms ({ms / single_ms:.2f}x); launches per call {per}  [{smi}]",
+              flush=True)
+    # the integer products' decrypts, exact in every slot
+    slots = 0
+    for scheme, d in (("bgv", bgv), ("bfv", bfv)):
+        got, want = rows[f"{scheme} {INT_PRESET}"].pop("out"), d["mul"][1]
+        if scheme == "bgv":
+            dec = dbgv.decrypt_decode(got, bgv["params"], d["chest"].device_sk, d["ctx"])
+        else:
+            dec = dbfv.decrypt_decode(got, bgv["params"], d["chest"].device_sk, d["ctx"])
+        slots += exact_slots(dec, want, f"mesh_mul {scheme} decrypt")
+    rows[f"ckks {PRESET}"].pop("out")
+    launches["mesh_mul"] = counts()
+    say("mesh_mul", f"on {MESH_SHAPE[0]} x {MESH_SHAPE[1]} shards on {dev}: " + "; ".join(
+        f"{k} == the single-device call, {v['ms']:.3f} ms against {v['single_ms']:.3f} ms"
+        for k, v in rows.items()) + f"; {slots} slots decrypted exactly", t)
+    return rows
+
+
+def first_cts_stage_diags(params, radix_log: int, k_bound: float):
+    """The flagship bootstrap's first CoeffToSlot diagonals at the full
+    level: FactoredCtS's groups[0] with its geometric factor spread (the
+    reference's scripts/exec_n16_mesh.py first_cts_stage_diags)."""
+    from gpufhe_tpu_torch.ciphertext import fftboot as fb
+
+    n_s = params.slots
+    fwd = [fb._inv_stage_diags(n_s, h, w) for h, w in reversed(fb._stage_twiddles(n_s))]
+    groups = fb.group_stages(fwd, n_s, radix_log)
+    q0 = math.prod(params.q_primes[: params.scale_words])
+    mag = abs(params.scale / (q0 * k_bound)) ** (1.0 / len(groups))
+    return fb.scale_diags(groups[0], mag)
+
+
+def mesh_n16(dev, smi, counts, reset, launches: dict, params, ctx) -> dict:
+    """Phase mesh_n16: the reference's scripts/exec_n16_mesh.py run_parity at
+    DW_PRESET, nothing cut, on the (2, 4) mesh of eight shards on the card:
+    device_keygen(params, default_rng(7), rotations=<the first CtS stage's
+    offsets>), one ShardedBackend beside one DeviceBackend, and the
+    programs eph_ks_to (level 2), mod_raise2, eph_ks_from (48), the first
+    CtS fan (48) and mult_rescale (MESH_N16_MID), each fed the
+    single-device output of the step before: each == the single-device
+    port limb for limb; seconds of the first call, CUDA-event ms of a
+    steady call beside the single device's, peak device memory."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext import fftboot as fb
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.keys.device_keygen import device_keygen
+    from gpufhe_tpu_torch.ops.probes import cuda_ms
+    from gpufhe_tpu_torch.parallel.backend import ShardedBackend
+
+    t = time.perf_counter()
+    reset()
+    mcounts = mesh_counts(counts)
+    diags0 = first_cts_stage_diags(params, BOOT_RADIX, BOOT_K_BOUND)
+    offsets = tuple(sorted(r for r in diags0 if r != 0))
+    chest = device_keygen(params, np.random.default_rng(7), rotations=offsets, ctx=ctx)
+    dev_be, shb = DeviceBackend(params, ctx, chest), ShardedBackend(params, mesh_of(dev), chest)
+    rng = np.random.default_rng(0)
+    z = (rng.normal(size=params.slots) + 1j * rng.normal(size=params.slots)) * 0.2
+    ct_w = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                       np.random.default_rng(1), params.scale, level=params.scale_words)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    peaks = {}
+    peak = peak_marker(dev, peaks)
+    rows = {}
+
+    def step(name, level, dev_fn, sh_fn, x, multi=False):
+        want = dev_fn(x)
+        sx = shb.from_single(x)
+        peak(f"{name} before")
+        t1 = time.perf_counter()
+        before = mcounts()
+        got = sh_fn(sx)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        per = {k: v - before[k] for k, v in mcounts().items()}
+        peak(name)
+        gots, wants = (got, want) if multi else ([got], [want])
+        for g, w in zip(gots, wants, strict=True):
+            if (g.level, g.scale) != (w.level, w.scale):
+                raise AssertionError(f"mesh_n16 {name}: level or scale differ")
+            for i, (gc, wc) in enumerate(zip(g.c, w.c, strict=True)):
+                exact(gathered(gc), wc, f"mesh_n16 {name} component {i}")
+        ms = cuda_ms(lambda: sh_fn(sx), iters=1, warmup=0)
+        single_ms = cuda_ms(lambda: dev_fn(x), iters=1, warmup=1)
+        rows[name] = {"level": level,
+                      "first_s": first_s, "ms": ms, "single_ms": single_ms, "launches": per,
+                      "peak": peaks[name]}
+        print(f"mesh_n16 {name}: == the single device; first call {first_s:.3f} s, steady "
+              f"{ms:.2f} ms by CUDA events against the single device's {single_ms:.2f} ms "
+              f"({ms / single_ms:.2f}x); launches {per}; peak "
+              f"{gib(rows[name]['peak'])}  [{smi}]", flush=True)
+        return want
+
+    if chest.eph is None:
+        raise AssertionError(f"{DW_PRESET} keygen drew no encapsulation keys")
+    # each program at the reference's level label (run_parity's)
+    full = params.num_limbs
+    ct_t = step("eph_ks_to", params.scale_words, lambda c: dev_be.key_switch(c, "to_eph"),
+                lambda c: shb.key_switch(c, "to_eph"), ct_w)
+    raised = step("mod_raise2", full, dev_be.mod_raise, shb.mod_raise, ct_t)
+    ct_f = step("eph_ks_from", full, lambda c: dev_be.key_switch(c, "from_eph"),
+                lambda c: shb.key_switch(c, "from_eph"), raised)
+    plan_dev, plan_sh = fb.DiagPlan(dev_be, diags0, full), fb.DiagPlan(shb, diags0, full)
+    step(f"fan_{len(offsets)}off", full, plan_dev.apply_multi, plan_sh.apply_multi, ct_f,
+         multi=True)
+    ct_mid = dev_be.drop_to_level(ct_f, MESH_N16_MID)
+    step("mult_rescale", MESH_N16_MID, lambda c: dev_be.mul(c, c), lambda c: shb.mul(c, c),
+         ct_mid)
+    launches["mesh_n16"] = counts()
+    del chest, dev_be, shb, plan_dev, plan_sh
+    gc.collect()
+    say("mesh_n16", f"at {DW_PRESET} (N={params.n}, L={full}) on {MESH_SHAPE[0]} x "
+        f"{MESH_SHAPE[1]} shards on {dev}: keygen (rlk, eph, Galois {offsets}) and setup "
+        f"{setup_s:.2f} s; " + "; ".join(
+            f"{k} == single device, first {v['first_s']:.2f} s, steady {v['ms']:.1f} ms "
+            f"against {v['single_ms']:.1f} ms" for k, v in rows.items()), t)
+    return rows
+
+
+def mesh_ci_run(device, names=MESH_CI_ITEMS) -> dict:
+    """The mesh at CI size on `device` (eight shards on it), keys and data
+    from numpy seeds: {item: [output tensors on the host]}: the dw
+    bootstrap at boot_dw_ci over ShardedBackend (with the single-device
+    bootstrap's output beside it, "... single"), and the BGV and BFV
+    rotation and hoisted fan at bgv_ci / bfv_ci."""
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.ciphertext.backend import DeviceBackend
+    from gpufhe_tpu_torch.ciphertext.bootstrap import Bootstrapper, bootstrap_rotations
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.golden import bfv as gbfv
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+    from gpufhe_tpu_torch.golden import ckks as gckks
+    from gpufhe_tpu_torch.keys import keys as dkeys
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.parallel import sharded as sh
+    from gpufhe_tpu_torch.parallel.backend import ShardedBackend
+    from gpufhe_tpu_torch.parallel.bfv_sharded import (make_sharded_bfv_hoisted_fan,
+                                                       make_sharded_bfv_rotation)
+    from gpufhe_tpu_torch.params.params import preset
+
+    mesh = mesh_of(torch.device(device))
+    out = {}
+
+    def host(grids):
+        return [sh.unshard_ct_component(g) for g in grids]
+
+    if "bootstrap boot_dw_ci" in names:
+        params = preset("boot_dw_ci")
+        ctx = make_context(params, device)
+        rots = tuple(bootstrap_rotations(params, "factored", 6))
+        chest = dkeys.keygen(params, np.random.default_rng(7), rotations=rots, conjugation=True,
+                             ctx=ctx)
+        kw = dict(transform="factored", radix_log=6, evalmod="cheb", k_bound=5.0)
+        shb = ShardedBackend(params, mesh, chest)
+        zr = np.random.default_rng(0)
+        z = (zr.normal(size=params.slots) + 1j * zr.normal(size=params.slots)) * 0.2
+        ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                         np.random.default_rng(1), params.scale, level=2)
+        got = Bootstrapper(shb, **kw)(shb.from_single(ct))
+        single = Bootstrapper(DeviceBackend(params, ctx, chest), **kw)(ct)
+        err = float(np.abs(shb.decrypt_decode(got) - z).max())
+        if err >= BOOT_TOL:
+            raise AssertionError(f"mesh_ci bootstrap decodes off by {err}")
+        out["bootstrap boot_dw_ci"] = host(got.c) + [torch.tensor([got.level, got.scale])]
+        out["bootstrap boot_dw_ci single"] = [c.cpu() for c in single.c] + [
+            torch.tensor([single.level, single.scale])]
+    for scheme, mod, gold in (("bgv", dbgv, gbgv), ("bfv", dbfv, gbfv)):
+        todo = [n for n in names if n.startswith(f"{scheme}_ci")]
+        if not todo:
+            continue
+        params = preset(f"{scheme}_ci")
+        ctx = make_context(params, device)
+        chest = mod.keygen(params, np.random.default_rng(7), rotations=(3, 5), ctx=ctx)
+        z = np.random.default_rng(8).integers(0, params.plain_modulus, size=params.n)
+        ct = mod.encrypt(gold.encode(z, params), params, chest.device_pk, ctx,
+                         np.random.default_rng(33))
+        c0, c1 = (sh.shard_ct_component(c, params, mesh) for c in ct.c)
+        gks = [chest.galois[s][1] for s in (3, 5)]
+        if f"{scheme}_ci rotation" in todo:
+            make = sh.make_sharded_rotation if scheme == "bgv" else make_sharded_bfv_rotation
+            run, prepare = make(params, ct.level, mesh, 3)
+            out[f"{scheme}_ci rotation"] = host(run(c0, c1, prepare(gks[0])))
+        if f"{scheme}_ci hoisted fan" in todo:
+            make = (sh.make_sharded_hoisted_fan if scheme == "bgv"
+                    else make_sharded_bfv_hoisted_fan)
+            run, prepare = make(params, ct.level, mesh, 2)
+            lins = sh._lin_blocks(np.stack([sh._perm_lin_e3(gckks.galois_exponent(s, params.n),
+                                                            ctx.n1, ctx.n2) for s in (3, 5)]),
+                                  mesh)
+            out[f"{scheme}_ci hoisted fan"] = [x for pair in run(c0, c1, lins, prepare(gks))
+                                               for x in host(pair)]
+    return out
+
+
+def mesh_ci(dev, smi, counts, reset, launches: dict, cpu: dict) -> None:
+    """Phase mesh_ci: mesh_ci_run on the card and on the CPU, every output
+    == limb for limb, and the sharded bootstrap == the single-device one."""
+    t = time.perf_counter()
+    reset()
+    mcounts = mesh_counts(counts)
+    got = mesh_ci_run(dev)
+    per = mcounts()
+    launches["mesh_ci"] = counts()
+    card_s = time.perf_counter() - t
+    want = cpu  # mesh_ci_run("cpu"), run in the CPU twins' process
+    for name, outs in got.items():
+        for i, (g, w) in enumerate(zip(outs, want[name], strict=True)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"mesh_ci {name} [{i}]: the card differs from the CPU")
+    for g, w in zip(got["bootstrap boot_dw_ci"], got["bootstrap boot_dw_ci single"], strict=True):
+        if not torch.equal(g, w):
+            raise AssertionError("mesh_ci: the sharded bootstrap differs from the single device")
+    if min(per[k] for k in ("ntt_pass", "convert", "mac")) <= 0:
+        raise AssertionError(f"mesh_ci: a kernel did not run ({per})")
+    say("mesh_ci", f"{', '.join(MESH_CI_ITEMS)} on {MESH_SHAPE[0]} x {MESH_SHAPE[1]} shards: card "
+        f"({card_s:.2f} s) == CPU; the sharded bootstrap == the single device's; launches "
+        f"{per}", t)
 
 
 def main() -> None:
@@ -2518,17 +3209,18 @@ def main() -> None:
 
     cuda_ms = probes.cuda_ms
     dev = torch.device(DEVICE)
+    # the CPU twins of the N=2^16 paths and of the CI-size items, in two
+    # processes of their own from the start (CpuTwins); the checks against
+    # them are deferred to join_cpu_twins, near the end of the run
+    twins, ci_twins = CpuTwins("n16"), CpuTwins("ci")
     kernels = {"ntt": ntt_cuda.KERNEL, "convert": convert_cuda.KERNEL, "mac": mac_cuda.KERNEL}
 
     def reset() -> None:
-        for k in kernels.values():
+        for k in (*kernels.values(), ntt_cuda.PASS_KERNEL):
             k.reset()
 
     def counts() -> dict:
         return {name: k.launches for name, k in kernels.items()}
-
-    def delta(before: dict) -> dict:
-        return {name: k.launches - before[name] for name, k in kernels.items()}
 
     # 0. the card
     t = time.perf_counter()
@@ -2714,53 +3406,28 @@ def main() -> None:
         f"/ inv {ablation_dev['narrow_tfast inv']:.4f} against full inv "
         f"{ablation_dev['full inv']:.4f} (both == the NTT)", t)
 
+    # 6a. K1's pass entry point (ntt_pass) and the distributed four-step
+    meshk = mesh_kernels(dev, smi, params, ctx)
+    pass_launches = {}
+
     # 7. path "mul": the config5_boot multiply, through the entry points
-    zr = np.random.default_rng(SEED + 1)
-    za, zb = unit_disk(zr, params.slots), unit_disk(zr, params.slots)
-
-    def mul_path(ctx_):
-        chest = dkeys.keygen(params, np.random.default_rng(SEED), rotations=ROTATIONS,
-                             conjugation=True, ctx=ctx_)
-        cts = [dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx_,
-                           np.random.default_rng(SEED + 2 + i), params.scale)
-               for i, z in enumerate((za, zb))]
-        before = counts()
-        prod = dct.ct_mul_full(cts[0], cts[1], params, ctx_, chest.device_rlk)
-        return chest, cts, prod, delta(before)
-
+    za, zb = mul_inputs(params)
     t = time.perf_counter()
     reset()
-    chest, cts, prod, per_mul = mul_path(ctx)
+    chest, cts, prod, per_mul = mul_path(ctx, counts)
     got = dct.decrypt_decode(prod, params, chest.device_sk, ctx)
     launches = {"mul": counts()}
     say("mul_path", f"keygen (rlk, Galois {ROTATIONS}, conj), encode, encrypt x2, ct_mul_full, "
         f"decrypt_decode at {PRESET}; launches {launches['mul']}, per ct_mul_full {per_mul}", t)
-    t = time.perf_counter()
-    ctx_cpu = make_context(params, "cpu")
-    chest_c, _, prod_c, _ = mul_path(ctx_cpu)
-    same_limbs(prod, prod_c, "ct_mul_full")
     err = decode_err(got, za * zb, params.slots, "ct_mul_full")
     if min(per_mul.values()) <= 0:
         raise AssertionError(f"a kernel did not run inside ct_mul_full: {per_mul}")
-    say("mul_check", f"ct_mul_full limbs == the CPU path ({prod.level} limbs x 2); max |dec - "
-        f"za*zb| = {err:.3e} < {DECODE_TOL}; launches in ct_mul_full {per_mul} > 0", t)
 
     # 8. path "dw": the config5_boot_dw multiply
-    zd = np.random.default_rng(SEED + 5)
-    da, db = unit_disk(zd, dw.slots), unit_disk(zd, dw.slots)
-
-    def dw_path(ctx_):
-        chest_ = dkeys.keygen(dw, np.random.default_rng(SEED + 6), ctx=ctx_)
-        ca, cb = (dct.encrypt(encoder.encode(z, dw), dw, chest_.device_pk, ctx_,
-                              np.random.default_rng(SEED + 7 + i), dw.scale)
-                  for i, z in enumerate((da, db)))
-        before = counts()
-        out = dct.ct_mul_full(ca, cb, dw, ctx_, chest_.device_rlk)
-        return chest_, (ca, cb), out, delta(before)
-
+    da, db = dw_inputs(dw)
     t = time.perf_counter()
     reset()
-    chest_dw, cts_dw, prod_dw, per_dw = dw_path(ctx_dw)
+    chest_dw, cts_dw, prod_dw, per_dw = dw_path(ctx_dw, counts)
     got_dw = dct.decrypt_decode(prod_dw, dw, chest_dw.device_sk, ctx_dw)
     launches["dw"] = counts()
     if chest_dw.eph is None:
@@ -2768,47 +3435,14 @@ def main() -> None:
     say("dw_path", f"keygen (rlk + eph h={dw.eph_hamming_weight}), encode, encrypt x2, "
         f"ct_mul_full, decrypt_decode at {DW_PRESET}; launches {launches['dw']}, per "
         f"ct_mul_full {per_dw}", t)
-    t = time.perf_counter()
     ctx_dw_cpu = make_context(dw, "cpu")
-    _, _, prod_dw_c, _ = dw_path(ctx_dw_cpu)
-    same_limbs(prod_dw, prod_dw_c, "dw ct_mul_full")
     err_dw = decode_err(got_dw, da * db, dw.slots, "dw ct_mul_full")
     if min(per_dw.values()) <= 0:
         raise AssertionError(f"a kernel did not run inside the dw ct_mul_full: {per_dw}")
-    say("dw_check", f"ct_mul_full limbs == the CPU path ({prod_dw.level} limbs x 2, scale "
-        f"2^{np.log2(prod_dw.scale):.3f}); max |dec - za*zb| = {err_dw:.3e} < {DECODE_TOL}; "
-        f"launches in ct_mul_full {per_dw} > 0", t)
 
     # 9. path "rotate" at config5_boot, on the mul path's keys: three fresh
     #    ciphertexts at 2^ROT_SCALE_BITS and three plaintexts at the preset's scale
-    zr = np.random.default_rng(SEED + 9)
-    zs = [unit_disk(zr, params.slots) for _ in range(3)]
-    ws = [unit_disk(zr, params.slots) for _ in range(3)]
-    scale, rot_scale = params.scale, float(2**ROT_SCALE_BITS)
-
-    def rotate_path(ctx_, chest_):
-        cts_ = [dct.encrypt(encoder.encode(z, params, rot_scale), params, chest_.device_pk, ctx_,
-                            np.random.default_rng(SEED + 10 + i), rot_scale)
-                for i, z in enumerate(zs)]
-        ct = cts_[0]
-        pts = [encoder.encode_to_device(w, params, ctx_) for w in ws]
-        gks = {s: chest_.galois_key(s) for s in ROTATIONS}
-        ops = {
-            "ct_rotate 1": lambda: [dct.ct_rotate(ct, 1, params, ctx_, gks[1])],
-            "ct_conjugate": lambda: [dct.ct_conjugate(ct, params, ctx_, chest_.conj_key())],
-            f"ct_rotate_hoisted {list(ROTATIONS)}":
-                lambda: dct.ct_rotate_hoisted(ct, list(ROTATIONS), params, ctx_, gks),
-            "ct_mul_plain": lambda: [dct.ct_mul_plain(ct, pts[0], scale, ctx_)],
-            "ct_plain_mac x3": lambda: [dct.ct_plain_mac(cts_, pts, None, params, ctx_,
-                                                         rot_scale * scale)],
-        }
-        outs, per_op = {}, {}
-        for name, op in ops.items():
-            before = counts()
-            outs[name] = op()
-            per_op[name] = delta(before)
-        return outs, per_op
-
+    zs, ws = rotate_inputs(params)
     want_rot = {
         "ct_rotate 1": [np.roll(zs[0], -1)],
         "ct_conjugate": [np.conj(zs[0])],
@@ -2821,27 +3455,51 @@ def main() -> None:
     k4_launches[f"ct_rotate_hoisted {list(ROTATIONS)}"] = len(ROTATIONS)
     t = time.perf_counter()
     reset()
-    outs, per_op = rotate_path(ctx, chest)
+    outs, per_op = rotate_path(ctx, chest, counts)
     decoded = {name: [dct.decrypt_decode(o, params, chest.device_sk, ctx) for o in os_]
                for name, os_ in outs.items()}
     launches["rotate"] = counts()
     say("rotate_path", f"encode, encrypt x3 at 2^{ROT_SCALE_BITS}, {', '.join(outs)} at {PRESET}; "
         f"launches {launches['rotate']}; "
         f"per op {per_op}", t)
-    t = time.perf_counter()
-    outs_c, _ = rotate_path(ctx_cpu, chest_c)
     errs = {}
     for name, os_ in outs.items():
-        for i, (o, oc) in enumerate(zip(os_, outs_c[name])):
-            same_limbs(o, oc, f"{name} [{i}]")
         errs[name] = max(decode_err(g, w, params.slots, name)
                          for g, w in zip(decoded[name], want_rot[name]))
         if per_op[name]["mac"] != k4_launches[name]:
             raise AssertionError(f"{name}: K4 launched {per_op[name]['mac']} times, not "
                                  f"{k4_launches[name]}")
-    say("rotate_check", "limbs == the CPU path; max |dec - want| " + ", ".join(
-        f"{k} {v:.3e}" for k, v in errs.items()) + f" < {DECODE_TOL}; K4 launches per op "
-        + ", ".join(f"{k} {v['mac']}" for k, v in per_op.items()), t)
+
+    def join_cpu_twins():
+        """mul_check, dw_check, rotate_check and the deferred checks (bgv,
+        bfv, int_ci, boot_ci, boot, boot_h_ring, models_ci, session_ci): the
+        card's limbs == the CPU twins' (computed in their own processes since
+        the run began, or in a background thread)."""
+        t = time.perf_counter()
+        cpu = twins.result()
+        wait_s = time.perf_counter() - t
+        ci = ci_twins.result()
+        wait_ci_s = time.perf_counter() - t - wait_s
+        same_limbs(prod, cpu["mul"], "ct_mul_full")
+        say("mul_check", f"ct_mul_full limbs == the CPU path ({prod.level} limbs x 2); max "
+            f"|dec - za*zb| = {err:.3e} < {DECODE_TOL}; launches in ct_mul_full {per_mul} > 0 "
+            f"(the CPU twins joined after {wait_s:.2f} s and {wait_ci_s:.2f} s; their seconds "
+            + ", ".join(f"{k} {v:.1f}" for k, v in (cpu["secs"] | ci["secs"]).items())
+            + ")", t)
+        t = time.perf_counter()
+        same_limbs(prod_dw, cpu["dw"], "dw ct_mul_full")
+        say("dw_check", f"ct_mul_full limbs == the CPU path ({prod_dw.level} limbs x 2, scale "
+            f"2^{np.log2(prod_dw.scale):.3f}); max |dec - za*zb| = {err_dw:.3e} < "
+            f"{DECODE_TOL}; launches in ct_mul_full {per_dw} > 0", t)
+        t = time.perf_counter()
+        for name, os_ in outs.items():
+            for i, (o, oc) in enumerate(zip(os_, cpu["rotate"][name])):
+                same_limbs(o, oc, f"{name} [{i}]")
+        say("rotate_check", "limbs == the CPU path; max |dec - want| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + f" < {DECODE_TOL}; K4 launches per op "
+            + ", ".join(f"{k} {v['mac']}" for k, v in per_op.items()), t)
+        for check in deferred:
+            check(cpu | ci)
 
     # 9a. the integer schemes at INT_PRESET: their kernels' new shapes, the
     #     BGV and BFV paths (each checked == the CPU path on one ct_mul),
@@ -2849,14 +3507,20 @@ def main() -> None:
     ik = int_kernels(dev, smi)
     bgv = bgv_path(dev, smi, counts, reset, launches)
     bfv = bfv_path(dev, smi, counts, reset, launches, bgv)
-    int_ci_check(dev, smi, counts, reset, launches)
+    deferred = [bgv.pop("check"), bfv.pop("check")]
+    deferred.append(int_ci(dev, smi, counts, reset, launches))
     int_times = int_timing(bgv, bfv, ik, bounds, counts, smi)
+    # 9b'. the sharded multiplies on a (2, 4) mesh of shards on the card
+    mesh_rows = mesh_mul(dev, smi, counts, reset, launches, params, ctx, chest, cts, prod,
+                         bgv, bfv)
+    pass_launches["mesh_mul"] = ntt_cuda.PASS_KERNEL.launches
     del bgv, bfv  # their keys
 
     # 9b. paths "boot_ci" and "boot": the bootstrap at CI size (card == CPU)
     #     and the config5_boot_dw flagship
-    boot_ci_path(dev, counts, reset, launches)
+    deferred.append(boot_ci_path(dev, counts, reset, launches))
     boot = boot_path(dev, smi, counts, reset, launches, ctx_dw_cpu)
+    deferred.append(boot.pop("check"))
 
     # 10. times on the card (CUDA events, after warm-up; K3 and K4 also by
     #     profiler kernel time, as `dev_times`)
@@ -2957,6 +3621,7 @@ def main() -> None:
     # 10a. path "boot_h": the single-word bootstrap at config5_boot_h (its
     #      own keys, drawn after the flagship's were freed)
     boot_h = boot_h_path(dev, smi, counts, reset, launches, bounds)
+    deferred.append(boot_h.pop("ring_check"))
 
     # 10b. the models: "deep_mlp" (its own chest at config5_boot_dw, drawn after
     #      boot_h's keys were freed), "mlp_n15" at N=2^15 and "models_ci"
@@ -2964,25 +3629,38 @@ def main() -> None:
     if torch.cuda.memory_allocated(dev) > 8 * 2**30:
         raise AssertionError(f"{gib(torch.cuda.memory_allocated(dev))} still allocated: the "
                              "boot_h path's chest outlived its path")
+    # 10c. the Session facade at PRESET ("session_ckks"), whose save (zlib
+    #      over its keys on the host, in a background thread) runs beside the
+    #      models; "session_io" joins it below
+    sess = session_ckks(dev, smi, counts, reset, launches, times)
+    saving = session_save(sess)
     deep = deep_mlp_path(dev, smi, counts, reset, launches)
     gc.collect()
     ctx15 = make_context(preset(MLP_PRESET), dev)
     bounds15 = Bounds(ctx15.n, ctx15.n1, ctx15.n2, mod_rate, rates["muladd"])
     mlp = mlp_n15_path(dev, smi, counts, reset, launches, bounds15)
-    ci_items = models_ci(dev, smi, counts, reset, launches)
+    ci_items, check = models_ci(dev, smi, counts, reset, launches)
+    deferred.append(check)
 
-    # 10c. the Session facade and the CLI: "session_ckks" and "session_io" at
-    #      PRESET, "session_bfv" at INT_PRESET, "session_ci" (card == CPU at CI
-    #      size), "cli" (the subcommands, in process)
+    # 10d. the rest of the Session facade and the CLI: "session_bfv" at
+    #      INT_PRESET, "session_ci" (card == CPU at CI size), "session_io"
+    #      at PRESET, "cli" (the subcommands, in process)
     gc.collect()
-    sess = session_ckks(dev, smi, counts, reset, launches, times)
-    saving = session_save(sess)
     sess_bfv = session_bfv(dev, smi, counts, reset, launches)
-    sess_ci = session_ci(dev, smi, counts, reset, launches)
+    sess_ci, check = session_ci(dev, smi, counts, reset, launches)
+    deferred.append(check)
     io_stats = session_io(dev, smi, counts, reset, launches, sess, saving)
     sess_stats = {k: sess[k] for k in ("create_s", "op_ms", "turns", "errs")}
     del sess, saving  # the config5_boot session's keys
     cli_rows = cli_phase(dev, smi, counts, reset, launches, bounds, params)
+    # the CPU twins, computed in their own process since the run began
+    join_cpu_twins()
+    # 10e. the mesh at full width (config5_boot_dw) and at CI size
+    gc.collect()
+    n16 = mesh_n16(dev, smi, counts, reset, launches, dw, ctx_dw)
+    pass_launches["mesh_n16"] = ntt_cuda.PASS_KERNEL.launches
+    mesh_ci(dev, smi, counts, reset, launches, ci_twins.result()["mesh_ci"])
+    pass_launches["mesh_ci"] = ntt_cuda.PASS_KERNEL.launches
     ntt45 = ntt_work(qp, qp)
     s_up, t_up = params.alpha, qp
     conv_up = conv_work(s_up, t_up)
@@ -3131,6 +3809,21 @@ def main() -> None:
                            for p in ("session_ckks", "session_io", "session_bfv", "cli")},
                         "session_ci": {name: per[key] for name, per in sess_ci.items()}},
         })
+    # K1's pass entry point: its launches on the mesh paths, one forward
+    # pass A over a block of PRESET's Q+P chain (1/C of each limb) timed
+    # alone, its bound that block's bytes in and out once
+    fa = meshk["timing"]["fwd A"]
+    rows.append({
+        "name": "ntt_pass", "route": "cuda", "source": "gpufhe_tpu_torch/csrc/ntt.cu",
+        "replaces": "gpufhe_tpu/ops/ntt_pallas.py:601", "launches": sum(pass_launches.values()),
+        "launches_by_path": pass_launches, "max_abs_err": meshk["err"], "ms": fa["ms"],
+        "device_ms": None, "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "per_kind": meshk["timing"],
+        "mesh_mul": {k: {"ms": v["ms"], "single_ms": v["single_ms"], "per_call": v["per_call"]}
+                     for k, v in mesh_rows.items() if v},
+        "mesh_n16": n16,
+    })
     for mix in probes.MIXES:
         r, err, plain, n_launch = rate_rows[mix]
         ops = r["blocks"] * probes.THREADS * probes.CHAINS * r["depth"] * (2 if mix == "muladd" else 1)
@@ -3159,7 +3852,8 @@ def main() -> None:
           f"ntt_ablate_copy_only (-DNTT_ABLATE=3) fwd {qp} x 2^{log_n}. The probes lie on no "
           f"path: their launches are those of their own timing phase (int_rate, ntt_ablation). "
           f"No single PyTorch call computes any of these functions mod q, so library_ms is null; "
-          f"total {time.perf_counter() - T0:.1f} s", flush=True)
+          f"total {time.perf_counter() - T0:.1f} s, of it {PROFILER['s']:.1f} s in "
+          f"{PROFILER['windows']} profiled windows (device_profile)", flush=True)
     print(f"# boot_h path at {BOOT_H_PRESET}: device_keygen {boot_h['keygen_s']:.2f} s (threefry "
           f"at its shapes, alone, {boot_h['threefry_s']:.3f} s), plans {boot_h['plan_s']:.2f} s, first call "
           f"{boot_h['first_s']:.3f} s, steady calls {[round(x, 3) for x in boot_h['event_ms']]} "

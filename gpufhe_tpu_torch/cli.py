@@ -10,9 +10,10 @@ runs its plain PyTorch version.
     python -m gpufhe_tpu_torch.cli keygen --preset config3_ckks --out keys.npz
 
 `kernels` prints each row beside its bound on the card (utils/benchkit.py).
-The reference's `bench` (its bench.py) and `scaling` (its parallel/
-package) have no counterpart yet, nor has its `--cache` (XLA's compile
-cache).
+`scaling` reports the sharded multiply over the mesh shapes that fit the
+distinct devices (parallel/multihost.py scaling_report): one card, or the
+CPU, gives the 1 x 1 row alone. The reference's `bench` (its bench.py) has
+no counterpart yet, nor has its `--cache` (XLA's compile cache).
 """
 
 from __future__ import annotations
@@ -376,6 +377,20 @@ def _cmd_demo_matmul(args):
     }))
 
 
+def _cmd_scaling(args):
+    from gpufhe_tpu_torch.parallel.multihost import scaling_report
+    from gpufhe_tpu_torch.params.params import preset
+
+    shapes = []
+    for spec in args.meshes.split(";"):
+        l, c = spec.split("x")
+        shapes.append((int(l), int(c)))
+    for mode in args.modes.split(","):
+        for row in scaling_report(preset(args.preset), shapes, iters=args.iters, mode=mode,
+                                  device=_device(args)):
+            print(json.dumps(row))
+
+
 def _cmd_security(args):
     """HE-standard logQP budget report (utils/security.py)."""
     from gpufhe_tpu_torch.params.params import preset
@@ -595,6 +610,14 @@ def main(argv=None):
     )
     sec.add_argument("--preset", default="config5_boot_dw")
     sec.set_defaults(fn=_cmd_security)
+
+    w = sub.add_parser("scaling", help="sharded-mult scaling report over mesh shapes")
+    w.add_argument("--preset", default="tiny2")
+    w.add_argument("--meshes", default="1x1;1x2;2x2;2x4")
+    w.add_argument("--iters", type=int, default=5)
+    w.add_argument("--modes", default="strong,weak",
+                   help="comma list of strong|weak")
+    w.set_defaults(fn=_cmd_scaling)
 
     bt = sub.add_parser("bootstrap", help="run one full CKKS bootstrap")
     bt.add_argument("--preset", default="boot_ci_f")

@@ -55,6 +55,16 @@
 // R = 256 (T = 16), where one word per thread would be 64.
 // Not done here: one pass per limb through a cluster's distributed shared
 // memory, and 32-bit storage at the interface.
+//
+// One pass at a time (ntt_pass, the distributed four-step of
+// gpufhe_tpu_torch/parallel/sharded.py): a mesh shard holds a block of a
+// limb, and the passes run between two all_to_all exchanges. Pass A takes a
+// block of columns [n1][width] (row-major, width columns from col0), whose
+// twiddle reads the global column col0 + lane; pass B takes a block of rows
+// [width][n2] and leaves it row-major, both sides t-fast: the forward
+// writes [k1][k2] (the mesh's eval layout), the inverse reads it. The
+// int64 side of a t-fast pass reads or writes one word per thread (T
+// consecutive words of 8 bytes per row segment); only a u32 side pairs.
 
 #include <type_traits>
 
@@ -91,15 +101,18 @@ constexpr bool kPairs = NTT_ABLATE != 5;
 constexpr int kMaxLanes = 32;  // columns per block
 constexpr int kMinLogR = 3, kMaxLogR = 8;
 
-// The four passes: forward A and B, inverse B and A.
-//   kFwdA  in x int64 lane-fast, out scratch u32 lane-fast, twist 1
-//   kFwdB  in scratch u32 t-fast, out y int64 lane-fast
-//   kInvB  in x int64 lane-fast, out scratch u32 t-fast
-//   kInvA  in scratch u32 lane-fast, out y int64 lane-fast, twist 2
+// The four passes: forward A and B, inverse B and A; and pass B over a block
+// of rows that stays row-major (ntt_pass).
+//   kFwdA      in x int64 lane-fast, out scratch u32 lane-fast, twist 1
+//   kFwdB      in scratch u32 t-fast, out y int64 lane-fast
+//   kInvB      in x int64 lane-fast, out scratch u32 t-fast
+//   kInvA      in scratch u32 lane-fast, out y int64 lane-fast, twist 2
+//   kFwdBRows  in u32 t-fast, out int64 t-fast
+//   kInvBRows  in int64 t-fast, out u32 t-fast
 // Twist 1: psi1^t pre-twist on load, four-step twiddle on store; twist 2:
 // the twiddle on load, psi1^-t / N on store. Lane-fast: element (t, lane)
 // at t * stride + lane; t-fast: at t + lane * stride.
-enum Kind { kFwdA, kFwdB, kInvB, kInvA };
+enum Kind { kFwdA, kFwdB, kInvB, kInvA, kFwdBRows, kInvBRows };
 
 template <int LOGR>
 struct Geometry {
@@ -115,7 +128,9 @@ struct Pass {
   void* out;
   const int* idx;  // chain row of data row r is idx[r % L]
   int L;
-  int n;          // limb length, the row stride of in/out
+  int n;          // limb length N (the twiddle's exponents are mod 2N)
+  int blk;        // the row stride of in/out: n, or the block's size
+  int col0;       // global column of the first lane of pass A (0 for a whole limb)
   int lanes;      // columns per block (a power of two, at most kMaxLanes)
   int log_lanes;
   int in_st, out_st;  // the strided axis of each side (see Kind)
@@ -177,7 +192,7 @@ __device__ __forceinline__ int pair_class(int s) {
 // the input side (its inputs are t = u T + pair_class(s)) and
 // pair_class(s) on the output side (its outputs are k = m mod T of that
 // class): a permutation within the group, so the tile's banks stay distinct.
-template <bool INDEX_FAST, bool OUT, int LOGT>
+template <bool INDEX_FAST, bool OUT, bool PAIRS, int LOGT>
 __device__ __forceinline__ void split(int tid, int lanes, int log_lanes, int& c, int& i) {
   if (!INDEX_FAST) {
     c = tid & (lanes - 1);
@@ -185,7 +200,7 @@ __device__ __forceinline__ void split(int tid, int lanes, int log_lanes, int& c,
     return;
   }
   i = tid & ((1 << LOGT) - 1);
-  if (kPairs) i = OUT ? pair_class<LOGT>(i) : brev(pair_class<LOGT>(i), LOGT);
+  if (PAIRS) i = OUT ? pair_class<LOGT>(i) : brev(pair_class<LOGT>(i), LOGT);
   const int g = tid >> LOGT;
   if (!kPadded) {
     c = g;
@@ -199,11 +214,17 @@ template <int LOGR, int KIND>
 __global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p) {
   using G = Geometry<LOGR>;
   constexpr int R = G::R, LOGT = G::LOGT, LOGP = G::LOGP, T = G::T, P = G::P;
-  constexpr bool IN_TFAST = KIND == kFwdB;
-  constexpr bool OUT_TFAST = KIND == kInvB;
+  constexpr bool ROWS = KIND == kFwdBRows || KIND == kInvBRows;
+  constexpr bool IN_TFAST = KIND == kFwdB || ROWS;
+  constexpr bool OUT_TFAST = KIND == kInvB || ROWS;
   constexpr int TWIST = !kTwists ? 0 : KIND == kFwdA ? 1 : KIND == kInvA ? 2 : 0;
-  using InT = typename std::conditional<KIND == kFwdA || KIND == kInvB, i64, unsigned>::type;
-  using OutT = typename std::conditional<KIND == kFwdB || KIND == kInvA, i64, unsigned>::type;
+  using InT = typename std::conditional<KIND == kFwdA || KIND == kInvB || KIND == kInvBRows,
+                                        i64, unsigned>::type;
+  using OutT = typename std::conditional<KIND == kFwdB || KIND == kInvA || KIND == kFwdBRows,
+                                         i64, unsigned>::type;
+  // a t-fast side pairs its words only where they are u32
+  constexpr bool IN_PAIRS = IN_TFAST && kPairs && sizeof(InT) == 4;
+  constexpr bool OUT_PAIRS = OUT_TFAST && kPairs && sizeof(OutT) == 4;
 
   extern __shared__ unsigned smem[];
   unsigned* tile = smem;                // [lanes][COL]
@@ -221,12 +242,12 @@ __global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p)
   const int chain = p.idx[row % p.L];
   const unsigned q = p.q[chain];
   const unsigned qinv = p.qinv_neg[chain];
-  const i64 rowoff = (i64)row * p.n;
+  const i64 rowoff = (i64)row * p.blk;
   const int lane0 = blockIdx.x * p.lanes;
   const unsigned emask = 2u * p.n - 1u;
   int c_in, i_in, c_out, j_out;
-  split<IN_TFAST, false, LOGT>(tid, p.lanes, p.log_lanes, c_in, i_in);
-  split<OUT_TFAST, true, LOGT>(tid, p.lanes, p.log_lanes, c_out, j_out);
+  split<IN_TFAST, false, IN_PAIRS, LOGT>(tid, p.lanes, p.log_lanes, c_in, i_in);
+  split<OUT_TFAST, true, OUT_PAIRS, LOGT>(tid, p.lanes, p.log_lanes, c_out, j_out);
   // the pairs' partner is lane ^ T/2 of the same warp; a block of fewer than
   // 32 threads (N = 2^6) is one partial warp
   const unsigned warp_mask = nthr >= 32 ? 0xffffffffu : (1u << nthr) - 1u;
@@ -238,7 +259,7 @@ __global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p)
   const i64 lane_in = lane0 + c_in;
   const int ib = (int)(__brev((unsigned)i_in) >> (32 - LOGT));
   unsigned v[P];
-  if constexpr (IN_TFAST && kPairs) {
+  if constexpr (IN_PAIRS) {
     // words 2 T w + 2 s and + 1 of the row (s: index in the group), i.e.
     // t = (2 w + [s high]) T + 2 (s mod T/2) + {0, 1}; the low thread keeps
     // its even class and sends the odd word, the high thread the reverse
@@ -291,8 +312,8 @@ __global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p)
       if (TWIST == 1)
         x = kModmul ? mul_shoup_lazy(x, t1d[t], t1dp[t], q) : x * t1d[t];
       else
-        x = kModmul ? mont_mul_lazy(x, twiddle(t, (unsigned)lane_in), q, qinv)
-                    : x * twiddle(t, (unsigned)lane_in);
+        x = kModmul ? mont_mul_lazy(x, twiddle(t, (unsigned)(lane_in + p.col0)), q, qinv)
+                    : x * twiddle(t, (unsigned)(lane_in + p.col0));
     }
   }
 
@@ -345,8 +366,8 @@ __global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p)
   const i64 lane_out = lane0 + c_out;
   auto finish = [&](unsigned x, int k) -> unsigned {
     if (TWIST == 1) {  // x < 4q, twiddle < q: x tw < q 2^32
-      x = kModmul ? mont_mul_lazy(x, twiddle(k, (unsigned)lane_out), q, qinv)
-                  : x * twiddle(k, (unsigned)lane_out);
+      x = kModmul ? mont_mul_lazy(x, twiddle(k, (unsigned)(lane_out + p.col0)), q, qinv)
+                  : x * twiddle(k, (unsigned)(lane_out + p.col0));
     } else if (TWIST == 2) {
       x = kModmul ? mul_shoup_lazy(x, t1d[k], t1dp[k], q) : x * t1d[k];
     } else {
@@ -354,7 +375,7 @@ __global__ void __launch_bounds__(kMaxLanes << (LOGR / 2)) k1_pass(const Pass p)
     }
     return x >= q ? x - q : x;
   };
-  if constexpr (OUT_TFAST && kPairs) {
+  if constexpr (OUT_PAIRS) {
     // output k = d T + j_out holds register (d mod (P / T)) T + d div (P / T);
     // thread s writes words 2 T w + 2 s and + 1, i.e. classes 2 (s mod T/2)
     // and + 1 at d = 2 w + [s high]: the low thread sends its d = 2 w + 1,
@@ -393,7 +414,10 @@ template <int LOGR, int KIND>
 int launch_pass(const Pass& p, int lanes, int rows, cudaStream_t stream) {
   using G = Geometry<LOGR>;
   constexpr bool twist = KIND == kFwdA || KIND == kInvA;
-  if (p.lanes < G::T || lanes % p.lanes) return (int)cudaErrorInvalidValue;
+  // a t-fast side spreads a block's lanes over groups of T threads; pass A's
+  // lanes may be fewer than T (a narrow block of columns)
+  constexpr bool tfast = KIND != kFwdA && KIND != kInvA;
+  if ((tfast && p.lanes < G::T) || lanes % p.lanes) return (int)cudaErrorInvalidValue;
   const size_t words = (size_t)p.lanes * G::COL + 2 * G::R + (twist ? 4 * G::R + p.nhi : 0);
   const size_t smem = words * sizeof(unsigned);
   if (smem > 48 * 1024) {
@@ -438,6 +462,7 @@ extern "C" int ntt_fourstep(const i64* x, i64* y, unsigned* scratch, const int* 
   base.idx = idx;
   base.L = L;
   base.n = n;
+  base.blk = n;
   base.tstride = n1;
   base.nhi = 2 * n2;
   base.q = q;
@@ -479,3 +504,57 @@ extern "C" int ntt_fourstep(const i64* x, i64* y, unsigned* scratch, const int* 
   a.out = y;
   return launch<kInvA>(log1, a, n2, rows, s);
 }
+
+#if NTT_ABLATE == 0
+// One pass over one block of every row (the distributed four-step: see the
+// head of this file). kind 0 forward A, 1 forward B, 2 inverse B, 3 inverse
+// A. Passes A: x, y [rows][n1][width], columns col0 .. col0 + width - 1 of
+// the [n1][n2] limb matrix; x int64 and y u32 forward, the reverse
+// inverse. Passes B: x, y [rows][width][n2], a block of rows, row-major;
+// forward u32 -> int64, inverse int64 -> u32. Tables as ntt_fourstep's.
+extern "C" int ntt_pass(const void* x, void* y, const int* idx, int L, int rows, int n, int n1,
+                        int n2, int kind, int width, int col0, const unsigned* q,
+                        const unsigned* qinv_neg, const unsigned* roots,
+                        const unsigned* roots_shoup, const unsigned* t1d,
+                        const unsigned* t1d_shoup, const unsigned* lo, const unsigned* lo_shoup,
+                        const unsigned* hi_mont, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int log1 = ilog2(n1), log2 = ilog2(n2), logw = ilog2(width);
+  const bool pass_a = kind == 0 || kind == 3;
+  const int span = pass_a ? n2 : n1;  // the axis the block cuts
+  if ((1 << log1) != n1 || (1 << log2) != n2 || n1 * n2 != n || L <= 0 || rows % L ||
+      kind < 0 || kind > 3 || (1 << logw) != width || width > span || col0 < 0 ||
+      col0 % width || col0 + width > span || (!pass_a && col0))
+    return (int)cudaErrorInvalidValue;
+  Pass p = {};
+  p.in = x;
+  p.out = y;
+  p.idx = idx;
+  p.L = L;
+  p.n = n;
+  p.col0 = col0;
+  p.tstride = n1;
+  p.nhi = 2 * n2;
+  p.q = q;
+  p.qinv_neg = qinv_neg;
+  p.roots = roots;
+  p.roots_shoup = roots_shoup;
+  p.t1d = t1d;
+  p.t1d_shoup = t1d_shoup;
+  p.lo = lo;
+  p.lo_shoup = lo_shoup;
+  p.hi_mont = hi_mont;
+  p.lanes = width < kMaxLanes ? width : kMaxLanes;
+  p.log_lanes = ilog2(p.lanes);
+  if (pass_a) {  // lanes: the block's columns, transform over j1 (or k1)
+    p.blk = n1 * width;
+    p.in_st = p.out_st = width;
+    return kind == 0 ? launch<kFwdA>(log1, p, width, rows, s)
+                     : launch<kInvA>(log1, p, width, rows, s);
+  }
+  p.blk = width * n2;  // lanes: the block's rows, transform along each row
+  p.in_st = p.out_st = n2;
+  return kind == 1 ? launch<kFwdBRows>(log2, p, width, rows, s)
+                   : launch<kInvBRows>(log2, p, width, rows, s);
+}
+#endif

@@ -134,3 +134,30 @@ def chest_from_reference(ref_chest, device="cuda"):
     }
     return cls(**{f.name: carry[f.name](getattr(ref_chest, f.name))
                   for f in dataclasses.fields(cls)})
+
+
+def mesh_from_reference(shape, devices):
+    """A reference Mesh's ('limb', 'coeff') shape (its `mesh.shape`, or a
+    (limb, coeff) pair) as the port's FheMesh over `devices` (e.g.
+    ["cpu"] * 8, or ["cuda:0"] * 8 on one card)."""
+    from gpufhe_tpu_torch.parallel.mesh import make_fhe_mesh
+
+    n_limb, n_coeff = (shape["limb"], shape["coeff"]) if hasattr(shape, "keys") else shape
+    return make_fhe_mesh(int(n_limb), int(n_coeff), devices=list(devices))
+
+
+def sharded_ct_from_numpy(blocks, level: int, scale: float, mesh):
+    """A reference ShardedCiphertext's components (np.asarray of each eval3d
+    array [K, n1, n2]) -> the port's ShardedCiphertext on `mesh`, each
+    component cut over coeff onto the shards' devices."""
+    from gpufhe_tpu_torch.parallel.backend import ShardedCiphertext
+
+    comps = []
+    for x in blocks:
+        e3 = torch.from_numpy(np.asarray(x).astype(np.int64))
+        if e3.dim() != 3 or e3.shape[0] != level:
+            raise ValueError(f"component {tuple(e3.shape)} is not [{level}, n1, n2]")
+        b = e3.shape[1] // mesh.shape["coeff"]
+        comps.append(mesh.put(lambda l, c, dev, e3=e3: e3[:, c * b:(c + 1) * b].to(dev)
+                              .contiguous()))
+    return ShardedCiphertext(comps, level, float(scale))

@@ -164,8 +164,21 @@ def test_keygen_file_equals_the_reference_and_loads_in_a_session(tmp_path):
 
 
 def test_the_port_has_no_bench_scaling_or_cache():
-    """bench (the reference's bench.py) and scaling (its parallel/) wait for
-    the port's benchmark and parallel package; --cache is XLA's."""
-    for argv in (["bench"], ["scaling"], ["--cache", "x", "security"]):
+    """bench (the reference's bench.py) waits for the port's benchmark;
+    --cache is XLA's. (scaling has come with the parallel package:
+    test_scaling_subcommand_reports_the_one_distinct_device.)"""
+    for argv in (["bench"], ["--cache", "x", "security"]):
         with pytest.raises(SystemExit):
             cli.main(argv)
+
+
+def test_scaling_subcommand_reports_the_one_distinct_device():
+    """scaling over the CPU: of the reference's default mesh shapes only the
+    1 x 1 row fits one distinct device (logical shards on one device are
+    never reported as scaling); each row has the reference's keys."""
+    rows = _lines(cli.main, ["--cpu", "scaling", "--iters", "1"])
+    assert [(r["mode"], r["mesh"], r["devices"], r["batch"]) for r in rows] == [
+        ("strong", "limb=1 x coeff=1", 1, 1), ("weak", "limb=1 x coeff=1", 1, 1)]
+    assert all(sorted(r) == sorted(("mode", "mesh", "devices", "batch", "ms_per_mult",
+                                    "ops_per_s", "scaling_eff_pct")) for r in rows)
+    assert all(r["ops_per_s"] > 0 and r["scaling_eff_pct"] == 100.0 for r in rows)

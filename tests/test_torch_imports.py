@@ -51,6 +51,9 @@ def test_scan_covers_the_port():
         assert f"gpufhe_tpu_torch/{module}.py" in names
     for module in ("__init__", "serialization", "security", "noise", "profiling", "benchkit"):
         assert f"gpufhe_tpu_torch/utils/{module}.py" in names
+    for module in ("__init__", "mesh", "sharded", "bfv_sharded", "backend", "planner",
+                   "multihost"):
+        assert f"gpufhe_tpu_torch/parallel/{module}.py" in names
 
 
 def test_package_import_builds_nothing_and_needs_no_card():

@@ -579,3 +579,83 @@ def test_session_save_load_on_card_equals_cpu(cuda_device, scheme, tmp_path):
         outs.append(sess.rotate(sess.mul(c, c), 1))
     chip_smoke.same_limbs(outs[0], outs[1], f"{scheme} loaded mul and rotate")
     chip_smoke.same_limbs(outs[0], s.rotate(s.mul(ct, ct), 1), f"{scheme} against the original")
+
+
+# -- the mesh (gpufhe_tpu_torch/parallel): K1's pass entry point and the
+# sharded programs on eight logical shards of the card, each == the CPU --
+
+# boot_dw_ci: pass A blocks of 2 columns (fewer lanes than a t-fast group)
+@pytest.mark.parametrize("name", ["tiny2", "boot_dw_ci", "ci_small", "config5_boot"])
+def test_ntt_pass_kernel_matches_plain(cuda_device, name):
+    """Each of ntt_pass's four kinds == fourstep_pass_plain on every block
+    of a 4-way cut of the Q+P chain, at its column offset."""
+    params = preset(name)
+    ctx = make_context(params, cuda_device)
+    rows, n1, n2 = ctx.num_total, ctx.n1, ctx.n2
+    idx = ctx.index(range(rows), torch.int32)
+    q = torch.tensor(ctx.primes, dtype=torch.int64, device=cuda_device)[:, None, None]
+    rng = np.random.default_rng(9)
+    before = ntt_cuda.PASS_KERNEL.launches
+    shapes = {ntt_cuda.FWD_A: ((n1, n2 // 4), torch.int64), ntt_cuda.FWD_B: ((n1 // 4, n2), torch.int32),
+              ntt_cuda.INV_B: ((n1 // 4, n2), torch.int64), ntt_cuda.INV_A: ((n1, n2 // 4), torch.int32)}
+    for kind, (shape, dtype) in shapes.items():
+        for c in range(4):
+            x = torch.remainder(torch.from_numpy(rng.integers(0, 1 << 62, size=(rows, *shape)))
+                                .to(cuda_device), q).to(dtype)
+            col0 = c * shape[1] if kind in (ntt_cuda.FWD_A, ntt_cuda.INV_A) else 0
+            got = ntt_cuda.fourstep_pass_cuda(x, idx, ctx, kind, col0)
+            assert torch.equal(got, ntt_cuda.fourstep_pass_plain(x, idx, ctx, kind, col0))
+    assert ntt_cuda.PASS_KERNEL.launches == before + 16
+
+
+def _mesh_same(got, want):
+    from gpufhe_tpu_torch.parallel import sharded as sh
+
+    for g, w in zip(got, want):
+        assert torch.equal(sh.unshard_ct_component(g), sh.unshard_ct_component(w))
+
+
+@pytest.mark.parametrize("name", ["ci_small", "bgv_ci", "bfv_ci"])
+def test_sharded_mult_on_card_equals_cpu(cuda_device, name):
+    """make_sharded_mult (CKKS at ci_small, BGV at bgv_ci) and
+    make_sharded_bfv_mult (bfv_ci) on eight shards of the card == on eight
+    CPU shards, with K1's passes, K3 and K4 launched and no whole-limb NTT."""
+    from gpufhe_tpu_torch.parallel import sharded as sh
+    from gpufhe_tpu_torch.parallel.bfv_sharded import make_sharded_bfv_mult
+
+    params = preset(name)
+    level = params.num_limbs
+    comps = [torch.from_numpy(_rand(params.q_primes, range(level), params.n, s))
+             for s in range(4)]
+    ctx_cpu = make_context(params, "cpu")
+    chest = dkeys.keygen(params, np.random.default_rng(7), ctx=ctx_cpu)
+    make = make_sharded_bfv_mult if name == "bfv_ci" else sh.make_sharded_mult
+    outs = {}
+    for device in ("cpu", cuda_device):
+        mesh = sh.make_fhe_mesh(2, 4, devices=[device] * 8)
+        run, prepare = make(params, level, mesh)
+        rlk = type(chest.device_rlk)(*(k.to(device) for k in chest.device_rlk))
+        counts = (ntt_cuda.KERNEL.launches, ntt_cuda.PASS_KERNEL.launches,
+                  convert_cuda.KERNEL.launches, mac_cuda.KERNEL.launches)
+        outs[str(device)] = run(*[sh.shard_ct_component(c, params, mesh) for c in comps],
+                                prepare(rlk))
+        after = (ntt_cuda.KERNEL.launches, ntt_cuda.PASS_KERNEL.launches,
+                 convert_cuda.KERNEL.launches, mac_cuda.KERNEL.launches)
+        if device != "cpu":
+            d = [a - b for a, b in zip(after, counts)]
+            assert d[0] == 0 and min(d[1:]) > 0, d
+    _mesh_same(outs[str(cuda_device)], outs["cpu"])
+
+
+@pytest.mark.parametrize("name", chip_smoke.MESH_CI_ITEMS)
+def test_mesh_ci_item_on_card_equals_cpu(cuda_device, name):
+    """chip_smoke.mesh_ci_run's item on eight shards of the card == on eight
+    CPU shards (the sharded bootstrap also == the single-device one)."""
+    got, want = chip_smoke.mesh_ci_run(cuda_device, (name,)), chip_smoke.mesh_ci_run("cpu", (name,))
+    assert sorted(got) == sorted(want)
+    for key in got:
+        for g, w in zip(got[key], want[key], strict=True):
+            assert torch.equal(g, w), key
+    if name.startswith("bootstrap"):
+        for g, w in zip(got[name], got[f"{name} single"], strict=True):
+            assert torch.equal(g, w)

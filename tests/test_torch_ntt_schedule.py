@@ -306,27 +306,28 @@ def _pair_class(s, logt):
     return 2 * (s & (h - 1)) + (s >= h)
 
 
-def _split(tid, lanes, logt, index_fast, padded=True, out=False):
+def _split(tid, lanes, logt, index_fast, padded=True, out=False, pairs=True):
     """csrc/ntt.cu split: (column, index) of thread tid."""
     log_lanes = lanes.bit_length() - 1
     if not index_fast:
         return tid & (lanes - 1), tid >> log_lanes
     i, g = tid & ((1 << logt) - 1), tid >> logt
-    i = _pair_class(i, logt) if out else _brev(_pair_class(i, logt), logt)
+    if pairs:
+        i = _pair_class(i, logt) if out else _brev(_pair_class(i, logt), logt)
     if not padded:
         return g, i
     log_per = log_lanes - logt
     return ((g & ((1 << log_per) - 1)) << logt) + (g >> log_per), i
 
 
-def _warps(logr, lanes, index_fast, write, padded=True):
+def _warps(logr, lanes, index_fast, write, padded=True, pairs=True):
     """Word addresses of each warp's accesses: per warp, per register."""
     T, P, row, col = _geometry(logr, padded)
     logt = logr // 2
     nthr = lanes * T
     out = []
     for w0 in range(0, nthr, 32):
-        threads = [_split(t, lanes, logt, index_fast, padded, out=not write)
+        threads = [_split(t, lanes, logt, index_fast, padded, out=not write, pairs=pairs)
                    for t in range(w0, min(w0 + 32, nthr))]
         if write:  # thread (c, i) writes registers r at c COL + i ROW + r
             regs = [[c * col + i * row + r for c, i in threads] for r in range(P)]
@@ -349,6 +350,32 @@ def test_exchange_is_a_bijection(logr):
     for fast in (False, True):  # each side's thread map is a bijection
         for out in (False, True):
             assert len({_split(t, lanes, logr // 2, fast, out=out)
+                        for t in range(lanes * T)}) == lanes * T
+
+
+@pytest.mark.parametrize("logr", range(3, 9))
+def test_ntt_pass_block_exchanges_are_bijections(logr):
+    """ntt_pass's blocks: pass A on a block narrower than a t-fast group
+    (lanes < T: both sides lane-fast, 2 columns at boot_dw_ci), and pass B
+    on a block of rows with both sides t-fast, the int64 side unpaired (one
+    word per thread) and the u32 side paired: every word of the tile is
+    written once and read once."""
+    T, P, _, _ = _geometry(logr)
+    for lanes in (1, 2, 4):  # pass A, lane-fast both sides
+        wrote = sorted(a for w in _warps(logr, lanes, False, True) for reg in w for a in reg)
+        read = sorted(a for w in _warps(logr, lanes, False, False) for reg in w for a in reg)
+        assert wrote == read and len(set(wrote)) == lanes * T * P
+    for lanes in (T, 32):  # pass B rows: in unpaired (int64) -> out paired, and back
+        if lanes < T:
+            continue
+        for in_pairs, out_pairs in ((False, True), (True, False)):
+            wrote = sorted(a for w in _warps(logr, lanes, True, True, pairs=in_pairs)
+                           for reg in w for a in reg)
+            read = sorted(a for w in _warps(logr, lanes, True, False, pairs=out_pairs)
+                          for reg in w for a in reg)
+            assert wrote == read and len(set(wrote)) == lanes * T * P
+        for out in (False, True):
+            assert len({_split(t, lanes, logr // 2, True, out=out, pairs=False)
                         for t in range(lanes * T)}) == lanes * T
 
 

@@ -448,7 +448,7 @@ def test_package_and_utils_export_the_reference_names():
 
 
 def test_cli_subcommands_and_arguments_match_the_reference(monkeypatch):
-    """Every subcommand of the reference's CLI but bench and scaling, with
+    """Every subcommand of the reference's CLI but bench, with
     the reference's arguments and defaults; the global --cpu flag, not
     --cache (XLA's compile cache)."""
     import argparse
@@ -477,7 +477,7 @@ def test_cli_subcommands_and_arguments_match_the_reference(monkeypatch):
 
     port, port_flags = parsers(pcli.main)
     ref, ref_flags = parsers(rcli.main)
-    assert sorted(port) == sorted(set(ref) - {"bench", "scaling"})
+    assert sorted(port) == sorted(set(ref) - {"bench"})
     for name, args in port.items():
         assert args == ref[name], name
     assert port_flags == ["cpu"] and ref_flags == ["cache", "cpu"]
