@@ -142,16 +142,29 @@ to 0 just before it and read just after:
           first-call seconds, steady ms beside the single device's, peak
           memory; mesh_ci the dw bootstrap at boot_dw_ci over
           ShardedBackend (== the single device's) and the BGV and BFV
-          rotations and hoisted fans at CI size, card == CPU.
+          rotations and hoisted fans at CI size, card == CPU;
+  golden  golden_vectors (after mesh_kernels, its own launch counts): the
+          five files of tests/vectors that a device path reaches
+          (config2_rns, config3_ckks, config4_rotations, bgv_integer,
+          bfv_integer), each reproduced on the card from the seed and preset
+          it stores, every stored array == the card's output; golden_n16
+          (after cli): the port's golden model (golden/*: numpy, none of the
+          port's kernels or torch ops), in a third CPU twins process,
+          regenerates all six files (config1's 60-bit NTT too), each == its
+          file, and computes the config5_boot ct_mul and the bfv_n16 BGV and
+          BFV ct_mul from the mul, bgv and bfv paths' seeds: the card's
+          products == them limb for limb, an oracle at N=2^16 that shares no
+          code with the card's side but the host encoders and samplers.
 
 Each path's ciphertexts are checked == the same path on the CPU and decoded
 against the cleartext result. The CPU twins run beside the card's paths and
 are joined after cli, where every check against them is made: those of mul,
 rotate, dw and one BGV and one BFV ct_mul in one process from the start, those
 of the CI-size items (boot_ci, int_ci, boot_h_ring, models_ci, session_ci,
-mesh_ci) in another (CpuTwins), and the boot path's ModRaise stage in a
-background thread. The kernels and stage leaves are timed with
-CUDA events and the kernels also by the profiler's kernel time, and every
+mesh_ci) in another, the golden model's (golden_n16) in a third (CpuTwins),
+and the boot path's ModRaise stage in a background thread. The kernels and
+stage leaves are timed with CUDA events and the kernels also by the
+profiler's kernel time, and every
 bound is restated with the integer rates measured in this run. K1 is also
 timed alone, forward and inverse, at config5_boot's Q+P chain (45 limbs)
 and at the dw key switch's raised digits (58 limbs x 5), beside its bound
@@ -172,6 +185,7 @@ import dataclasses
 import gc
 import json
 import math
+import pathlib
 import re
 import subprocess
 import time
@@ -195,9 +209,14 @@ ROTATIONS = (1, 3)
 # rotation from the scheme's noise. (The multiply's key switch runs at the
 # product's scale 2^56 and is rescaled away.)
 ROT_SCALE_BITS = 40
-# H100 SXM peak outside the tensor cores (float32 rate): the bound of the
-# integer-rate probe's own rows; the kernels' bounds use the measured rates
-ALU_OPS_PER_S = 67e12
+# The integer-rate probe's own bound (its rows in the kernels line; the
+# kernels' bounds use the rates it measures): the CUDA C++ programming
+# guide's arithmetic-throughput table gives 64 results per clock per SM for a
+# 32-bit integer multiply-add at compute capability 9.0, counted as two
+# operations as the probe counts them, on every SM at the card's maximum SM
+# clock (int_peak_ops_per_s): 132 x 64 x 2 x 1.98 GHz = 33.45 T ops/s on an
+# H100 SXM, half the float32 rate outside the tensor cores.
+INT_MAD_PER_CLOCK_PER_SM = 64
 DECODE_TOL = 1e-2  # tests/test_pipeline.py:109
 BOOT_PRESET = "config5_boot_dw"
 BOOT_CI_PRESET = "boot_dw_ci_enc"
@@ -290,6 +309,20 @@ def card() -> tuple[str, str]:
     return line, torch.cuda.get_device_name(0)
 
 
+def int_peak_ops_per_s() -> tuple[float, str]:
+    """The card's peak 32-bit integer multiply-add rate in operations per
+    second (two per multiply-add), from its SM count and its maximum SM
+    clock as nvidia-smi reports it, and how it was formed."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * INT_MAD_PER_CLOCK_PER_SM * 2 * mhz * 1e6
+    return rate, (f"{sms} SMs x {INT_MAD_PER_CLOCK_PER_SM} 32-bit multiply-adds per clock x 2 "
+                  f"ops x {mhz:.0f} MHz (clocks.max.sm)")
+
+
 def device_profile(fn, iters: int = 5) -> tuple[float, float, list]:
     """Profile `iters` calls: (device-busy ms per call, the profiled calls'
     own CUDA-event ms per call, [(device ms per call, kernel name, launches
@@ -378,17 +411,21 @@ def exact(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
     return err
 
 
-def same_limbs(got, want, what: str) -> None:
-    """A card ciphertext == its CPU-path twin: level, scale (CKKS) or
-    pt_factor (BGV) and every limb."""
+def same_limbs(got, want, what: str) -> int:
+    """A card ciphertext == its twin (the CPU path's, or the golden model's
+    numpy one): level, scale (CKKS) or pt_factor (BGV) and every limb.
+    Returns the limbs compared."""
+    from gpufhe_tpu_torch.golden.ckks import host_limbs
+
     tags = [(c.level, getattr(c, "scale", None), getattr(c, "pt_factor", None), len(c.c))
             for c in (got, want)]
     if tags[0] != tags[1]:
-        raise AssertionError(f"{what}: level, scale, pt_factor or size differ from the CPU "
-                             f"path: {tags}")
+        raise AssertionError(f"{what}: level, scale, pt_factor or size differ from its twin: "
+                             f"{tags}")
     for i, (g, c) in enumerate(zip(got.c, want.c)):
-        if not torch.equal(g.cpu(), c.cpu()):
-            raise AssertionError(f"{what}: component {i} differs from the CPU path")
+        if not np.array_equal(host_limbs(g), host_limbs(c)):
+            raise AssertionError(f"{what}: component {i} differs from its twin")
+    return sum(c.shape[0] for c in want.c)
 
 
 def decode_err(got: np.ndarray, want: np.ndarray, slots: int, what: str,
@@ -1377,11 +1414,184 @@ def int_inputs(scheme: str, params, ctx) -> tuple:
     return m1, m2, chest, pts, (a, b), keygen_s
 
 
+VECTOR_DIR = pathlib.Path(__file__).resolve().parent / "tests" / "vectors"
+# the known-answer vectors a device path reaches (config1's 60-bit prime lies
+# outside the device's word: golden_n16 checks it on the host)
+GOLDEN_VECTORS = ("config2_rns", "config3_ckks", "config4_rotations", "bgv_integer",
+                  "bfv_integer")
+
+
+def golden_vector_run(name: str, dev) -> dict:
+    """One file of tests/vectors through the port's device path on dev, from
+    the seed and preset it stores (as tests/test_torch_rns.py,
+    test_torch_pipeline.py, test_torch_rotations.py, test_torch_bgv.py and
+    test_torch_bfv.py reproduce it on the CPU): every array it stores that a
+    device path computes == dev's output. Returns the arrays and limbs
+    compared."""
+    from gpufhe_tpu_torch.ciphertext import bfv as dbfv
+    from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.encoding import encoder
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+    from gpufhe_tpu_torch.golden import ckks as gckks
+    from gpufhe_tpu_torch.keys import keys as dkeys
+    from gpufhe_tpu_torch.ops import convert_cuda
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.ops.modops import add_mod, mul_mod
+    from gpufhe_tpu_torch.params.params import preset
+    from gpufhe_tpu_torch.primitives import rns
+
+    want = np.load(VECTOR_DIR / f"{name}.npz")
+    params = preset(name if name == "config2_rns" else want["preset"].item().decode())
+    ctx = make_context(params, dev)
+    seed = None if name == "config2_rns" else int(want["seed"])
+    got = {}
+
+    def ct_arrays(tag, ct):
+        for i, c in enumerate(ct.c):
+            got[f"{tag}_c{i}"] = c
+
+    if name == "config2_rns":
+        if tuple(want["q_primes"]) != params.q_primes or tuple(want["p_primes"]) != params.p_primes:
+            raise AssertionError("config2_rns: the stored primes are not the preset's")
+        level = params.num_limbs
+        q = ctx.col("q", range(level))
+        a, b = (torch.from_numpy(want[k]).to(ctx.device) for k in ("a", "b"))
+        got["add"], got["mul"] = add_mod(a, b, q), mul_mod(a, b, q)
+        got["base_convert_to_p"] = convert_cuda.base_convert(
+            a, convert_cuda.make_convert_tables(params.q_primes, params.p_primes, ctx.device))
+        got["rescale"] = rns.rescale(a, params, level, ctx,
+                                     rns.make_ks_context(params, level, ctx.device))
+    elif name == "config3_ckks":
+        chest = dkeys.keygen(params, np.random.default_rng(seed), ctx=ctx)
+        ca, cb = (dct.encrypt(encoder.encode(want[z], params), params, chest.device_pk, ctx,
+                              np.random.default_rng(seed + 2 + i), params.scale)
+                  for i, z in enumerate(("za", "zb")))
+        t = dct.ct_tensor(ca, cb, ctx)
+        r = dct.ct_relinearize(t, params, ctx, chest.device_rlk)
+        s = dct.ct_rescale(r, params, ctx)
+        got.update({"ct_a0": ca.c[0], "ct_a1": ca.c[1], **{f"tensor_d{i}": c for i, c in
+                                                          enumerate(t.c)}})
+        ct_arrays("relin", r)
+        ct_arrays("rescale", s)
+        got["decrypt_coeff"] = dct.decrypt_to_coeff(s, params, chest.device_sk, ctx)
+    elif name == "config4_rotations":
+        # the vector draws sk, pk and the two Galois keys, no rlk: the golden
+        # key functions with ctx, in its order
+        rng = np.random.default_rng(seed)
+        sk, pk = gckks.keygen(params, rng, ctx=ctx)
+        gks = {s: dkeys.upload_ks_key(gckks.make_galois_key(params, s, sk, rng, ctx=ctx), params,
+                                      ctx=ctx) for s in (1, 3)}
+        ct = dct.encrypt(encoder.encode(want["z"], params), params,
+                         dkeys.upload_public_key(pk, params, ctx=ctx), ctx,
+                         np.random.default_rng(seed + 2), params.scale)
+        for s, out in zip((1, 3), dct.ct_rotate_hoisted(ct, [1, 3], params, ctx, gks)):
+            ct_arrays(f"rot{s}", out)
+    else:
+        mod = dbgv if name == "bgv_integer" else dbfv
+        tm = params.plain_modulus
+        chest = mod.keygen(params, np.random.default_rng(seed), rotations=(1,), ctx=ctx)
+        mrng = np.random.default_rng(seed + 1)
+        m1, m2 = (mrng.integers(0, tm, size=params.n, dtype=np.int64) for _ in range(2))
+        if not ((m1 == want["m1"]).all() and (m2 == want["m2"]).all()):
+            raise AssertionError(f"{name}: the messages drawn from its seed are not its own")
+        c1, c2 = (mod.encrypt(gbgv.encode(m, params), params, chest.device_pk, ctx,
+                              np.random.default_rng(seed + 2 + i)) for i, m in enumerate((m1, m2)))
+        prod = mod.ct_mul(c1, c2, params, ctx, chest.device_rlk)
+        ct_arrays("ct1", c1)
+        ct_arrays("mul", prod)
+        ct_arrays("rot1", mod.ct_rotate(c1, 1, params, ctx, chest.galois_key(1)))
+        if mod is dbgv:
+            got["mul_pt_factor"] = prod.pt_factor
+        else:
+            ct_arrays("modred", dbfv.ct_mod_reduce(prod, params, ctx))
+            sw = dbfv.bfv_to_bgv(c1, params, ctx)
+            ct_arrays("switch", sw)
+            got["switch_pt_factor"] = sw.pt_factor
+    computed = {"m1", "m2", "za", "zb", "z", "a", "b", "q_primes", "p_primes", "seed", "preset"}
+    missing = set(want.files) - computed - set(got)
+    if missing:
+        raise AssertionError(f"{name}: no device output for {sorted(missing)}")
+    limbs = 0
+    for key, value in got.items():
+        arr = gckks.host_limbs(value)
+        if arr.shape != want[key].shape or not (arr == want[key]).all():
+            raise AssertionError(f"{name}: {key} on {dev} != the stored vector")
+        limbs += arr.shape[0] if arr.ndim == 2 else 0
+    return {"arrays": len(got), "limbs": limbs, "n": params.n}
+
+
+def golden_vectors(dev, smi, counts, reset, launches: dict) -> None:
+    """Phase golden_vectors: the five device-reachable files of tests/vectors
+    on the card, every stored array == the card's output (golden_vector_run)."""
+    t = time.perf_counter()
+    reset()
+    done = {}
+    for name in GOLDEN_VECTORS:
+        t1 = time.perf_counter()
+        r = golden_vector_run(name, dev)
+        done[name] = r
+        print(f"golden_vectors {name}: {r['arrays']} arrays, {r['limbs']} limbs == the stored "
+              f"vector at N={r['n']} ({time.perf_counter() - t1:.2f} s)  [{smi}]", flush=True)
+    launches["golden_vectors"] = counts()
+    if min(launches["golden_vectors"].values()) <= 0:
+        raise AssertionError(f"golden_vectors: a kernel did not run ({launches['golden_vectors']})")
+    say("golden_vectors", f"the card == {sum(r['arrays'] for r in done.values())} stored arrays "
+        f"({sum(r['limbs'] for r in done.values())} limbs) of {', '.join(done)}; launches "
+        f"{launches['golden_vectors']}  [{smi}]", t)
+
+
+def golden_twins(lap) -> dict:
+    """The "golden" CPU twins (golden_n16's host side, numpy only): all six
+    known-answer vectors regenerated by the port's golden model, each == its
+    file; the golden ct_mul at PRESET from the mul path's seeds and the
+    golden BGV and BFV ct_mul at INT_PRESET from int_inputs' seeds, each
+    from keys drawn in keys.keygen's order (sk, pk, rlk first)."""
+    from gpufhe_tpu_torch.golden import bfv as gbfv
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+    from gpufhe_tpu_torch.golden import ckks as gckks
+    from gpufhe_tpu_torch.golden import native, vectors
+    from gpufhe_tpu_torch.params.params import preset
+
+    out = {"native": native.get_lib() is not None}
+    for name, gen in vectors.GENERATORS.items():
+        got, want = gen(), np.load(VECTOR_DIR / f"{name}.npz")
+        if sorted(got) != sorted(want.files) or any(
+                np.asarray(got[k]).dtype != want[k].dtype
+                or not (np.asarray(got[k]) == want[k]).all() for k in want.files):
+            raise AssertionError(f"golden {name}: the regenerated vector != its file")
+    lap("golden vectors x6")
+    params = preset(PRESET)
+    rng = np.random.default_rng(SEED)
+    sk, pk = gckks.keygen(params, rng)
+    rlk = gckks.make_relin_key(params, sk, rng)
+    lap("golden keygen (sk, pk, rlk)")
+    cts = [gckks.encrypt(gckks.encode(z, params.scale, params.q_primes, params.n), params, pk,
+                         np.random.default_rng(SEED + 2 + i), params.scale)
+           for i, z in enumerate(mul_inputs(params))]
+    lap("golden encrypt x2")
+    out["mul"] = gckks.ct_mul(cts[0], cts[1], params, rlk)
+    lap("golden ct_mul")
+    ip = preset(INT_PRESET)
+    for scheme, mod, base in (("bgv", gbgv, SEED + 31), ("bfv", gbfv, SEED + 41)):
+        zr = np.random.default_rng(base)
+        ms = [zr.integers(0, ip.plain_modulus, size=ip.n, dtype=np.int64) for _ in range(2)]
+        rng = np.random.default_rng(base + 1)
+        sk, pk = mod.keygen(ip, rng)
+        rlk = mod.make_relin_key(ip, sk, rng)
+        lap(f"golden {scheme} keygen (sk, pk, rlk)")
+        a, b = (mod.encrypt(mod.encode(m, ip), ip, pk, np.random.default_rng(base + 2 + i))
+                for i, m in enumerate(ms))
+        out[scheme] = mod.ct_mul(a, b, ip, rlk)
+        lap(f"golden {scheme} encrypt x2, ct_mul")
+    return out
+
+
 # torch threads of the CPU twins' processes (CpuTwins): the N=2^16 paths'
 # twins take 3, the CI-size items', which are host work in small ops, take 1;
 # the rest of the host's cores stay with the card's paths, whose launches are
 # host work
-CPU_TWIN_THREADS = {"n16": 3, "ci": 1}
+CPU_TWIN_THREADS = {"n16": 3, "ci": 1, "golden": 1}
 
 
 def cpu_twins(group: str, path: str) -> None:
@@ -1390,7 +1600,8 @@ def cpu_twins(group: str, path: str) -> None:
     written to `path` (torch.save). "n16": the mul, rotate and dw paths and
     one ct_mul each of bgv and bfv at INT_PRESET; "ci": the CI-size items
     checked card == CPU (boot_ci, int_ci, boot_h_ring, models_ci,
-    session_ci, mesh_ci)."""
+    session_ci, mesh_ci); "golden": the golden model's side of golden_n16
+    (golden_twins, numpy)."""
     import os
 
     from gpufhe_tpu_torch.ciphertext import bfv as dbfv
@@ -1424,6 +1635,8 @@ def cpu_twins(group: str, path: str) -> None:
             _, _, chest, _, (a, b), _ = int_inputs(scheme, ip, ictx)
             out[scheme] = mod.ct_mul(a, b, ip, ictx, chest.device_rlk)
             lap(scheme)
+    elif group == "golden":
+        out = golden_twins(lap)
     else:
         out["boot_ci"] = boot_ci_run("cpu", none)[1]
         lap("boot_ci")
@@ -1474,6 +1687,30 @@ class CpuTwins:
             self._proc.terminate()
             self._proc.join()
         self._dir.cleanup()
+
+
+def golden_n16(card: dict, smi):
+    """Returns the check golden_n16: the card's ct_mul_full at PRESET (the
+    mul path's product) and its BGV and BFV ct_mul at INT_PRESET (the bgv
+    and bfv paths' first products) == the port's golden model from the same
+    seeds, limb for limb, computed by the "golden" CPU twins in numpy (none
+    of the port's kernels or torch ops), with the six known-answer vectors
+    regenerated there, each == its file."""
+
+    def check(cpu):
+        t = time.perf_counter()
+        gold = cpu["golden"]
+        limbs = {k: same_limbs(card[k], gold[k], f"golden_n16 {k}")
+                 for k in ("mul", "bgv", "bfv")}
+        say("golden_n16", f"the card == the golden model (numpy; the "
+            f"{'native C' if gold['native'] else 'numpy'} golden NTT) limb for limb: "
+            f"{PRESET} ct_mul_full {limbs['mul']} limbs, {INT_PRESET} BGV ct_mul {limbs['bgv']} "
+            f"(pt_factor {card['bgv'].pt_factor}) and BFV ct_mul {limbs['bfv']}; the six "
+            f"vectors of tests/vectors regenerated == their files; host seconds "
+            + ", ".join(f"{k} {v:.2f}" for k, v in gold["secs"].items())
+            + f" (total {sum(gold['secs'].values()):.2f})  [{smi}]", t)
+
+    return check
 
 
 def bgv_path(dev, smi, counts, reset, launches) -> dict:
@@ -2895,8 +3132,11 @@ def mesh_kernels(dev, smi, params, ctx) -> dict:
         nbytes = 12 * rows * n // c_dim
         timing[name] = {"ms": ms, "plain_ms": plain, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                         "launches": nc.PASS_KERNEL.launches}
+        timing[name]["device_ms"], _ = kernel_ms(
+            lambda: nc.fourstep_pass_cuda(x, idx, ctx, kind, col0), K1_NAME)
         print(f"mesh_kernels ntt_pass {name} {rows} limbs x 1/{c_dim} of 2^{n.bit_length() - 1}: "
-              f"{ms:.4f} ms per block (plain {plain:.3f}); bound {timing[name]['bound_ms']:.5f} "
+              f"{ms:.4f} ms per block by events, {timing[name]['device_ms']:.4f} device (plain "
+              f"{plain:.3f}); bound {timing[name]['bound_ms']:.5f} "
               f"ms (bytes, {nbytes / 1e6:.2f} MB), {ms / timing[name]['bound_ms']:.2f}x  "
               f"[{smi}]", flush=True)
     mesh = mesh_of(dev)
@@ -2911,8 +3151,9 @@ def mesh_kernels(dev, smi, params, ctx) -> dict:
     for i, row in enumerate(back):
         exact(torch.cat(row, dim=1).reshape(rows, n), x, f"distributed inverse NTT, limb row {i}")
     say("mesh_kernels", f"ntt_pass == fourstep_pass_plain in its four kinds ({checked} blocks of "
-        f"{rows} limbs, C = {c_dim}); ms per block " + ", ".join(
-            f"{k} {v['ms']:.4f} ({v['ms'] / v['bound_ms']:.2f}x its bound)"
+        f"{rows} limbs, C = {c_dim}); ms per block by events / device " + ", ".join(
+            f"{k} {v['ms']:.4f} / {v['device_ms']:.4f} ({v['device_ms'] / v['bound_ms']:.2f}x "
+            f"its bound)"
             for k, v in timing.items())
         + f"; the distributed fwd and inv NTT on {MESH_SHAPE[0]} x {MESH_SHAPE[1]} shards on "
         f"{dev} == K1 (eval3d)", t)
@@ -3209,10 +3450,11 @@ def main() -> None:
 
     cuda_ms = probes.cuda_ms
     dev = torch.device(DEVICE)
-    # the CPU twins of the N=2^16 paths and of the CI-size items, in two
-    # processes of their own from the start (CpuTwins); the checks against
-    # them are deferred to join_cpu_twins, near the end of the run
-    twins, ci_twins = CpuTwins("n16"), CpuTwins("ci")
+    # the CPU twins of the N=2^16 paths, of the CI-size items and of the
+    # golden model (golden_n16), in three processes of their own from the
+    # start (CpuTwins); the checks against them are deferred to
+    # join_cpu_twins, near the end of the run
+    twins, ci_twins, gold_twins = CpuTwins("n16"), CpuTwins("ci"), CpuTwins("golden")
     kernels = {"ntt": ntt_cuda.KERNEL, "convert": convert_cuda.KERNEL, "mac": mac_cuda.KERNEL}
 
     def reset() -> None:
@@ -3226,7 +3468,9 @@ def main() -> None:
     t = time.perf_counter()
     smi, kind = card()
     print(smi, flush=True)
-    say("card", f"{kind}; name, power.limit = {smi}", t)
+    int_peak, int_peak_text = int_peak_ops_per_s()
+    say("card", f"{kind}; name, power.limit = {smi}; peak 32-bit integer multiply-add rate "
+        f"{int_peak / 1e12:.2f} T ops/s ({int_peak_text})", t)
 
     # 1. build every library (one nvcc per library, all at once)
     t = time.perf_counter()
@@ -3410,13 +3654,18 @@ def main() -> None:
     meshk = mesh_kernels(dev, smi, params, ctx)
     pass_launches = {}
 
+    # 6b. path "golden_vectors": the five device-reachable known-answer
+    #     vectors of tests/vectors, on the card from their stored seeds
+    launches = {}
+    golden_vectors(dev, smi, counts, reset, launches)
+
     # 7. path "mul": the config5_boot multiply, through the entry points
     za, zb = mul_inputs(params)
     t = time.perf_counter()
     reset()
     chest, cts, prod, per_mul = mul_path(ctx, counts)
     got = dct.decrypt_decode(prod, params, chest.device_sk, ctx)
-    launches = {"mul": counts()}
+    launches["mul"] = counts()
     say("mul_path", f"keygen (rlk, Galois {ROTATIONS}, conj), encode, encrypt x2, ct_mul_full, "
         f"decrypt_decode at {PRESET}; launches {launches['mul']}, per ct_mul_full {per_mul}", t)
     err = decode_err(got, za * zb, params.slots, "ct_mul_full")
@@ -3472,18 +3721,21 @@ def main() -> None:
 
     def join_cpu_twins():
         """mul_check, dw_check, rotate_check and the deferred checks (bgv,
-        bfv, int_ci, boot_ci, boot, boot_h_ring, models_ci, session_ci): the
-        card's limbs == the CPU twins' (computed in their own processes since
-        the run began, or in a background thread)."""
+        bfv, golden_n16, int_ci, boot_ci, boot, boot_h_ring, models_ci,
+        session_ci): the card's limbs == the CPU twins' (computed in their
+        own processes since the run began, or in a background thread)."""
         t = time.perf_counter()
         cpu = twins.result()
         wait_s = time.perf_counter() - t
         ci = ci_twins.result()
         wait_ci_s = time.perf_counter() - t - wait_s
+        gold = gold_twins.result()
+        wait_gold_s = time.perf_counter() - t - wait_s - wait_ci_s
         same_limbs(prod, cpu["mul"], "ct_mul_full")
         say("mul_check", f"ct_mul_full limbs == the CPU path ({prod.level} limbs x 2); max "
             f"|dec - za*zb| = {err:.3e} < {DECODE_TOL}; launches in ct_mul_full {per_mul} > 0 "
-            f"(the CPU twins joined after {wait_s:.2f} s and {wait_ci_s:.2f} s; their seconds "
+            f"(the CPU twins joined after {wait_s:.2f}, {wait_ci_s:.2f} and {wait_gold_s:.2f} s "
+            f"(n16, ci, golden); their seconds "
             + ", ".join(f"{k} {v:.1f}" for k, v in (cpu["secs"] | ci["secs"]).items())
             + ")", t)
         t = time.perf_counter()
@@ -3499,7 +3751,7 @@ def main() -> None:
             f"{k} {v:.3e}" for k, v in errs.items()) + f" < {DECODE_TOL}; K4 launches per op "
             + ", ".join(f"{k} {v['mac']}" for k, v in per_op.items()), t)
         for check in deferred:
-            check(cpu | ci)
+            check(cpu | ci | {"golden": gold})
 
     # 9a. the integer schemes at INT_PRESET: their kernels' new shapes, the
     #     BGV and BFV paths (each checked == the CPU path on one ct_mul),
@@ -3508,6 +3760,9 @@ def main() -> None:
     bgv = bgv_path(dev, smi, counts, reset, launches)
     bfv = bfv_path(dev, smi, counts, reset, launches, bgv)
     deferred = [bgv.pop("check"), bfv.pop("check")]
+    # golden_n16: the card's N=2^16 products against the golden model's (its
+    # CPU twins), after cli
+    deferred.append(golden_n16({"mul": prod, "bgv": bgv["mul"][0], "bfv": bfv["mul"][0]}, smi))
     deferred.append(int_ci(dev, smi, counts, reset, launches))
     int_times = int_timing(bgv, bfv, ik, bounds, counts, smi)
     # 9b'. the sharded multiplies on a (2, 4) mesh of shards on the card
@@ -3817,9 +4072,11 @@ def main() -> None:
         "name": "ntt_pass", "route": "cuda", "source": "gpufhe_tpu_torch/csrc/ntt.cu",
         "replaces": "gpufhe_tpu/ops/ntt_pallas.py:601", "launches": sum(pass_launches.values()),
         "launches_by_path": pass_launches, "max_abs_err": meshk["err"], "ms": fa["ms"],
-        "device_ms": None, "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
+        "device_ms": or_null(fa["device_ms"]), "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
-        "per_kind": meshk["timing"],
+        "per_kind": {k: {**v, "device_ms": or_null(v["device_ms"])}
+                     for k, v in meshk["timing"].items()},
         "mesh_mul": {k: {"ms": v["ms"], "single_ms": v["single_ms"], "per_call": v["per_call"]}
                      for k, v in mesh_rows.items() if v},
         "mesh_n16": n16,
@@ -3831,7 +4088,7 @@ def main() -> None:
             "name": f"int_rate_{mix}", "route": "cuda", "source": "gpufhe_tpu_torch/csrc/int_rate.cu",
             "replaces": "scripts/vpu_peak.py:84", "launches": n_launch, "max_abs_err": err,
             "ms": r["ms"], "device_ms": None, "plain_ms": plain,
-            "bound_ms": ops / ALU_OPS_PER_S * 1e3,
+            "bound_ms": ops / int_peak * 1e3,
             "bound_by": "operations", "library_ms": None,
         })
     copy_bytes = 8 * 2 * qp * n
@@ -3848,7 +4105,8 @@ def main() -> None:
           f"ntt_fourstep fwd {qp} x 2^{log_n}; base_convert ModUp {s_up}->{t_up}; key_switch_mac D=2 T={qp}; bounds with modular "
           f"products at the shoup32 rate measured here; int_rate "
           f"{probes.CHAINS} chains x {rate_rows['modmul'][0]['depth']} steps per thread (bound: "
-          f"one op per modular product, two per multiply-add, at {ALU_OPS_PER_S / 1e12:.0f} T/s); "
+          f"one op per modular product, two per multiply-add, at {int_peak / 1e12:.2f} T/s: "
+          f"{int_peak_text}); "
           f"ntt_ablate_copy_only (-DNTT_ABLATE=3) fwd {qp} x 2^{log_n}. The probes lie on no "
           f"path: their launches are those of their own timing phase (int_rate, ntt_ablation). "
           f"No single PyTorch call computes any of these functions mod q, so library_ms is null; "

@@ -5,8 +5,10 @@ same path under the other package:
 
   params/      CKKSParams (plain_modulus > 0 for BGV / BFV), presets,
                NTT-friendly prime generation
-  golden/      host sampling (numpy Generators), encoder, keygen, RNS helpers,
-               the slot packing mod t (NTT mod t), BFV's auxiliary basis
+  golden/      the golden model in numpy, the oracle independent of the
+               kernels: host sampling (numpy Generators), encoder, keygen,
+               every CKKS, BGV and BFV ciphertext op, the exact NTT (in C
+               by golden/native.py), RNS helpers, the known-answer vectors
   ops/         int64 modular arithmetic, device tables, the negacyclic NTT
                (kernel K1, csrc/ntt.cu) and the RNS base conversion
                (kernel K3, csrc/convert.cu)

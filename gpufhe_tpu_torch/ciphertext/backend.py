@@ -1,13 +1,15 @@
 """Uniform op surface over the port's ciphertext operations.
 
 Counterpart of gpufhe_tpu/ciphertext/backend.py: `DeviceBackend` (the same
-name and methods, on ciphertext/ct.py), the fan plan `FanPlan`, and the
-data-free level/scale simulator `GhostBackend`. Bootstrapping and the
-homomorphic linear algebra (linalg.py, fftboot.py, polyeval.py,
-bootstrap.py) are written once against this surface. Every method equals
-the reference backends' limb for limb, so any composition does too; the
-reference's `GoldenBackend` is the tests' oracle and is not ported, nor is
-its `FusedPipeline` (XLA program fusion: PyTorch runs eagerly).
+name and methods, on ciphertext/ct.py), the fan plan `FanPlan`, the
+golden model's backend `GoldenBackend` and its `GoldenFanPlan` (on
+golden/ckks.py, numpy on the host: the oracle any composition on the card
+is held against), and the data-free level/scale simulator `GhostBackend`.
+Bootstrapping and the homomorphic linear algebra (linalg.py, fftboot.py,
+polyeval.py, bootstrap.py) are written once against this surface. Every
+method equals the reference backends' limb for limb, so any composition
+does too. The reference's `FusedPipeline` (XLA program fusion) is not
+ported: PyTorch runs eagerly.
 
 Scale management: adds require (approximately) matching scales; encoded
 plaintexts are generated at exactly the scale the consuming op needs. The
@@ -40,6 +42,12 @@ class FanPlan(NamedTuple):
     offsets: tuple  # sorted nonzero rotation steps
     pt_stacks: tuple  # per set: int64[R, K+alpha, N] Montgomery NTT QP-basis
     pt0s: tuple  # per set: int64[K+alpha, N] or None (zero-offset diagonal)
+
+
+class GoldenFanPlan(NamedTuple):
+    level: int
+    pt_scale: float
+    sets: tuple  # per set: dict offset -> int64[K+alpha, N] NTT QP-basis
 
 
 def _check_scales(a_scale: float, b_scale: float):
@@ -250,6 +258,111 @@ class DeviceBackend:
 
     def decrypt_decode(self, ct):
         return self._ct.decrypt_decode(ct, self.params, self.chest.device_sk, self.ctx)
+
+    def level(self, ct):
+        return ct.level
+
+
+
+class GoldenBackend:
+    """Ops on the numpy golden pipeline (golden/ckks.py). `chest` is the
+    port's KeyChest (keys.keygen) or the reference's: the golden ops read
+    its canonical keys on the host."""
+
+    def __init__(self, params: CKKSParams, chest):
+        self.params = params
+        self.chest = chest
+
+    def encode_slots(self, z, scale: float, level: int):
+        primes = self.params.q_primes[:level]
+        pt = gckks.encode(np.asarray(z, dtype=np.complex128), scale, primes, self.params.n)
+        return gckks.ntt_limbs(pt, self.params, primes), scale
+
+    def mul_plain(self, ct, pt_handle):
+        pt_ntt, scale = pt_handle
+        return gckks.ct_mul_plain(ct, pt_ntt, scale, self.params)
+
+    def add_plain(self, ct, z):
+        primes = ct.primes(self.params)
+        pt = gckks.encode(
+            np.broadcast_to(np.asarray(z, dtype=np.complex128), (self.params.slots,)),
+            ct.scale, primes, self.params.n)
+        c = list(ct.c)
+        c[0] = gckks.poly_add(c[0], gckks.ntt_limbs(pt, self.params, primes), primes)
+        return gckks.Ciphertext(c, ct.level, ct.scale)
+
+    # -- fused diagonal-fan stages (mirror of DeviceBackend.make_fan_plan) --
+    def _encode_qp(self, z, scale: float, level: int):
+        qp_primes = self.params.q_primes[:level] + self.params.p_primes
+        pt = gckks.encode(np.asarray(z, dtype=np.complex128), scale, qp_primes, self.params.n)
+        return gckks.ntt_limbs(pt, self.params, qp_primes)
+
+    def make_fan_plan(self, diag_sets, level: int, scale: float | None = None):
+        scale = self.params.scale if scale is None else scale
+        for dset in diag_sets:
+            if not any(r != 0 for r in dset):
+                raise ValueError("each set needs a nonzero offset")
+        sets = tuple({r: self._encode_qp(z, scale, level) for r, z in dset.items()}
+                     for dset in diag_sets)
+        return GoldenFanPlan(level, scale, sets)
+
+    def apply_fan(self, ct, plan: GoldenFanPlan):
+        if ct.level != plan.level:
+            raise ValueError(f"the plan is at level {plan.level}, the ciphertext at {ct.level}")
+        offsets = sorted({r for d in plan.sets for r in d if r != 0})
+        gks = {s: self.chest.golden_galois_key(s) for s in offsets}
+        return gckks.ct_diag_fan(ct, list(plan.sets), plan.pt_scale, self.params, gks)
+
+    def _align(self, a, b):
+        lvl = min(a.level, b.level)
+        return self.drop_to_level(a, lvl), self.drop_to_level(b, lvl)
+
+    def add(self, a, b):
+        _check_scales(a.scale, b.scale)
+        a, b = self._align(a, b)
+        return gckks.ct_add(a, gckks.Ciphertext(b.c, b.level, a.scale), self.params)
+
+    def sub(self, a, b):
+        _check_scales(a.scale, b.scale)
+        a, b = self._align(a, b)
+        return gckks.ct_sub(a, gckks.Ciphertext(b.c, b.level, a.scale), self.params)
+
+    def mul(self, a, b):
+        a, b = self._align(a, b)
+        r = gckks.ct_relinearize(gckks.ct_tensor(a, b, self.params), self.params, self.chest.rlk)
+        return self.rescale(r)
+
+    def mod_raise(self, ct):
+        return gckks.ct_mod_raise(ct, self.params)
+
+    def rescale(self, ct):
+        for _ in range(self.params.scale_words):
+            ct = gckks.ct_rescale(ct, self.params)
+        return ct
+
+    def rescale_prod(self, level: int) -> float:
+        out = 1.0
+        for i in range(self.params.scale_words):
+            out *= self.params.q_primes[level - 1 - i]
+        return out
+
+    def rotate_hoisted(self, ct, steps_list):
+        gks = {s: self.chest.golden_galois_key(s) for s in steps_list}
+        return dict(zip(steps_list, gckks.ct_rotate_hoisted(ct, steps_list, self.params, gks)))
+
+    def conjugate(self, ct):
+        return gckks.ct_conjugate(ct, self.params, self.chest.conj[0])
+
+    def key_switch(self, ct, which: str):
+        return gckks.ct_key_switch(ct, self.params, self.chest.eph[which][0])
+
+    def drop_to_level(self, ct, level: int):
+        if level > ct.level:
+            raise ValueError(f"cannot drop a ciphertext at level {ct.level} to {level}")
+        return gckks.Ciphertext([c[:level] for c in ct.c], level, ct.scale)
+
+    def decrypt_decode(self, ct):
+        return gckks.decrypt_decode(ct, self.params, self.chest.sk)
 
     def level(self, ct):
         return ct.level

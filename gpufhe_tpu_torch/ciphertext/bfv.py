@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from gpufhe_tpu_torch.ciphertext import ct as dct
-from gpufhe_tpu_torch.ciphertext.bgv import BGVCiphertext, plaintext_to_device  # noqa: F401
+from gpufhe_tpu_torch.ciphertext import bgv as dbgv
+from gpufhe_tpu_torch.ciphertext.bgv import BGVCiphertext
 from gpufhe_tpu_torch.golden import bfv as gbfv
 from gpufhe_tpu_torch.golden import ckks as gckks
 from gpufhe_tpu_torch.keys import keys as dkeys
@@ -169,6 +170,12 @@ def ct_sub(a: BFVCiphertext, b: BFVCiphertext, ctx: Context) -> BFVCiphertext:
     if a.level != b.level or len(a.c) != len(b.c):
         raise ValueError("BFV ciphertexts differ in level or size")
     return BFVCiphertext(dct.sub_core(a.c, b.c, ctx, a.level), a.level)
+
+
+def plaintext_to_device(pt_coeff: np.ndarray, params, ctx, level: int) -> torch.Tensor:
+    """Integer plaintext coefficients int64[N] -> NTT-domain Montgomery
+    int64[level, N], packed as BGV's (ciphertext/bgv.py plaintext_to_device)."""
+    return dbgv.plaintext_to_device(pt_coeff, params, ctx, level)
 
 
 def ct_mul_plain(ct: BFVCiphertext, pt_mont: torch.Tensor, ctx: Context) -> BFVCiphertext:

@@ -1,17 +1,19 @@
-"""Prime and root-of-unity helpers and the host negacyclic NTT
-(counterpart of gpufhe_tpu/golden/ntt.py:27-128).
+"""Prime and root-of-unity helpers and the golden negacyclic NTT (counterpart
+of gpufhe_tpu/golden/ntt.py).
 
-The ciphertext transforms live in ops/ntt.py: the port's golden layer runs
-its polynomial products through the port's own NTT. The host transform here
-serves the integer schemes' slot packing mod the plaintext modulus t
-(golden/bgv.py encode / decode):
+The transform the whole framework is held against:
 
     fwd:  X_k = sum_j x_j psi^j omega^(j k)              mod q, omega = psi^2
     inv:  x_j = N^-1 psi^-j sum_k X_k omega^(-j k)       mod q
 
-in natural order, psi a primitive 2N-th root of unity mod q < 2^31. The
-transform is exact, so any algorithm gives the reference's values; this one
-is an iterative radix-2 pass per stage, vectorised over the whole vector.
+in natural order, psi a primitive 2N-th root of unity mod q (the negacyclic
+wrap: a product in the transform domain is a product mod X^N + 1). The
+transform is exact, so any algorithm gives the reference's values. Below
+2^62 it runs in the native library (golden/native.py, C) where a C compiler
+is found; otherwise, and at any width, an iterative radix-2 pass per stage
+in numpy: int64 below 2^31, Python integers (object arrays) from there on,
+so the 60-bit prime of the config1 vector is exact too. It is host numpy on
+purpose and reaches none of the port's kernels (golden/arithmetic.py).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+
+from gpufhe_tpu_torch.golden import native
 
 
 def is_prime(n: int) -> bool:
@@ -56,10 +60,14 @@ def find_primitive_root_2n(q: int, two_n: int) -> int:
     raise ValueError(f"no primitive {two_n}-th root found mod {q}")
 
 
+def _dtype_for(q: int):
+    return np.int64 if q < (1 << 31) else object
+
+
 @functools.lru_cache(maxsize=None)
 def _power_table(root: int, n: int, q: int) -> np.ndarray:
-    """[root^0, root^1, ..., root^(n-1)] mod q (int64, q < 2^31)."""
-    out = np.empty(n, dtype=np.int64)
+    """[root^0, root^1, ..., root^(n-1)] mod q."""
+    out = np.empty(n, dtype=_dtype_for(q))
     acc = 1
     for i in range(n):
         out[i] = acc
@@ -94,24 +102,61 @@ def _cyclic_ntt(x: np.ndarray, omega: int, q: int) -> np.ndarray:
     return a
 
 
-def _check_word(q: int) -> None:
-    if q >= 1 << 31:
-        raise ValueError("the host NTT takes primes below 2^31 (exact int64 products)")
+def _native(x, q: int, psi: int, inverse: bool):
+    """The native transform (int64), or None where it does not run."""
+    if q >= (1 << 62):
+        return None
+    out = native.ntt_u64(np.asarray(x, dtype=np.int64) % q, q, psi, inverse)
+    return None if out is None else out.astype(np.int64)
 
 
 def ntt_fwd(x, q: int, psi: int) -> np.ndarray:
     """Negacyclic forward NTT along the last axis (natural order in and out)."""
-    _check_word(q)
-    x = np.asarray(x, dtype=np.int64) % q
+    out = _native(x, q, psi, inverse=False)
+    if out is not None:
+        return out
+    x = np.asarray(x, dtype=_dtype_for(q)) % q
     n = x.shape[-1]
     y = x * _power_table(psi, n, q) % q
     return _cyclic_ntt(y, psi * psi % q, q)
 
 
-def ntt_inv(x, q: int, psi: int) -> np.ndarray:
+def ntt_inv(X, q: int, psi: int) -> np.ndarray:
     """Negacyclic inverse NTT along the last axis; exact inverse of ntt_fwd."""
-    _check_word(q)
-    x = np.asarray(x, dtype=np.int64) % q
-    n = x.shape[-1]
-    y = _cyclic_ntt(x, pow(psi * psi % q, -1, q), q)
+    out = _native(X, q, psi, inverse=True)
+    if out is not None:
+        return out
+    X = np.asarray(X, dtype=_dtype_for(q)) % q
+    n = X.shape[-1]
+    y = _cyclic_ntt(X, pow(int(psi) * int(psi) % q, -1, q), q)
     return y * _power_table(pow(psi, -1, q), n, q) % q * pow(n, -1, q) % q
+
+
+def ntt_naive(x, q: int, psi: int) -> np.ndarray:
+    """The O(N^2) definition, for checking ntt_fwd at small N."""
+    x = np.asarray(x, dtype=object) % q
+    n = x.shape[-1]
+    out = np.empty(n, dtype=object)
+    for k in range(n):
+        out[k] = sum(int(x[j]) * pow(psi, j * (2 * k + 1), q) % q for j in range(n)) % q
+    return out.astype(_dtype_for(q)) if q < (1 << 31) else out
+
+
+def negacyclic_mul(a, b, q: int) -> np.ndarray:
+    """Schoolbook product mod (X^N + 1, q): the NTT-free oracle."""
+    a = np.asarray(a, dtype=object)
+    b = np.asarray(b, dtype=object)
+    n = a.shape[-1]
+    out = np.zeros(n, dtype=object)
+    for i in range(n):
+        ai = int(a[i])
+        if ai == 0:
+            continue
+        for j in range(n):
+            k = i + j
+            term = ai * int(b[j])
+            if k >= n:
+                out[k - n] = (out[k - n] - term) % q
+            else:
+                out[k] = (out[k] + term) % q
+    return out.astype(_dtype_for(q)) if q < (1 << 31) else out

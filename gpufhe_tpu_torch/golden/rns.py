@@ -1,8 +1,16 @@
-"""Host RNS helpers (counterpart of gpufhe_tpu/golden/rns.py:25-55).
+"""Golden RNS tooling in numpy (counterpart of gpufhe_tpu/golden/rns.py): the
+approximate base conversion, the rescale and the ModDown that
+primitives/rns.py and kernel K3 are held against, bit for bit.
 
-conv_matrix and qhat_inv build the constant tables of the approximate base
-conversion; base_convert is the host oracle of that conversion, reduced per
-term exactly as the reference's golden model does.
+  base conversion  B -> t :  y_t = sum_i [x_i * bhat_i^{-1}]_{b_i} * [bhat_i]_t  (mod t)
+                             (off by a small multiple of B, which ModDown and
+                             the rescale absorb as noise)
+  rescale by q_last:         c'_i = [q_last^{-1}]_{q_i} * (c_i - centred([c]_{q_last})) mod q_i
+  ModDown by P:              c'_j = [P^{-1}]_{q_j} * (c_j - conv_{P->q_j}([c]_P)) mod q_j
+
+Arrays are int64[K, N] canonical residues (primes below 2^31, so every
+product fits int64); sums over source limbs are reduced term by term.
+conv_matrix and qhat_inv also build the tables of the port's K3.
 """
 
 from __future__ import annotations
@@ -39,4 +47,37 @@ def base_convert(x: np.ndarray, src: tuple[int, ...], dst: tuple[int, ...]) -> n
         for i in range(len(src)):
             acc = (acc + v[i] * m[t_idx, i]) % t  # per-term reduce: no overflow
         out[t_idx] = acc
+    return out
+
+
+def center_reduce(x: np.ndarray, q_from: int, dst: tuple[int, ...]) -> np.ndarray:
+    """The exact lift of int64[N] residues mod q_from (centred) into each
+    destination prime: int64[len(dst), N]."""
+    centered = np.where(x > q_from // 2, x - q_from, x)  # in (-q/2, q/2]
+    return np.stack([centered % t for t in dst]).astype(np.int64)
+
+
+def rescale_coeff(x: np.ndarray, primes: tuple[int, ...]) -> np.ndarray:
+    """Drop the last limb: (x - centred([x]_last)) / q_last on the others.
+
+    x: int64[K, N] in the coefficient domain; returns int64[K-1, N]."""
+    q_last = primes[-1]
+    lifted = center_reduce(x[-1], q_last, primes[:-1])
+    out = np.empty((len(primes) - 1, x.shape[1]), dtype=np.int64)
+    for i, q in enumerate(primes[:-1]):
+        out[i] = (x[i] - lifted[i]) % q * pow(q_last, -1, q) % q
+    return out
+
+
+def mod_down_coeff(x: np.ndarray, q_primes: tuple[int, ...],
+                   p_primes: tuple[int, ...]) -> np.ndarray:
+    """Divide by P = prod(p_primes): int64[K+alpha, N] -> int64[K, N], the
+    first K rows the Q-basis limbs, the last alpha the P-basis limbs
+    (coefficient domain)."""
+    k = len(q_primes)
+    big_p = math.prod(p_primes)
+    p_part = base_convert(x[k:], p_primes, q_primes)
+    out = np.empty((k, x.shape[1]), dtype=np.int64)
+    for i, q in enumerate(q_primes):
+        out[i] = (x[i] - p_part[i]) % q * pow(big_p, -1, q) % q
     return out

@@ -140,7 +140,7 @@ def mesh_from_reference(shape, devices):
     """A reference Mesh's ('limb', 'coeff') shape (its `mesh.shape`, or a
     (limb, coeff) pair) as the port's FheMesh over `devices` (e.g.
     ["cpu"] * 8, or ["cuda:0"] * 8 on one card)."""
-    from gpufhe_tpu_torch.parallel.mesh import make_fhe_mesh
+    from gpufhe_tpu_torch.parallel.sharded import make_fhe_mesh
 
     n_limb, n_coeff = (shape["limb"], shape["coeff"]) if hasattr(shape, "keys") else shape
     return make_fhe_mesh(int(n_limb), int(n_coeff), devices=list(devices))

@@ -118,6 +118,10 @@ class KeyChest(IntegerKeyChest):
     # {"s_eph": int64[N], "to_eph": (KSKey, DeviceKSKey), "from_eph": (...)}
     eph: dict | None = None
 
+    def golden_galois_key(self, steps: int) -> gckks.KSKey:
+        """The canonical Galois key (on the host), which the golden model reads."""
+        return self.galois[steps][0]
+
     def conj_key(self) -> DeviceKSKey:
         if self.conj is None:
             raise KeyError("no conjugation key was generated")
@@ -136,9 +140,10 @@ def integer_chest_fields(params: CKKSParams, rng: np.random.Generator,
     if err_factor != 1 and (params.hamming_weight or params.eph_hamming_weight):
         # the reference's BGV keygen draws a dense ternary secret and nothing more
         raise ValueError("BGV keys take a dense ternary secret and no encapsulation keys")
-    sk, pk = gckks.keygen(params, rng, ctx, err_factor)
-    rlk = gckks.make_relin_key(params, sk, rng, ctx, err_factor)
-    galois = {s: _pair(gckks.make_galois_key(params, s, sk, rng, ctx, err_factor), params, ctx)
+    sk, pk = gckks.keygen(params, rng, ctx=ctx, err_factor=err_factor)
+    rlk = gckks.make_relin_key(params, sk, rng, ctx=ctx, err_factor=err_factor)
+    galois = {s: _pair(gckks.make_galois_key(params, s, sk, rng, ctx=ctx, err_factor=err_factor),
+                       params, ctx)
               for s in rotations}
     return dict(params=params, sk=sk, pk=pk, rlk=host(rlk),
                 device_sk=upload_secret_key(sk, params, ctx=ctx),
@@ -164,7 +169,8 @@ def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, .
     ctx = default_context(params, ctx)
     fields = integer_chest_fields(params, rng, rotations, ctx, err_factor)
     sk = fields["sk"]
-    conj = _pair(gckks.make_conj_key(params, sk, rng, ctx), params, ctx) if conjugation else None
+    conj = (_pair(gckks.make_conj_key(params, sk, rng, ctx=ctx), params, ctx) if conjugation
+            else None)
     eph = None
     if params.eph_hamming_weight:
         s_eph = gckks.sample_sparse_ternary(rng, params.n, params.eph_hamming_weight)
@@ -176,8 +182,9 @@ def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, .
         eph = {
             "s_eph": s_eph,
             # decrypts under s_eph what decrypted under s, and back
-            "to_eph": _pair(gckks.make_kskey(params, target(sk.s), sk_eph, rng, ctx), params, ctx),
-            "from_eph": _pair(gckks.make_kskey(params, target(s_eph), sk, rng, ctx), params,
+            "to_eph": _pair(gckks.make_kskey(params, target(sk.s), sk_eph, rng, ctx=ctx), params,
+                            ctx),
+            "from_eph": _pair(gckks.make_kskey(params, target(s_eph), sk, rng, ctx=ctx), params,
                               ctx),
         }
     return KeyChest(**fields, conj=conj, eph=eph)

@@ -141,16 +141,3 @@ def _gather_ranks(parts: list) -> list:
     dist.all_gather(got, mine)
     return [p for g in got for p in g.unbind(0)]
 
-
-def make_fhe_mesh(n_limb: int, n_coeff: int, devices=None) -> FheMesh:
-    """The standard ('limb', 'coeff') mesh. With devices=None it takes the
-    first n_limb * n_coeff CUDA devices and raises where there are fewer; it
-    never repeats a device and never falls back to the CPU. Logical shards
-    on one card: devices=["cuda:0"] * 8; on the CPU: ["cpu"] * 8."""
-    if devices is None:
-        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if count < n_limb * n_coeff:
-            raise RuntimeError(f"a {n_limb} x {n_coeff} mesh needs {n_limb * n_coeff} CUDA "
-                               f"devices, {count} found; name the devices to repeat one")
-        devices = [f"cuda:{i}" for i in range(n_limb * n_coeff)]
-    return FheMesh(n_limb, n_coeff, devices)

@@ -45,10 +45,25 @@ from gpufhe_tpu_torch.ops.mac_cuda import mac
 from gpufhe_tpu_torch.ops.modops import add_mod
 from gpufhe_tpu_torch.ops.ntt_cuda import FWD_A, FWD_B, INV_A, INV_B, fourstep_pass
 from gpufhe_tpu_torch.params.params import CKKSParams
-from gpufhe_tpu_torch.parallel.mesh import FheMesh, make_fhe_mesh  # noqa: F401
+from gpufhe_tpu_torch.parallel.mesh import FheMesh
 from gpufhe_tpu_torch.primitives.keyswitch import key_row_index, qp_indices
 from gpufhe_tpu_torch.primitives.rns import (bgv_modswitch, ks_groups, make_ks_context, mod_down,
                                              rescale)
+
+
+def make_fhe_mesh(n_limb: int, n_coeff: int, devices=None) -> FheMesh:
+    """The standard ('limb', 'coeff') mesh. With devices=None it takes the
+    first n_limb * n_coeff CUDA devices and raises where there are fewer; it
+    never repeats a device and never falls back to the CPU. Logical shards
+    on one card: devices=["cuda:0"] * 8; on the CPU: ["cpu"] * 8."""
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < n_limb * n_coeff:
+            raise RuntimeError(f"a {n_limb} x {n_coeff} mesh needs {n_limb * n_coeff} CUDA "
+                               f"devices, {count} found; name the devices to repeat one")
+        devices = [f"cuda:{i}" for i in range(n_limb * n_coeff)]
+    return FheMesh(n_limb, n_coeff, devices)
+
 
 # ---------------------------------------------------------------------------
 # Layout converters

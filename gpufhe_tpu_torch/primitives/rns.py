@@ -3,8 +3,10 @@
 Counterpart of gpufhe_tpu/primitives/rns.py. Every result is the canonical
 value the reference computes, limb for limb: the approximate base conversion
 is reduced per term (ops/convert_cuda.py, kernel K3 on the card whatever the
-source count), and the rescale and ModSwitch use the same centered lift of
-the dropped limb. Polynomials are int64[K, N] in the coefficient domain;
+source count, which mod_up and mod_down launch), and the rescale and
+ModSwitch use the same centered lift of the dropped limb. base_convert is the
+reference's public conversion from its Montgomery tables, on the plain
+modular ops. Polynomials are int64[K, N] in the coefficient domain;
 rescale and bgv_modswitch also take leading batch axes.
 
 For BGV parameters (plain_modulus t > 0) the key switch's ModDown must
@@ -25,8 +27,9 @@ import torch
 
 from gpufhe_tpu_torch.golden import rns as grns
 from gpufhe_tpu_torch.ops.context import Context
-from gpufhe_tpu_torch.ops.convert_cuda import ConvertTables, base_convert, make_convert_tables
-from gpufhe_tpu_torch.ops.modops import add_mod, sub_mod
+from gpufhe_tpu_torch.ops import convert_cuda
+from gpufhe_tpu_torch.ops.convert_cuda import ConvertTables, make_convert_tables
+from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, sub_mod
 from gpufhe_tpu_torch.params.params import CKKSParams
 
 
@@ -87,6 +90,24 @@ def make_ks_context(params: CKKSParams, level: int, device: str = "cuda") -> KSC
     )
 
 
+def base_convert(x: torch.Tensor, src_q: torch.Tensor, src_qinv: torch.Tensor,
+                 qhatinv_mont: torch.Tensor, conv_mont: torch.Tensor, dst_q: torch.Tensor,
+                 dst_qinv: torch.Tensor) -> torch.Tensor:
+    """The approximate fast base conversion from the reference's Montgomery
+    tables, on the port's plain modular ops (ops/modops.py mont_mul and
+    add_mod): int64[S, N] residues mod the source primes -> int64[T, N]
+    mod the destination primes, congruent to x + u * prod(src) for a small
+    |u| (golden/rns.py base_convert). The value K3 computes from its own
+    tables; mod_up and mod_down launch K3.
+    """
+    v = mont_mul(x, qhatinv_mont[:, None], src_q[:, None], src_qinv[:, None])
+    acc = None
+    for i in range(x.shape[0]):
+        term = mont_mul(v[i][None, :], conv_mont[:, i, None], dst_q[:, None], dst_qinv[:, None])
+        acc = term if acc is None else add_mod(acc, term, dst_q[:, None])
+    return acc
+
+
 def mod_up(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
            ksc: KSContext) -> list[torch.Tensor]:
     """ModUp every decomposition group of int64[K, N] to the active Q+P basis.
@@ -95,7 +116,7 @@ def mod_up(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
     order = active q-chain then p-chain.
     """
     return [
-        base_convert(x_coeff[d0:d1], ksc.modup[g])
+        convert_cuda.base_convert(x_coeff[d0:d1], ksc.modup[g])
         for g, (d0, d1) in enumerate(ks_groups(params, level))
     ]
 
@@ -105,7 +126,7 @@ def mod_down(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context
     """Division by P: int64[K + alpha, N] -> int64[K, N] (coefficient domain)."""
     k = level
     q = ctx.col("q", range(k))
-    p_part = base_convert(x_coeff[k:], ksc.p2q)
+    p_part = convert_cuda.base_convert(x_coeff[k:], ksc.p2q)
     diff = sub_mod(x_coeff[:k], p_part, q)
     return torch.remainder(diff * ksc.pinv[:, None], q)
 

@@ -90,9 +90,9 @@ def test_keygen_matches_reference(stack):
     params, rparams, ctx, chest, (sk, pk, rlk, gks) = stack
     assert params.plain_modulus == rparams.plain_modulus > 0
     rng = np.random.default_rng(7)
-    gsk, gpk = gbgv.keygen(params, rng, ctx)
-    grlk = gbgv.make_relin_key(params, gsk, rng, ctx)
-    ggk = gbgv.make_galois_key(params, STEPS[0], gsk, rng, ctx)
+    gsk, gpk = gbgv.keygen(params, rng, ctx=ctx)
+    grlk = gbgv.make_relin_key(params, gsk, rng, ctx=ctx)
+    ggk = gbgv.make_galois_key(params, STEPS[0], gsk, rng, ctx=ctx)
     assert torch.equal(gpk.b, chest.pk.b) and torch.equal(grlk.b, chest.rlk.b)
     assert torch.equal(ggk.a, chest.galois[STEPS[0]][0].a)
     assert (chest.sk.s == sk.s).all()
@@ -231,7 +231,7 @@ def test_stored_bgv_vector_reproduced():
     t = params.plain_modulus
     ctx = make_context(params, "cpu")
     rng = np.random.default_rng(seed)
-    sk, pk = gbgv.keygen(params, rng, ctx)
+    sk, pk = gbgv.keygen(params, rng, ctx=ctx)
     chest = pbgv.keygen(params, np.random.default_rng(seed), rotations=(1,), ctx=ctx)
     assert (chest.sk.s == sk.s).all() and torch.equal(chest.pk.b, pk.b)
     mrng = np.random.default_rng(seed + 1)

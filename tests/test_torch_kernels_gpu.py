@@ -659,3 +659,17 @@ def test_mesh_ci_item_on_card_equals_cpu(cuda_device, name):
     if name.startswith("bootstrap"):
         for g, w in zip(got[name], got[f"{name} single"], strict=True):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", chip_smoke.GOLDEN_VECTORS)
+def test_golden_vector_on_card(cuda_device, name):
+    """tests/vectors/<name>.npz, read by numpy, reproduced on the card from
+    the seed and preset it stores (chip_smoke.golden_vector_run): every
+    stored array that a device path computes == the card's output, with the
+    card's kernels launched (K3 alone for config2_rns's conversion)."""
+    kernels = (ntt_cuda.KERNEL, convert_cuda.KERNEL, mac_cuda.KERNEL)
+    before = [k.launches for k in kernels]
+    got = chip_smoke.golden_vector_run(name, cuda_device)
+    assert got["arrays"] > 0 and got["limbs"] > 0
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    assert launched[1] > 0 if name == "config2_rns" else min(launched) > 0, launched

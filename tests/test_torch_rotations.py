@@ -177,8 +177,8 @@ def test_config4_rotations_vector_limb_trace():
     params = preset(want["preset"].item().decode())
     ctx = make_context(params, "cpu")
     rng = np.random.default_rng(seed)
-    sk, pk = pgolden.keygen(params, rng, ctx)
-    gks = {s: pkeys.upload_ks_key(pgolden.make_galois_key(params, s, sk, rng, ctx), params,
+    sk, pk = pgolden.keygen(params, rng, ctx=ctx)
+    gks = {s: pkeys.upload_ks_key(pgolden.make_galois_key(params, s, sk, rng, ctx=ctx), params,
                                   ctx=ctx)
            for s in STEPS}
     pt = penc.encode(want["z"], params)

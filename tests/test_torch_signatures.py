@@ -12,7 +12,12 @@ device), each also called the reference's way and == the reference; the
 fields of CKKSParams and of the four key chests in the reference's order;
 the public surface (api.py Session and ThresholdSession with their class
 methods, cli.py and its subcommands' arguments and defaults, utils/*) name
-for name and parameter for parameter, the port's extras keyword-only."""
+for name and parameter for parameter, the port's extras keyword-only; the
+golden model (every golden/* module, the three golden backends and
+GoldenFanPlan) name for name, its key generators' ctx and err_factor
+keyword-only, and each called the reference's way == the reference; and
+KeyChest.golden_galois_key, bfv.plaintext_to_device, rns.base_convert and
+sharded.make_fhe_mesh, each defined where the reference defines it."""
 
 import inspect
 
@@ -481,3 +486,141 @@ def test_cli_subcommands_and_arguments_match_the_reference(monkeypatch):
     for name, args in port.items():
         assert args == ref[name], name
     assert port_flags == ["cpu"] and ref_flags == ["cache", "cpu"]
+
+
+# --- the golden model: every public name of each reference golden module, and
+#     the golden backends, with their parameters ------------------------------
+
+GOLDEN = ["golden.arithmetic", "golden.ntt", "golden.native", "golden.rns", "golden.ckks",
+          "golden.bgv", "golden.bfv", "golden.vectors"]
+# names only the port has: the native library's path; host_limbs and
+# inner_product_coeff (the host inner product every scheme's decryption and
+# noise report share) and ntt_small (the device path's key helper)
+GOLDEN_EXTRAS = {"golden.native": {"lib_path"},
+                 "golden.ckks": {"host_limbs", "inner_product_coeff", "ntt_small"}}
+# key generation: the reference's parameters, then keyword-only ctx (the
+# device path; none: numpy on the host) and err_factor
+GOLDEN_EXTENDED = {("golden.ckks", n) for n in ("keygen", "make_kskey", "make_relin_key",
+                                                "make_galois_key", "make_conj_key")} | {
+    ("golden.bgv", n) for n in ("keygen", "make_relin_key", "make_galois_key")}
+
+
+def _defined(module) -> dict:
+    """_public, with functions behind functools.lru_cache too."""
+    return {name: obj for name, obj in vars(module).items()
+            if not name.startswith("_") and callable(obj)
+            and getattr(obj, "__module__", None) == module.__name__
+            and (inspect.isclass(obj) or inspect.isfunction(inspect.unwrap(obj)))}
+
+
+GOLDEN_NAMES = [(path, name) for path in GOLDEN for name in _defined(_modules(path)[1])]
+
+
+@pytest.mark.parametrize("path", GOLDEN)
+def test_golden_modules_define_the_reference_names(path):
+    port, ref = _modules(path)
+    extras = GOLDEN_EXTRAS.get(path, set())
+    assert sorted(set(_defined(port)) - extras) == sorted(_defined(ref))
+    assert extras <= set(_defined(port))
+
+
+@pytest.mark.parametrize("path,name", GOLDEN_NAMES, ids=lambda x: x)
+def test_golden_signatures_match_the_reference(path, name):
+    import dataclasses
+
+    port, ref = (getattr(m, name) for m in _modules(path))
+    if dataclasses.is_dataclass(ref):
+        assert ([f.name for f in dataclasses.fields(port)]
+                == [f.name for f in dataclasses.fields(ref)])
+    pc = _callables(port) if inspect.isclass(port) else {"": inspect.unwrap(port)}
+    rc = _callables(ref) if inspect.isclass(ref) else {"": inspect.unwrap(ref)}
+    assert sorted(pc) == sorted(rc)
+    for key, rf in rc.items():
+        p = list(inspect.signature(pc[key]).parameters.values())
+        r = list(inspect.signature(rf).parameters.values())
+        if (path, name) in GOLDEN_EXTENDED:
+            extras = p[len(r):]
+            assert extras and all(x.kind is inspect.Parameter.KEYWORD_ONLY
+                                  and x.default is not inspect.Parameter.empty for x in extras)
+            p = p[: len(r)]
+        assert [(x.name, x.kind, x.default) for x in p] == [
+            (x.name, x.kind, x.default) for x in r], f"{name}.{key}"
+
+
+def test_golden_module_constants_and_aliases_match_the_reference():
+    port, ref = _modules("golden.vectors")
+    assert list(port.GENERATORS) == list(ref.GENERATORS) and port.VEC_DIR == ref.VEC_DIR
+    for alias in ("encode", "decode", "slot_rotation_perm", "slot_orbit_rings", "keygen",
+                  "make_relin_key", "make_galois_key"):
+        p, r = (getattr(m, alias) for m in _modules("golden.bfv"))
+        assert p.__name__ == r.__name__, alias
+    port, ref = _modules("golden.arithmetic")
+    assert (port.R, port.R_BITS, port.R_MASK) == (ref.R, ref.R_BITS, ref.R_MASK)
+
+
+GOLDEN_BACKENDS = [("ciphertext.backend", "GoldenBackend"),
+                   ("ciphertext.backend", "GoldenFanPlan"),
+                   ("ciphertext.bgv_backend", "BGVGoldenBackend"),
+                   ("ciphertext.bfv_backend", "BFVGoldenBackend")]
+
+
+@pytest.mark.parametrize("path,name", GOLDEN_BACKENDS, ids=lambda x: x)
+def test_golden_backends_match_the_reference(path, name):
+    port, ref = (getattr(m, name) for m in _modules(path))
+    if hasattr(ref, "_fields"):  # a NamedTuple
+        assert port._fields == ref._fields
+        return
+    methods = lambda c: {k: f for k, f in vars(c).items() if inspect.isfunction(f)}  # noqa: E731
+    pm, rm = methods(port), methods(ref)
+    assert sorted(pm) == sorted(rm)
+    for key, rf in rm.items():
+        assert list(inspect.signature(pm[key]).parameters) == list(
+            inspect.signature(rf).parameters), key
+
+
+# the reference's names the port lacked until the golden slice, each with the
+# reference's parameters
+NEW_PAIRS = [("keys.keys", "KeyChest.golden_galois_key"),
+             ("ciphertext.bfv", "plaintext_to_device"),
+             ("primitives.rns", "base_convert"),
+             ("parallel.sharded", "make_fhe_mesh")]
+
+
+@pytest.mark.parametrize("path,name", NEW_PAIRS, ids=lambda x: x)
+def test_new_names_match_the_reference(path, name):
+    import functools
+    import importlib
+
+    port_mod = importlib.import_module(f"gpufhe_tpu_torch.{path}")
+    ref_mod = importlib.import_module(f"gpufhe_tpu.{path}")
+    port, ref = (functools.reduce(getattr, name.split("."), m) for m in (port_mod, ref_mod))
+    assert port.__module__ == port_mod.__name__  # defined there, not only imported
+    p = list(inspect.signature(port).parameters.values())
+    r = list(inspect.signature(ref).parameters.values())
+    assert [(x.name, x.kind, x.default) for x in p] == [(x.name, x.kind, x.default) for x in r]
+
+
+@pytest.mark.parametrize("name", ["tiny2", "bgv_tiny"])
+def test_golden_keygen_called_the_reference_way_equals_reference(name):
+    """golden keygen(params, rng) and the key functions called as the
+    reference's are: numpy keys, the reference's limb for limb."""
+    from gpufhe_tpu.golden import bgv as rgbgv
+    from gpufhe_tpu.golden import ckks as rgckks
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+    from gpufhe_tpu_torch.golden import ckks as gckks
+
+    params, rparams = preset(name), ref_preset(name)
+    port, ref = (gbgv, rgbgv) if params.plain_modulus else (gckks, rgckks)
+    got, want = [], []
+    for mod, p, out in ((port, params, got), (ref, rparams, want)):
+        rng = np.random.default_rng(17)
+        sk, pk = mod.keygen(p, rng)
+        out += [sk.s, pk.b, pk.a]
+        for key in (mod.make_relin_key(p, sk, rng), mod.make_galois_key(p, 3, sk, rng)):
+            out += [key.b, key.a]
+        if mod in (gckks, rgckks):
+            ck = mod.make_conj_key(p, sk, rng)
+            out += [ck.b, ck.a]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert isinstance(g, np.ndarray) and g.dtype == np.int64 and (g == w).all()
