@@ -130,6 +130,11 @@ to 0 just before it and read just after:
           card, kernels at config5_boot (each row beside its bound),
           scaling at tiny2 (one card: the 1 x 1 row alone), and demo-bfv
           and demo-mlp on the card == with --cpu;
+  bench   gpufhe_tpu_torch/bench.py's primary line (`cli bench`'s last):
+          bench_mult at config5_boot on a chain of BENCH_CHAIN data-dependent
+          ct_mul_full steps, its floor subtracted, timed by CUDA events;
+          its final carry == a hand-written loop of ct_mul_full on the card
+          from the same inputs, limb for limb;
   mesh    gpufhe_tpu_torch/parallel on a (2, 4) mesh of eight shards on the
           card: mesh_mul (after int_timing) the sharded multiply at
           config5_boot == ct_mul_full, the sharded BGV and BFV multiplies at
@@ -151,10 +156,12 @@ to 0 just before it and read just after:
           (after cli): the port's golden model (golden/*: numpy, none of the
           port's kernels or torch ops), in a third CPU twins process,
           regenerates all six files (config1's 60-bit NTT too), each == its
-          file, and computes the config5_boot ct_mul and the bfv_n16 BGV and
-          BFV ct_mul from the mul, bgv and bfv paths' seeds: the card's
-          products == them limb for limb, an oracle at N=2^16 that shares no
-          code with the card's side but the host encoders and samplers.
+          file, and computes the config5_boot ct_mul, ct_rotate 1,
+          ct_conjugate, ct_rotate_hoisted (1, 3) and ct_mod_raise and the
+          bfv_n16 BGV and BFV ct_mul from the mul, rotate, bgv and bfv paths'
+          seeds: the card's outputs == them limb for limb, an oracle at
+          N=2^16 that shares no code with the card's side but the host
+          encoders and samplers.
 
 Each path's ciphertexts are checked == the same path on the CPU and decoded
 against the cleartext result. The CPU twins run beside the card's paths and
@@ -542,7 +549,7 @@ def boot_ci_run(device, counts) -> tuple:
     rots = tuple(bootstrap_rotations(params, "factored", BOOT_RADIX))
     zr = np.random.default_rng(0)
     z = (zr.normal(size=params.slots) + 1j * zr.normal(size=params.slots)) * 0.2
-    ctx = make_context(params, device)
+    ctx = make_context(params, device=device)
     chest = dkeys.keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
     be = DeviceBackend(params, ctx, chest)
     bs = Bootstrapper(be, transform="factored", radix_log=BOOT_RADIX, evalmod="cheb",
@@ -672,7 +679,7 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
     from gpufhe_tpu_torch.params.params import preset
 
     params = preset(BOOT_PRESET)
-    ctx = make_context(params, dev)
+    ctx = make_context(params, device=dev)
     peak = {}
     mark_peak = peak_marker(dev, peak)
 
@@ -874,7 +881,7 @@ def key_switch_apart(tag, params, ctx, c1, chest, step, back=False) -> dict:
 
     level, n = c1.shape[0], params.n
     key = chest.galois_key(step)
-    ksc = rns.make_ks_context(params, level, ctx.device)
+    ksc = rns.make_ks_context(params, level, device=ctx.device)
     qp = keyswitch.qp_indices(params, level)
     idx_q, idx_qp = ctx.index(range(level), torch.int32), ctx.index(qp, torch.int32)
     held = {}
@@ -925,7 +932,7 @@ def boot_h_check(params, ctx, chest, ct, raised, smi) -> dict:
 
     t = time.perf_counter()
     t1 = time.perf_counter()
-    ctx_cpu = make_context(params, "cpu")
+    ctx_cpu = make_context(params, device="cpu")
     ctx_s = time.perf_counter() - t1
     x = dct.ct_mod_raise(dct.Ciphertext([c.cpu() for c in ct.c], ct.level, ct.scale), params,
                          ctx_cpu)
@@ -965,7 +972,7 @@ def boot_h_ring_run(device) -> tuple:
     rots = tuple(bootstrap_rotations(params, "factored", BOOT_H_RADIX))
     zr = np.random.default_rng(0)
     z = (zr.normal(size=params.slots) + 1j * zr.normal(size=params.slots)) * 0.2
-    ctx = make_context(params, device)
+    ctx = make_context(params, device=device)
     chest = device_keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
     be = DeviceBackend(params, ctx, chest)
     bs = Bootstrapper(be, transform="factored", radix_log=BOOT_H_RADIX, evalmod="cheb",
@@ -1019,7 +1026,7 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
     t = time.perf_counter()
     resident = torch.cuda.memory_allocated(dev)
     t1 = time.perf_counter()
-    ctx = make_context(params, dev)
+    ctx = make_context(params, device=dev)
     ctx_s = time.perf_counter() - t1
     reset()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1157,7 +1164,7 @@ def kernel_shapes(tag, params, ctx, chest, bounds, smi, inv_q=False) -> dict:
         return torch.randint(0, 2**62, (*lead, len(rows), n), generator=gen,
                              device=ctx.device) % ctx.col("q", rows)
 
-    ksc = rns.make_ks_context(params, level, ctx.device)
+    ksc = rns.make_ks_context(params, level, device=ctx.device)
     qp = keyswitch.qp_indices(params, level)
     idx_qp = ctx.index(qp, torch.int32)
     key = next(iter(chest.galois.values()))[1]
@@ -1259,7 +1266,7 @@ def int_kernels(dev, smi) -> dict:
     t = time.perf_counter()
     params = preset(INT_PRESET)
     level = params.num_limbs
-    auxp, aux_ctx, tabs = dbfv.make_bfv_mul_context(params, level, dev)
+    auxp, aux_ctx, tabs = dbfv.make_bfv_mul_context(params, level, device=dev)
     aux = auxp.q_primes
     rng = np.random.default_rng(SEED + 30)
 
@@ -1277,7 +1284,7 @@ def int_kernels(dev, smi) -> dict:
                                          ntt_cuda.fourstep_plain(x, idx, aux_ctx, inverse),
                                          f"K1 aux {len(aux)} x {batch} inverse={inverse}"))
     cases = {"Q->aux": tabs.q2aux, "B->Q": tabs.b2q, "B->m_sk": tabs.b2msk,
-             "P->Q t-folded (BGV)": rns.make_ks_context(params, level, dev).p2q}
+             "P->Q t-folded (BGV)": rns.make_ks_context(params, level, device=dev).p2q}
     conv_err = 0
     for what, tb in cases.items():
         top = (tb.sq[:, None] - 1).expand(tb.sq.numel(), params.n).contiguous()
@@ -1354,6 +1361,26 @@ def rotate_inputs(params) -> tuple:
     zr = np.random.default_rng(SEED + 9)
     zs = [unit_disk(zr, params.slots) for _ in range(3)]
     return zs, [unit_disk(zr, params.slots) for _ in range(3)]
+
+
+def golden_mod_raise_input(params) -> tuple:
+    """The rotate path's first ciphertext's slot vector, encryption seed and
+    scale: golden_n16 holds the card's ct_mod_raise of its base limbs, and
+    the rotation family on it, == the golden model's."""
+    return rotate_inputs(params)[0][0], SEED + 10, float(2**ROT_SCALE_BITS)
+
+
+def card_mod_raise(params, ctx_, chest_):
+    """ct_mod_raise on ctx_'s device of the rotate path's first ciphertext
+    (encrypted again from its seed) cut to its base limbs."""
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+    from gpufhe_tpu_torch.encoding import encoder
+
+    z, seed, scale = golden_mod_raise_input(params)
+    ct = dct.encrypt(encoder.encode(z, params, scale), params, chest_.device_pk, ctx_,
+                     np.random.default_rng(seed), scale)
+    w = params.scale_words
+    return dct.ct_mod_raise(dct.Ciphertext([c[:w] for c in ct.c], w, ct.scale), params, ctx_)
 
 
 def rotate_path(ctx_, chest_, counts) -> tuple:
@@ -1443,7 +1470,7 @@ def golden_vector_run(name: str, dev) -> dict:
 
     want = np.load(VECTOR_DIR / f"{name}.npz")
     params = preset(name if name == "config2_rns" else want["preset"].item().decode())
-    ctx = make_context(params, dev)
+    ctx = make_context(params, device=dev)
     seed = None if name == "config2_rns" else int(want["seed"])
     got = {}
 
@@ -1461,7 +1488,7 @@ def golden_vector_run(name: str, dev) -> dict:
         got["base_convert_to_p"] = convert_cuda.base_convert(
             a, convert_cuda.make_convert_tables(params.q_primes, params.p_primes, ctx.device))
         got["rescale"] = rns.rescale(a, params, level, ctx,
-                                     rns.make_ks_context(params, level, ctx.device))
+                                     rns.make_ks_context(params, level, device=ctx.device))
     elif name == "config3_ckks":
         chest = dkeys.keygen(params, np.random.default_rng(seed), ctx=ctx)
         ca, cb = (dct.encrypt(encoder.encode(want[z], params), params, chest.device_pk, ctx,
@@ -1544,9 +1571,12 @@ def golden_vectors(dev, smi, counts, reset, launches: dict) -> None:
 def golden_twins(lap) -> dict:
     """The "golden" CPU twins (golden_n16's host side, numpy only): all six
     known-answer vectors regenerated by the port's golden model, each == its
-    file; the golden ct_mul at PRESET from the mul path's seeds and the
-    golden BGV and BFV ct_mul at INT_PRESET from int_inputs' seeds, each
-    from keys drawn in keys.keygen's order (sk, pk, rlk first)."""
+    file; the golden ct_mul at PRESET from the mul path's seeds, and from
+    the rotate path's seeds its first ciphertext's ct_rotate 1,
+    ct_conjugate, ct_rotate_hoisted ROTATIONS and the ct_mod_raise of its
+    base limbs (golden_mod_raise_input); the golden BGV and BFV ct_mul at
+    INT_PRESET from int_inputs' seeds; every key drawn in keys.keygen's order
+    (sk, pk, rlk, the Galois keys of ROTATIONS, conj)."""
     from gpufhe_tpu_torch.golden import bfv as gbfv
     from gpufhe_tpu_torch.golden import bgv as gbgv
     from gpufhe_tpu_torch.golden import ckks as gckks
@@ -1565,13 +1595,30 @@ def golden_twins(lap) -> dict:
     rng = np.random.default_rng(SEED)
     sk, pk = gckks.keygen(params, rng)
     rlk = gckks.make_relin_key(params, sk, rng)
-    lap("golden keygen (sk, pk, rlk)")
+    gks = {s: gckks.make_galois_key(params, s, sk, rng) for s in ROTATIONS}
+    ck = gckks.make_conj_key(params, sk, rng)
+    lap(f"golden keygen (sk, pk, rlk, Galois {list(ROTATIONS)}, conj)")
     cts = [gckks.encrypt(gckks.encode(z, params.scale, params.q_primes, params.n), params, pk,
                          np.random.default_rng(SEED + 2 + i), params.scale)
            for i, z in enumerate(mul_inputs(params))]
     lap("golden encrypt x2")
     out["mul"] = gckks.ct_mul(cts[0], cts[1], params, rlk)
     lap("golden ct_mul")
+    z, seed, rot_scale = golden_mod_raise_input(params)
+    ct = gckks.encrypt(gckks.encode(z, rot_scale, params.q_primes, params.n), params, pk,
+                       np.random.default_rng(seed), rot_scale)
+    lap(f"golden encrypt at 2^{ROT_SCALE_BITS}")
+    out["ct_rotate 1"] = [gckks.ct_rotate(ct, 1, params, gks[1])]
+    lap("golden ct_rotate 1")
+    out["ct_conjugate"] = [gckks.ct_conjugate(ct, params, ck)]
+    lap("golden ct_conjugate")
+    out[f"ct_rotate_hoisted {list(ROTATIONS)}"] = gckks.ct_rotate_hoisted(
+        ct, list(ROTATIONS), params, gks)
+    lap(f"golden ct_rotate_hoisted {list(ROTATIONS)}")
+    w = params.scale_words
+    out["ct_mod_raise"] = [gckks.ct_mod_raise(gckks.Ciphertext([c[:w] for c in ct.c], w,
+                                                               ct.scale), params)]
+    lap("golden ct_mod_raise")
     ip = preset(INT_PRESET)
     for scheme, mod, base in (("bgv", gbgv, SEED + 31), ("bfv", gbfv, SEED + 41)):
         zr = np.random.default_rng(base)
@@ -1621,16 +1668,16 @@ def cpu_twins(group: str, path: str) -> None:
         secs[name], t = time.perf_counter() - t, time.perf_counter()
 
     if group == "n16":
-        ctx = make_context(preset(PRESET), "cpu")
+        ctx = make_context(preset(PRESET), device="cpu")
         chest, _, out["mul"], _ = mul_path(ctx, none)
         lap("mul")
         out["rotate"] = rotate_path(ctx, chest, none)[0]
         del chest
         lap("rotate")
-        out["dw"] = dw_path(make_context(preset(DW_PRESET), "cpu"), none)[2]
+        out["dw"] = dw_path(make_context(preset(DW_PRESET), device="cpu"), none)[2]
         lap("dw")
         ip = preset(INT_PRESET)
-        ictx = make_context(ip, "cpu")
+        ictx = make_context(ip, device="cpu")
         for scheme, mod in (("bgv", dbgv), ("bfv", dbfv)):
             _, _, chest, _, (a, b), _ = int_inputs(scheme, ip, ictx)
             out[scheme] = mod.ct_mul(a, b, ip, ictx, chest.device_rlk)
@@ -1689,10 +1736,18 @@ class CpuTwins:
         self._dir.cleanup()
 
 
+# the rotation family and ModRaise at PRESET that golden_n16 holds == the
+# golden model (the rotate path's outputs, by their names there)
+GOLDEN_ROTATE_OPS = ("ct_rotate 1", "ct_conjugate", f"ct_rotate_hoisted {list(ROTATIONS)}",
+                     "ct_mod_raise")
+
+
 def golden_n16(card: dict, smi):
     """Returns the check golden_n16: the card's ct_mul_full at PRESET (the
-    mul path's product) and its BGV and BFV ct_mul at INT_PRESET (the bgv
-    and bfv paths' first products) == the port's golden model from the same
+    mul path's product), its rotation family at PRESET (the rotate path's
+    ct_rotate 1, ct_conjugate and ct_rotate_hoisted outputs, and
+    card_mod_raise) and its BGV and BFV ct_mul at INT_PRESET (the bgv and
+    bfv paths' first products) == the port's golden model from the same
     seeds, limb for limb, computed by the "golden" CPU twins in numpy (none
     of the port's kernels or torch ops), with the six known-answer vectors
     regenerated there, each == its file."""
@@ -1702,9 +1757,19 @@ def golden_n16(card: dict, smi):
         gold = cpu["golden"]
         limbs = {k: same_limbs(card[k], gold[k], f"golden_n16 {k}")
                  for k in ("mul", "bgv", "bfv")}
+        rot = {}
+        for k in GOLDEN_ROTATE_OPS:
+            outs, wants = card[k], gold[k]
+            if len(outs) != len(wants):
+                raise AssertionError(f"golden_n16 {k}: {len(outs)} outputs against "
+                                     f"{len(wants)}")
+            rot[k] = sum(same_limbs(o, g, f"golden_n16 {k} [{i}]")
+                         for i, (o, g) in enumerate(zip(outs, wants)))
         say("golden_n16", f"the card == the golden model (numpy; the "
             f"{'native C' if gold['native'] else 'numpy'} golden NTT) limb for limb: "
-            f"{PRESET} ct_mul_full {limbs['mul']} limbs, {INT_PRESET} BGV ct_mul {limbs['bgv']} "
+            f"{PRESET} ct_mul_full {limbs['mul']} limbs, " + ", ".join(
+                f"{k} {v}" for k, v in rot.items())
+            + f" limbs (at 2^{ROT_SCALE_BITS}); {INT_PRESET} BGV ct_mul {limbs['bgv']} "
             f"(pt_factor {card['bgv'].pt_factor}) and BFV ct_mul {limbs['bfv']}; the six "
             f"vectors of tests/vectors regenerated == their files; host seconds "
             + ", ".join(f"{k} {v:.2f}" for k, v in gold["secs"].items())
@@ -1728,7 +1793,7 @@ def bgv_path(dev, smi, counts, reset, launches) -> dict:
     tm, n = params.plain_modulus, params.n
     t = time.perf_counter()
     reset()
-    ctx = make_context(params, dev)
+    ctx = make_context(params, device=dev)
     m1, m2, chest, pts, (a, b), keygen_s = int_inputs("bgv", params, ctx)
     t1 = time.perf_counter()
     perms = {s: gbgv.slot_rotation_perm(params, s) for s in INT_ROTATIONS}
@@ -1794,7 +1859,7 @@ def bfv_path(dev, smi, counts, reset, launches, bgv: dict) -> dict:
     tm, n = params.plain_modulus, params.n
     t = time.perf_counter()
     reset()
-    ctx = make_context(params, dev)
+    ctx = make_context(params, device=dev)
     m1, m2, chest, pts, (a, b), keygen_s = int_inputs("bfv", params, ctx)
     t1 = time.perf_counter()
     perm1 = gbfv.slot_rotation_perm(params, 1)
@@ -1863,7 +1928,7 @@ def int_ci_ops(scheme: str, dev) -> dict:
     mod, backend = (dbgv, BGVDeviceBackend) if scheme == "bgv" else (dbfv, BFVDeviceBackend)
     params = preset(f"{scheme}_ci")
     tm, n_s = params.plain_modulus, params.slots
-    ctx = make_context(params, dev)
+    ctx = make_context(params, device=dev)
     rots = tuple(linalg.bsgs_rotations(n_s))
     chest = mod.keygen(params, np.random.default_rng(SEED + 50), rotations=rots, ctx=ctx)
     rng = np.random.default_rng(SEED + 51)
@@ -2013,13 +2078,13 @@ def int_timing(bgv: dict, bfv: dict, ik: dict, bounds: Bounds, counts, smi) -> d
 
     # stage leaves on random data at the multiply's shapes
     ctx, aux_ctx = bgv["ctx"], ik["aux_ctx"]
-    auxp, _, tabs = dbfv.make_bfv_mul_context(params, level, ctx.device)
+    auxp, _, tabs = dbfv.make_bfv_mul_context(params, level, device=ctx.device)
     a_rows = range(len(auxp.q_primes))
     q, aq = ctx.col("q", range(level)), aux_ctx.col("q", a_rows)
     xq, x_aux = rand(ctx, range(level)), rand(aux_ctx, a_rows)
     xqp = rand(ctx, keyswitch.qp_indices(params, level))
     xx = rand(ctx, range(level), (2,))
-    ksc = rns.make_ks_context(params, level, ctx.device)
+    ksc = rns.make_ks_context(params, level, device=ctx.device)
     fa, fb, frlk = bfv["a"], bfv["b"], bfv["chest"].device_rlk
     d_coeff = dbfv._tensor_coeff(fa.c, fb.c, params, ctx, level)
 
@@ -2145,7 +2210,7 @@ def mlp_n15_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
     peak = {}
     mark_peak = peak_marker(dev, peak)
     t = time.perf_counter()
-    ctx = make_context(params, dev)
+    ctx = make_context(params, device=dev)
     rng = np.random.default_rng(1)
     d_in, d_h, d_out = 784, 128, 10
     layers = [(rng.normal(size=(d_h, d_in)) * 0.1, rng.normal(size=d_h) * 0.1),
@@ -2268,7 +2333,7 @@ def deep_mlp_path(dev, smi, counts, reset, launches: dict) -> dict:
     mark_peak = peak_marker(dev, peak)
     t = time.perf_counter()
     resident = torch.cuda.memory_allocated(dev)
-    ctx = make_context(params, dev)
+    ctx = make_context(params, device=dev)
     rng = np.random.default_rng(11)
     layers = [(rng.normal(size=(4 if i == DEEP_LAYERS - 1 else DEEP_D, DEEP_D))
                * (0.5 / np.sqrt(DEEP_D)),
@@ -2427,7 +2492,7 @@ def models_ci_run(device, counts, names=MODELS_CI_SMOKE) -> tuple[dict, dict, di
 
     def ckks(name, rots=(), seed=0):
         params = preset(name)
-        ctx = make_context(params, device)
+        ctx = make_context(params, device=device)
         chest = dkeys.keygen(params, np.random.default_rng(seed), rotations=tuple(rots), ctx=ctx)
         be = DeviceBackend(params, ctx, chest)
 
@@ -2440,7 +2505,7 @@ def models_ci_run(device, counts, names=MODELS_CI_SMOKE) -> tuple[dict, dict, di
 
     def integer(name, keygen, backend, gold, mod, seed, rots=()):
         params = preset(name)
-        ctx = make_context(params, device)
+        ctx = make_context(params, device=device)
         chest = keygen(params, np.random.default_rng(seed), tuple(rots), ctx=ctx)
         be = backend(params, ctx, chest)
 
@@ -2551,7 +2616,7 @@ def models_ci_run(device, counts, names=MODELS_CI_SMOKE) -> tuple[dict, dict, di
 
     def partial():  # tests/test_threshold.py:84 at tiny2, == the host partial
         params = preset("tiny2")
-        ctx = make_context(params, device)
+        ctx = make_context(params, device=device)
         a = threshold.common_a(params, 7)
         shares = [threshold.party_keygen(params, a, np.random.default_rng(100 + i))
                   for i in range(3)]
@@ -2571,7 +2636,7 @@ def models_ci_run(device, counts, names=MODELS_CI_SMOKE) -> tuple[dict, dict, di
 
     def batched():  # tiny2, B = 3: each element == ct_mul_full of its pair
         params = preset("tiny2")
-        ctx = make_context(params, device)
+        ctx = make_context(params, device=device)
         chest = dkeys.keygen(params, np.random.default_rng(0), ctx=ctx)
         r = np.random.default_rng(1)
         zs = [r.uniform(-1, 1, size=(2, params.slots)) for _ in range(3)]
@@ -3059,6 +3124,43 @@ def cli_phase(dev, smi, counts, reset, launches: dict, bounds: Bounds, params) -
 # The mesh (gpufhe_tpu_torch/parallel): logical shards on this one card
 # ---------------------------------------------------------------------------
 
+# the bench phase: gpufhe_tpu_torch/bench.py bench_mult at PRESET, cut to a
+# chain of BENCH_CHAIN steps and BENCH_ITERS timed passes (the bench's own
+# defaults are 128 and 3)
+BENCH_CHAIN, BENCH_ITERS = 16, 2
+
+
+def bench_phase(dev, smi, counts, reset, launches: dict, params, ctx) -> dict:
+    """Phase bench: `python -m gpufhe_tpu_torch.cli bench`'s primary line,
+    bench.bench_mult at PRESET (BENCH_CHAIN, BENCH_ITERS), then its chain's
+    final carry == a hand-written loop of ct_mul_full on the card over as
+    many steps from the same inputs, each output padded back to the level
+    with the old operand's top rows. Returns the bench's line."""
+    from gpufhe_tpu_torch import bench
+    from gpufhe_tpu_torch.ciphertext import ct as dct
+
+    t = time.perf_counter()
+    reset()
+    got = {}
+    line = bench.bench_mult(PRESET, BENCH_CHAIN, BENCH_ITERS, HBM_BYTES_PER_S, device=dev,
+                            out=got)
+    launches["bench"] = counts()
+    level, w = params.num_limbs, params.scale_words
+    a, b = got["a"], got["b"]
+    for _ in range(got["steps"]):
+        r = dct.ct_mul_full(a, b, params, ctx, got["rlk"])
+        a, b = dct.Ciphertext([torch.cat([r.c[i], a.c[i][level - w:]]) for i in range(2)],
+                              level, a.scale), a
+    limbs = sum(same_limbs(g, h, f"bench carry [{i}]")
+                for i, (g, h) in enumerate(zip(got["carry"], (a, b), strict=True)))
+    print(f"bench line: {json.dumps(line)}", flush=True)
+    say("bench", f"bench.bench_mult({PRESET}, chain {BENCH_CHAIN}, iters {BENCH_ITERS}): "
+        f"{line['ms_per_mult']} ms per ct_mul_full by CUDA events over the chain, floor "
+        f"subtracted; its carry after {got['steps']} steps == a hand-written ct_mul_full loop "
+        f"on the card ({limbs} limbs); launches {launches['bench']}  [{smi}]", t)
+    return line
+
+
 MESH_SHAPE = (2, 4)  # (limb, coeff): eight shards on DEVICE
 # the reference's representative N=2^16 program set (scripts/exec_n16_mesh.py
 # run_parity): the first CoeffToSlot stage at radix 3, k_bound 10, and the
@@ -3144,10 +3246,10 @@ def mesh_kernels(dev, smi, params, ctx) -> dict:
     x = torch.remainder(torch.from_numpy(rng.integers(0, 1 << 62, size=(rows, n))).to(dev),
                         q[:, :, 0])
     x3 = sh.coeff_to_3d(x, n1, n2)
-    e = sh.ntt_fwd_body(mesh, mesh.put(lambda l, c, d: x3[:, c * h:(c + 1) * h].contiguous()),
+    e = sh.ntt_fwd_body(mesh.put(lambda l, c, d: x3[:, c * h:(c + 1) * h].contiguous()),
                         t_all)
     exact(gathered(e), nc.fourstep_cuda(x, idx, ctx, False), "distributed forward NTT")
-    back = sh.ntt_inv_body(mesh, e, t_all)
+    back = sh.ntt_inv_body(e, t_all)
     for i, row in enumerate(back):
         exact(torch.cat(row, dim=1).reshape(rows, n), x, f"distributed inverse NTT, limb row {i}")
     say("mesh_kernels", f"ntt_pass == fourstep_pass_plain in its four kinds ({checked} blocks of "
@@ -3364,7 +3466,7 @@ def mesh_ci_run(device, names=MESH_CI_ITEMS) -> dict:
 
     if "bootstrap boot_dw_ci" in names:
         params = preset("boot_dw_ci")
-        ctx = make_context(params, device)
+        ctx = make_context(params, device=device)
         rots = tuple(bootstrap_rotations(params, "factored", 6))
         chest = dkeys.keygen(params, np.random.default_rng(7), rotations=rots, conjugation=True,
                              ctx=ctx)
@@ -3387,7 +3489,7 @@ def mesh_ci_run(device, names=MESH_CI_ITEMS) -> dict:
         if not todo:
             continue
         params = preset(f"{scheme}_ci")
-        ctx = make_context(params, device)
+        ctx = make_context(params, device=device)
         chest = mod.keygen(params, np.random.default_rng(7), rotations=(3, 5), ctx=ctx)
         z = np.random.default_rng(8).integers(0, params.plain_modulus, size=params.n)
         ct = mod.encrypt(gold.encode(z, params), params, chest.device_pk, ctx,
@@ -3503,11 +3605,11 @@ def main() -> None:
         f"{mix} {rates[mix] / 1e12:.4f} T/s" for mix in probes.MIXES), t)
 
     params = preset(PRESET)
-    ctx = make_context(params, dev)
+    ctx = make_context(params, device=dev)
     n, L = params.n, params.num_limbs
     qp = L + len(params.p_primes)
     dw = preset(DW_PRESET)
-    ctx_dw = make_context(dw, dev)
+    ctx_dw = make_context(dw, device=dev)
     L_dw = dw.num_limbs
     qp_dw = L_dw + len(dw.p_primes)
     rng = np.random.default_rng(SEED)
@@ -3550,8 +3652,8 @@ def main() -> None:
     #    ModDown of both presets at their top level (config5_boot: 15->45 x2,
     #    15->30; config5_boot_dw: 10->58 x4, 8->58, 10->48)
     t = time.perf_counter()
-    ksc = rns.make_ks_context(params, L, dev)
-    ksc_dw = rns.make_ks_context(dw, L_dw, dev)
+    ksc = rns.make_ks_context(params, L, device=dev)
+    ksc_dw = rns.make_ks_context(dw, L_dw, device=dev)
     conv_err = 0
     conv_cases = {}
     for tag, pr, c, k in (("", params, ctx, ksc), ("_dw", dw, ctx_dw, ksc_dw)):
@@ -3684,7 +3786,7 @@ def main() -> None:
     say("dw_path", f"keygen (rlk + eph h={dw.eph_hamming_weight}), encode, encrypt x2, "
         f"ct_mul_full, decrypt_decode at {DW_PRESET}; launches {launches['dw']}, per "
         f"ct_mul_full {per_dw}", t)
-    ctx_dw_cpu = make_context(dw, "cpu")
+    ctx_dw_cpu = make_context(dw, device="cpu")
     err_dw = decode_err(got_dw, da * db, dw.slots, "dw ct_mul_full")
     if min(per_dw.values()) <= 0:
         raise AssertionError(f"a kernel did not run inside the dw ct_mul_full: {per_dw}")
@@ -3762,7 +3864,10 @@ def main() -> None:
     deferred = [bgv.pop("check"), bfv.pop("check")]
     # golden_n16: the card's N=2^16 products against the golden model's (its
     # CPU twins), after cli
-    deferred.append(golden_n16({"mul": prod, "bgv": bgv["mul"][0], "bfv": bfv["mul"][0]}, smi))
+    gold_card = {"mul": prod, "bgv": bgv["mul"][0], "bfv": bfv["mul"][0],
+                 "ct_mod_raise": [card_mod_raise(params, ctx, chest)]}
+    gold_card.update({k: outs[k] for k in GOLDEN_ROTATE_OPS[:3]})
+    deferred.append(golden_n16(gold_card, smi))
     deferred.append(int_ci(dev, smi, counts, reset, launches))
     int_times = int_timing(bgv, bfv, ik, bounds, counts, smi)
     # 9b'. the sharded multiplies on a (2, 4) mesh of shards on the card
@@ -3801,7 +3906,7 @@ def main() -> None:
 
     def stage_leaves(pr, c, ch, a, b, tag):
         level = pr.num_limbs
-        k_ctx = rns.make_ks_context(pr, level, c.device)
+        k_ctx = rns.make_ks_context(pr, level, device=c.device)
         xk = rand_limbs(c, range(level))
         xqp = rand_limbs(c, keyswitch.qp_indices(pr, level))
         raised = keyswitch.hoist(xk, pr, level, c, k_ctx)
@@ -3820,7 +3925,7 @@ def main() -> None:
     leaves = stage_leaves(params, ctx, chest, cts[0], cts[1], "")
     leaves.update(stage_leaves(dw, ctx_dw, chest_dw, *cts_dw, "_dw"))
     gks = {s: chest.galois_key(s) for s in ROTATIONS}
-    ksc_l = rns.make_ks_context(params, L, dev)
+    ksc_l = rns.make_ks_context(params, L, device=dev)
     leaves.update({
         "ct_rotate": lambda: dct.ct_rotate(cts[0], 1, params, ctx, gks[1]),
         "hoist": lambda: keyswitch.hoist(cts[0].c[1], params, L, ctx, ksc_l),
@@ -3891,7 +3996,7 @@ def main() -> None:
     saving = session_save(sess)
     deep = deep_mlp_path(dev, smi, counts, reset, launches)
     gc.collect()
-    ctx15 = make_context(preset(MLP_PRESET), dev)
+    ctx15 = make_context(preset(MLP_PRESET), device=dev)
     bounds15 = Bounds(ctx15.n, ctx15.n1, ctx15.n2, mod_rate, rates["muladd"])
     mlp = mlp_n15_path(dev, smi, counts, reset, launches, bounds15)
     ci_items, check = models_ci(dev, smi, counts, reset, launches)
@@ -3908,6 +4013,7 @@ def main() -> None:
     sess_stats = {k: sess[k] for k in ("create_s", "op_ms", "turns", "errs")}
     del sess, saving  # the config5_boot session's keys
     cli_rows = cli_phase(dev, smi, counts, reset, launches, bounds, params)
+    bench_line = bench_phase(dev, smi, counts, reset, launches, params, ctx)
     # the CPU twins, computed in their own process since the run began
     join_cpu_twins()
     # 10e. the mesh at full width (config5_boot_dw) and at CI size
@@ -4152,7 +4258,8 @@ def main() -> None:
           + f"; at {INT_PRESET} (BFV) Session.create {sess_bfv['create_s']:.2f} s, noise_budget "
           f"{sess_bfv['budgets'][0]:.2f} -> {sess_bfv['budgets'][1]:.2f} bits; cli kernels rows "
           + ", ".join(f"{r['kernel']} {r['ms']} ms / bound {r['bound_ms']} ms" for r in cli_rows)
-          + f"  [{smi}]", flush=True)
+          + f"; bench ct_mul_full chain {bench_line['ms_per_mult']} ms per multiply (HBM floor "
+          f"{bench_line['hbm_floor_ms']} ms)  [{smi}]", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -28,6 +28,8 @@ same path under the other package:
                estimates, noise reports, profiling, kernel bounds
   api          Session and ThresholdSession, the facade over all of it
   cli          python -m gpufhe_tpu_torch.cli
+  bench        the headline lines on the card (cli bench; the root bench.py's
+               counterpart)
   interop      carrying gpufhe_tpu state (numpy arrays) into this package
 
 Residues are int64 tensors holding canonical values in [0, q) for primes

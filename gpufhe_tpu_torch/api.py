@@ -99,7 +99,7 @@ class Session:
             ))
             conjugation = True
         rng = np.random.default_rng(seed)
-        ctx = make_context(params, device)
+        ctx = make_context(params, device=device)
         if scheme == "ckks":
             from gpufhe_tpu_torch.keys import keys as dkeys
 
@@ -149,7 +149,7 @@ class Session:
 
         with np.load(path) as z:
             meta = json.loads(bytes(z["__meta__"]).decode())
-        ctx = make_context(serialization.params_from_dict(meta["params"]), device)
+        ctx = make_context(serialization.params_from_dict(meta["params"]), device=device)
         scheme, chest = serialization.load_keychest(path, with_scheme=True, ctx=ctx)
         params = chest.params
         be = cls._make_backend(params, ctx, chest, scheme)
@@ -363,7 +363,7 @@ class ThresholdSession(Session):
         assert scheme in ("ckks", "bgv", "bfv")
         if rotations == "bsgs":
             rotations = tuple(linalg.bsgs_rotations(params.slots))
-        ctx = make_context(params, device)
+        ctx = make_context(params, device=device)
         a = th.common_a(params, seed=seed)
         shares = [
             th.party_keygen(params, a, np.random.default_rng(seed * 1000 + 100 + i))

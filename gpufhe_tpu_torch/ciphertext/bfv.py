@@ -66,7 +66,7 @@ def keygen(params: CKKSParams, rng: np.random.Generator, rotations: tuple[int, .
 
 def _ckks_ksc(params: CKKSParams, level: int, device) -> KSContext:
     """The plain ModDown's tables: BFV's key switch is the CKKS one."""
-    return make_ks_context(gbfv._ckks_view(params), level, device)
+    return make_ks_context(gbfv._ckks_view(params), level, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +93,7 @@ class BFVMulTables:
 
 
 @functools.lru_cache(maxsize=None)
-def make_bfv_mul_context(params: CKKSParams, level: int, device="cuda"):
+def make_bfv_mul_context(params: CKKSParams, level: int, *, device="cuda"):
     """(aux params, aux Context, BFVMulTables) for one (params, level)."""
     auxp = gbfv.bfv_aux_params(params, level)
     aux = auxp.q_primes
@@ -117,7 +117,7 @@ def make_bfv_mul_context(params: CKKSParams, level: int, device="cuda"):
         binv_msk=pow(big_b % m_sk, -1, m_sk),
         m_sk=m_sk,
     )
-    return auxp, make_context(auxp, device), tables
+    return auxp, make_context(auxp, device=device), tables
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +205,7 @@ def _tensor_coeff(ca, cb, params: CKKSParams, ctx: Context, level: int) -> torch
     Transforms are batched over the components (one K1 launch per basis and
     direction); each conversion is one K3 launch per component: Q -> aux for
     the four inputs and for [t d]_Q, B -> m_sk and B -> Q per output."""
-    auxp, aux_ctx, tabs = make_bfv_mul_context(params, level, ctx.device)
+    auxp, aux_ctx, tabs = make_bfv_mul_context(params, level, device=ctx.device)
     a_dim = len(auxp.q_primes)
     q_rows, a_rows = range(level), range(a_dim)
     q, aq = ctx.col("q", q_rows), aux_ctx.col("q", a_rows)

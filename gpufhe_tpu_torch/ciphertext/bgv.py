@@ -127,7 +127,7 @@ def ct_relinearize(ct: BGVCiphertext, params: CKKSParams, ctx: Context,
                    rlk: DeviceKSKey) -> BGVCiphertext:
     if len(ct.c) != 3:
         raise ValueError("ct_relinearize takes a 3-component ciphertext")
-    ksc = make_ks_context(params, ct.level, ctx.device)  # t-corrected ModDown
+    ksc = make_ks_context(params, ct.level, device=ctx.device)  # t-corrected ModDown
     return BGVCiphertext(list(dct.relin_core(ct.c, ctx, ksc, rlk, params, ct.level)),
                          ct.level, ct.pt_factor)
 
@@ -142,7 +142,7 @@ def ct_modswitch(ct: BGVCiphertext, params: CKKSParams, ctx: Context) -> BGVCiph
     """Drop q_last (level K -> K-1), the t-corrected division; one batched
     transform each way."""
     level = ct.level
-    ksc = make_ks_context(params, level, ctx.device)
+    ksc = make_ks_context(params, level, device=ctx.device)
     coeff = ntt_inv(torch.stack(ct.c), ctx, limbs=range(level))
     down = ntt_fwd(bgv_modswitch(coeff, params, level, ctx, ksc), ctx, limbs=range(level - 1))
     return BGVCiphertext(list(down), level - 1, _modswitched_factor(ct.pt_factor, params, level))
@@ -161,7 +161,7 @@ def ct_mul(a: BGVCiphertext, b: BGVCiphertext, params: CKKSParams, ctx: Context,
     level = a.level
     q = ctx.col("q", range(level))
     d0, d1, d2 = dct.tensor_core(a.c, b.c, ctx, level)
-    ksc = make_ks_context(params, level, ctx.device)
+    ksc = make_ks_context(params, level, device=ctx.device)
     ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
     cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
                  torch.stack([ks0, ks1]), q)
@@ -176,7 +176,7 @@ def ct_rotate(ct: BGVCiphertext, steps: int, params: CKKSParams, ctx: Context,
     """Rotate the slots by the 5^steps automorphism (slot_rotation_perm)."""
     if len(ct.c) != 2:
         raise ValueError("ct_rotate takes a 2-component ciphertext")
-    ksc = make_ks_context(params, ct.level, ctx.device)
+    ksc = make_ks_context(params, ct.level, device=ctx.device)
     g = gckks.galois_exponent(steps, params.n)
     return BGVCiphertext(list(dct.galois_core(ct.c, g, ctx, ksc, gk, params, ct.level)),
                          ct.level, ct.pt_factor)
@@ -189,7 +189,7 @@ def ct_rotate_hoisted(ct: BGVCiphertext, steps_list, params: CKKSParams, ctx: Co
     if len(ct.c) != 2:
         raise ValueError("ct_rotate_hoisted takes a 2-component ciphertext")
     level = ct.level
-    ksc = make_ks_context(params, level, ctx.device)
+    ksc = make_ks_context(params, level, device=ctx.device)
     raised = hoist(ct.c[1], params, level, ctx, ksc)
     return [BGVCiphertext(list(dct.hoisted_galois_core(
                 raised, ct.c[0], gckks.galois_exponent(s, params.n), ctx, ksc, gks[s], params,

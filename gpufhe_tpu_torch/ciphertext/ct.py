@@ -221,7 +221,7 @@ def ct_relinearize(ct: Ciphertext, params: CKKSParams, ctx: Context,
                    rlk: DeviceKSKey) -> Ciphertext:
     if len(ct.c) != 3:
         raise ValueError("ct_relinearize takes a 3-component ciphertext")
-    ksc = make_ks_context(params, ct.level, ctx.device)
+    ksc = make_ks_context(params, ct.level, device=ctx.device)
     return Ciphertext(list(relin_core(ct.c, ctx, ksc, rlk, params, ct.level)), ct.level,
                       ct.scale)
 
@@ -229,7 +229,7 @@ def ct_relinearize(ct: Ciphertext, params: CKKSParams, ctx: Context,
 def ct_rescale(ct: Ciphertext, params: CKKSParams, ctx: Context) -> Ciphertext:
     """Divide by the last active prime: level K -> K-1, one batched transform each way."""
     level = ct.level
-    ksc = make_ks_context(params, level, ctx.device)
+    ksc = make_ks_context(params, level, device=ctx.device)
     return Ciphertext(rescale_core(ct.c, ctx, ksc, params, level), level - 1,
                       ct.scale / params.q_primes[level - 1])
 
@@ -254,7 +254,7 @@ def ct_mul_full(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
     level = a.level
     q = ctx.col("q", range(level))
     d0, d1, d2 = tensor_core(a.c, b.c, ctx, level)
-    ksc = make_ks_context(params, level, ctx.device)
+    ksc = make_ks_context(params, level, device=ctx.device)
     ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
     cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
                  torch.stack([ks0, ks1]), q)
@@ -267,7 +267,7 @@ def _rescale_chain(cc: torch.Tensor, params: CKKSParams, level: int, ctx: Contex
                    scale: float) -> tuple[torch.Tensor, int, float]:
     """scale_words rescales of coefficient-domain int64[..., K, N], back to back."""
     for _ in range(params.scale_words):
-        cc = rescale(cc, params, level, ctx, make_ks_context(params, level, ctx.device))
+        cc = rescale(cc, params, level, ctx, make_ks_context(params, level, device=ctx.device))
         scale = scale / params.q_primes[level - 1]
         level -= 1
     return cc, level, scale
@@ -313,7 +313,7 @@ def ct_key_switch(ct: Ciphertext, params: CKKSParams, ctx: Context,
     ct_key_switch; the sparse-secret encapsulation's to_eph / from_eph)."""
     if len(ct.c) != 2:
         raise ValueError("ct_key_switch takes a 2-component ciphertext")
-    ksc = make_ks_context(params, ct.level, ctx.device)
+    ksc = make_ks_context(params, ct.level, device=ctx.device)
     ks0, ks1 = key_switch_core(ct.c[1], params, ct.level, ctx, ksc, ksk)
     q = ctx.col("q", range(ct.level))
     return Ciphertext([add_mod(ct.c[0], ks0, q), ks1], ct.level, ct.scale)
@@ -334,7 +334,7 @@ def _galois(ct: Ciphertext, g: int, params: CKKSParams, ctx: Context,
     (reference _galois_core)."""
     if len(ct.c) != 2:
         raise ValueError("a Galois automorphism takes a 2-component ciphertext")
-    ksc = make_ks_context(params, ct.level, ctx.device)
+    ksc = make_ks_context(params, ct.level, device=ctx.device)
     return Ciphertext(list(galois_core(ct.c, g, ctx, ksc, key, params, ct.level)), ct.level,
                       ct.scale)
 
@@ -362,7 +362,7 @@ def ct_rotate_hoisted(ct: Ciphertext, steps_list, params: CKKSParams, ctx: Conte
     if len(ct.c) != 2:
         raise ValueError("ct_rotate_hoisted takes a 2-component ciphertext")
     level = ct.level
-    ksc = make_ks_context(params, level, ctx.device)
+    ksc = make_ks_context(params, level, device=ctx.device)
     raised = hoist(ct.c[1], params, level, ctx, ksc)
     return [Ciphertext(list(hoisted_galois_core(raised, ct.c[0],
                                                 gckks.galois_exponent(steps, params.n), ctx,
@@ -412,7 +412,7 @@ def ct_diag_fan(
     level = ct.level
     r_count = len(offsets)
     qp = qp_indices(params, level)
-    ksc = make_ks_context(params, level, ctx.device)
+    ksc = make_ks_context(params, level, device=ctx.device)
     raised = hoist(ct.c[1], params, level, ctx, ksc)
     exps = [gckks.galois_exponent(s, params.n) for s in offsets]
     t = torch.empty((2, r_count, len(qp), params.n), dtype=torch.int64, device=ctx.device)

@@ -5,15 +5,18 @@ defaults and the same JSON keys in each output line. Every context is built
 on the card; `--cpu` builds every one on the CPU instead, where each kernel
 runs its plain PyTorch version.
 
+    python -m gpufhe_tpu_torch.cli bench --preset config5_boot
     python -m gpufhe_tpu_torch.cli kernels --preset config5_boot
     python -m gpufhe_tpu_torch.cli --cpu demo-logreg --preset ci_small
     python -m gpufhe_tpu_torch.cli keygen --preset config3_ckks --out keys.npz
 
+`bench` runs gpufhe_tpu_torch/bench.py, the counterpart of the reference's
+root bench.py: one JSON line per headline, the --preset multiply last.
 `kernels` prints each row beside its bound on the card (utils/benchkit.py).
 `scaling` reports the sharded multiply over the mesh shapes that fit the
 distinct devices (parallel/multihost.py scaling_report): one card, or the
-CPU, gives the 1 x 1 row alone. The reference's `bench` (its bench.py) has
-no counterpart yet, nor has its `--cache` (XLA's compile cache).
+CPU, gives the 1 x 1 row alone. The reference's `--cache` (XLA's compile
+cache) has no counterpart.
 """
 
 from __future__ import annotations
@@ -33,7 +36,16 @@ def _device(args) -> str:
 def _ctx(params, args):
     from gpufhe_tpu_torch.ops.context import make_context
 
-    return make_context(params, _device(args))
+    return make_context(params, device=_device(args))
+
+
+def _cmd_bench(args):
+    import os
+
+    from gpufhe_tpu_torch import bench
+
+    os.environ.setdefault("BENCH_PRESET", args.preset)
+    bench.main(device=_device(args))
 
 
 def _cmd_demo_mlp(args):
@@ -542,6 +554,10 @@ def main(argv=None):
                    help="build every context on the CPU (each kernel's plain "
                         "PyTorch version) instead of the card")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    b = sub.add_parser("bench", help="headline benchmark lines, the --preset multiply last")
+    b.add_argument("--preset", default="config5_boot")
+    b.set_defaults(fn=_cmd_bench)
 
     k = sub.add_parser("kernels", help="per-kernel times beside their bounds on the card")
     k.add_argument("--preset", default="config5_boot")

@@ -22,6 +22,8 @@ from gpufhe_tpu_torch.ops.context import Context, make_context
 from gpufhe_tpu_torch.ops.modops import mont_mul
 from gpufhe_tpu_torch.params.params import CKKSParams
 
+R = 1 << 32  # the Montgomery radix
+
 
 def _mont_np(x: np.ndarray, primes, lead_axes: int = 0) -> torch.Tensor:
     """Host canonical int64[..., L, N] -> its Montgomery form x * 2^32 mod q

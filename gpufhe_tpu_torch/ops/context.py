@@ -45,6 +45,8 @@ import torch
 from gpufhe_tpu_torch.golden.arithmetic import mont_constants
 from gpufhe_tpu_torch.params.params import CKKSParams
 
+R = 1 << 32  # the Montgomery radix
+
 
 def fourstep_split(n: int) -> tuple[int, int]:
     """Factor n = n1 * n2 with n1 >= n2, both powers of two (n1 = n2 or 2*n2)."""
@@ -220,7 +222,7 @@ def ntt_tables_np(primes, psis, n: int) -> tuple[dict, dict]:
     return fwd, inv
 
 
-def make_context(params: CKKSParams, device: str = "cuda") -> Context:
+def make_context(params: CKKSParams, *, device: str = "cuda") -> Context:
     """The device context of a parameter set (host precompute, one upload),
     cached per parameters and device: "cuda", torch.device("cuda") and the
     default name one entry."""

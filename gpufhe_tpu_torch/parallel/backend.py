@@ -53,7 +53,7 @@ class ShardedBackend:
         self.params = params
         self.mesh = mesh
         self.chest = chest
-        self.ctx = make_context(params, mesh.devices[0][0])
+        self.ctx = make_context(params, device=mesh.devices[0][0])
         self.n1, self.n2 = fourstep_split(params.n)
         self._n_limb = mesh.shape["limb"]
         self._t_full = sh.full_ntt_tables(params, mesh=mesh)
@@ -206,11 +206,11 @@ class ShardedBackend:
         t_qm1 = sh.gather_ntt_tables(self._t_full, range(k - 1))
 
         def body(comp):
-            coeff = sh.ntt_inv_body(mesh, comp, t_q)
+            coeff = sh.ntt_inv_body(comp, t_q)
             down = [[sh._e3(rescale(sh._flat(x), params, k, t_q.ctx(dev),
-                                    make_ks_context(params, k, dev)), self.n2)
+                                    make_ks_context(params, k, device=dev)), self.n2)
                      for x, dev in zip(row, devs)] for row, devs in zip(coeff, mesh.devices)]
-            return sh.ntt_fwd_body(mesh, down, t_qm1)
+            return sh.ntt_fwd_body(down, t_qm1)
 
         return body
 
@@ -346,10 +346,10 @@ class ShardedBackend:
         t_all = sh.gather_ntt_tables(self._t_full, range(level))
 
         def body(comp):
-            coeff = sh.ntt_inv_body(mesh, comp, t_low)
+            coeff = sh.ntt_inv_body(comp, t_low)
             up = [[sh._e3(lift(sh._flat(x), t_all.ctx(dev)), self.n2)
                    for x, dev in zip(row, devs)] for row, devs in zip(coeff, mesh.devices)]
-            return sh.ntt_fwd_body(mesh, up, t_all)
+            return sh.ntt_fwd_body(up, t_all)
 
         return body
 

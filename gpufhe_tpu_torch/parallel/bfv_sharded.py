@@ -39,11 +39,11 @@ def _bfv_mult_body(mesh: FheMesh, a0, a1, b0, b1, params: CKKSParams, t_q, t_aux
     flat = sh._flat
 
     # 1. extend the four inputs to the aux basis (K3 per component)
-    coeff = sh.ntt_inv_body(mesh, mesh.map(lambda *c: torch.stack(c), a0, a1, b0, b1), t_q)
+    coeff = sh.ntt_inv_body(mesh.map(lambda *c: torch.stack(c), a0, a1, b0, b1), t_q)
     ext = [[sh._e3(torch.stack([base_convert(flat(x).contiguous(), tabs[dev].q2aux)
                                 for x in blk]), n2)
             for blk, dev in zip(*cells)] for cells in zip(coeff, mesh.devices)]
-    ext = sh.ntt_fwd_body(mesh, ext, t_aux)
+    ext = sh.ntt_fwd_body(ext, t_aux)
 
     # 2. tensor over both bases, 3. y = (t d - [t d]_Q) / Q over aux
     def scale_in(i, c):
@@ -56,8 +56,8 @@ def _bfv_mult_body(mesh: FheMesh, a0, a1, b0, b1, params: CKKSParams, t_q, t_aux
                 sh._e3(torch.stack(tensor_core(e[:2], e[2:], aux, a_dim)), n2))
 
     d = [[scale_in(i, c) for c in range(len(row))] for i, row in enumerate(a0)]
-    dq = sh.ntt_inv_body(mesh, mesh.map(lambda x: x[0], d), t_q)
-    daux = sh.ntt_inv_body(mesh, mesh.map(lambda x: x[1], d), t_aux)
+    dq = sh.ntt_inv_body(mesh.map(lambda x: x[0], d), t_q)
+    daux = sh.ntt_inv_body(mesh.map(lambda x: x[1], d), t_aux)
 
     def to_q(i, c):  # 4. back to Q exactly: int64[3, K, M] coefficient domain
         dev = mesh.devices[i][c]
@@ -73,7 +73,7 @@ def _bfv_mult_body(mesh: FheMesh, a0, a1, b0, b1, params: CKKSParams, t_q, t_aux
                               gmax, eval_in=False, eval_out=False)
     cc = [[sh._e3(add_mod(flat(x[:2]), flat(k), t_q.col(dev)), n2)
            for x, k, dev in zip(*cells)] for cells in zip(dc, ks01, mesh.devices)]
-    out = sh.ntt_fwd_body(mesh, cc, t_q)
+    out = sh.ntt_fwd_body(cc, t_q)
     return mesh.map(lambda x: x[0], out), mesh.map(lambda x: x[1], out)
 
 
@@ -86,10 +86,10 @@ def make_sharded_bfv_mult(params: CKKSParams, level: int, mesh: FheMesh):
     -> two [K, n1, n2] components (the level stays)."""
     n_limb = mesh.shape["limb"]
     cv = gbfv._ckks_view(params)  # BFV's key switch is the CKKS one
-    per_dev = {d: make_bfv_mul_context(params, level, d) for d in mesh.distinct_devices}
+    per_dev = {d: make_bfv_mul_context(params, level, device=d) for d in mesh.distinct_devices}
     n_aux = len(next(iter(per_dev.values()))[0].q_primes)
     t_q, t_qp = sh._tables(params, mesh, range(level), qp_indices(params, level))
-    t_aux = sh._ntt_tables_for({d: v[1] for d, v in per_dev.items()}, range(n_aux))
+    t_aux = sh._ntt_tables_for({d: v[1] for d, v in per_dev.items()}, range(n_aux), mesh)
     tabs = {d: v[2] for d, v in per_dev.items()}
 
     def prepare(ksk: DeviceKSKey):

@@ -108,12 +108,14 @@ def _e3(b: torch.Tensor, n2: int) -> torch.Tensor:
 
 class ShardedNTT(NamedTuple):
     """The transform tables of a limb selection: per device the context
-    whose full-chain K1 tables every shard on that device shares, and the
-    chain rows of the limb axis (the reference's digit matrices and
-    per-limb constants become K1's tables and its limb index)."""
+    whose full-chain K1 tables every shard on that device shares, the chain
+    rows of the limb axis (the reference's digit matrices and per-limb
+    constants become K1's tables and its limb index), and the mesh whose
+    shards hold them (the reference's bodies find theirs in shard_map)."""
 
     ctxs: dict  # torch.device -> Context
     rows: tuple  # chain rows
+    mesh: FheMesh
 
     def ctx(self, dev) -> Context:
         return self.ctxs[torch.device(dev)]
@@ -128,7 +130,7 @@ class ShardedNTT(NamedTuple):
 
 def mesh_contexts(params: CKKSParams, mesh: FheMesh) -> dict:
     """The context of `params` on each distinct device of the mesh."""
-    return {d: make_context(params, d) for d in mesh.distinct_devices}
+    return {d: make_context(params, device=d) for d in mesh.distinct_devices}
 
 
 @functools.lru_cache(maxsize=8)
@@ -136,17 +138,17 @@ def full_ntt_tables(params: CKKSParams, *, mesh: FheMesh) -> ShardedNTT:
     """ONE full-chain table set per parameter set and mesh, shared by every
     program; gather_ntt_tables selects a level's rows."""
     ctxs = mesh_contexts(params, mesh)
-    return ShardedNTT(ctxs, tuple(range(len(params.q_primes) + len(params.p_primes))))
+    return ShardedNTT(ctxs, tuple(range(len(params.q_primes) + len(params.p_primes))), mesh)
 
 
 def gather_ntt_tables(t_full: ShardedNTT, idx) -> ShardedNTT:
     """A limb selection of the shared full-chain set (chain rows idx)."""
-    return ShardedNTT(t_full.ctxs, tuple(int(i) for i in idx))
+    return t_full._replace(rows=tuple(int(i) for i in idx))
 
 
-def _ntt_tables_for(ctx, limbs) -> ShardedNTT:
+def _ntt_tables_for(ctx, limbs, mesh: FheMesh) -> ShardedNTT:
     """Tables of `limbs` of a chain: ctx is a dict device -> Context."""
-    return ShardedNTT(dict(ctx), tuple(int(i) for i in limbs))
+    return ShardedNTT(dict(ctx), tuple(int(i) for i in limbs), mesh)
 
 
 # -- the distributed four-step ------------------------------------------------
@@ -169,7 +171,8 @@ def _passes(mesh: FheMesh, blocks, t: ShardedNTT, kind: int, axis: str):
     return out
 
 
-def _transform(mesh: FheMesh, x, t: ShardedNTT, axis: str, inverse: bool):
+def _transform(x, t: ShardedNTT, axis: str, inverse: bool):
+    mesh = t.mesh
     flat = mesh.map(lambda b: b.reshape(-1, *b.shape[-2:]), x)
     if not inverse:
         cols = mesh.all_to_all(flat, axis, split_axis=2, concat_axis=1)  # [R, n1, n2/C]
@@ -184,18 +187,18 @@ def _transform(mesh: FheMesh, x, t: ShardedNTT, axis: str, inverse: bool):
     return mesh.map(lambda b, o: o.reshape(b.shape), x, out)
 
 
-def ntt_fwd_body(mesh: FheMesh, x, t: ShardedNTT, axis: str = "coeff"):
+def ntt_fwd_body(x, t: ShardedNTT, axis: str = "coeff"):
     """Coeff rows [..., L, n1/C, n2] -> eval [..., L, n1/C (k1), n2 (k2)]:
     an all_to_all to columns, K1's pass A at the block's column offset, an
     all_to_all back to rows, K1's pass B."""
-    return _transform(mesh, x, t, axis, inverse=False)
+    return _transform(x, t, axis, inverse=False)
 
 
-def ntt_inv_body(mesh: FheMesh, e, t: ShardedNTT, axis: str = "coeff"):
+def ntt_inv_body(e, t: ShardedNTT, axis: str = "coeff"):
     """Eval [..., L, n1/C (k1), n2 (k2)] -> coeff rows [..., L, n1/C (j1),
     n2]: K1's inverse pass B, an all_to_all to columns, inverse pass A at
     the block's column offset, an all_to_all back."""
-    return _transform(mesh, e, t, axis, inverse=True)
+    return _transform(e, t, axis, inverse=True)
 
 
 def _modular_allreduce(mesh: FheMesh, x, t: ShardedNTT, axis: str = "limb"):
@@ -257,7 +260,7 @@ def make_sharded_ks(params: CKKSParams, level: int, ksk: DeviceKSKey, n_limb: in
     if n_limb != mesh.shape["limb"]:
         raise ValueError(f"n_limb {n_limb} is not the mesh's {mesh.shape['limb']}")
     gmax, groups = _row_groups(params, level, n_limb, mesh.rows)
-    ksc = {d: make_ks_context(params, level, d) for d in mesh.distinct_devices}
+    ksc = {d: make_ks_context(params, level, device=d) for d in mesh.distinct_devices}
     kb, ka = (None, None) if ksk is None else _key_blocks(ksk, params, level, mesh, groups)
     return ShardedKS(groups, ksc, kb, ka), gmax
 
@@ -286,7 +289,7 @@ def _raise(mesh: FheMesh, x_coeff, params: CKKSParams, level: int, ks: ShardedKS
         return _e3(torch.stack(got), n2)
 
     raised = [[up(i, c, x) for c, x in enumerate(row)] for i, row in enumerate(x_coeff)]
-    return ntt_fwd_body(mesh, raised, t_qp)
+    return ntt_fwd_body(raised, t_qp)
 
 
 def _gadget_mac(mesh: FheMesh, raised, key_b, key_a, params: CKKSParams, level: int,
@@ -313,7 +316,7 @@ def _ks_finish(mesh: FheMesh, acc, params: CKKSParams, level: int, ks: ShardedKS
     P (K3 on each block), and NTT back unless eval_out is False:
     int64[2, K, B, n2] per shard."""
     acc = _modular_allreduce(mesh, acc, t_qp)
-    coeff = ntt_inv_body(mesh, mesh.map(lambda a: _e3(a, n2), acc), t_qp)
+    coeff = ntt_inv_body(mesh.map(lambda a: _e3(a, n2), acc), t_qp)
 
     def down(i, c, x):
         dev = mesh.devices[i][c]
@@ -322,7 +325,7 @@ def _ks_finish(mesh: FheMesh, acc, params: CKKSParams, level: int, ks: ShardedKS
                                 for j in range(2)]), n2)
 
     out = [[down(i, c, x) for c, x in enumerate(row)] for i, row in enumerate(coeff)]
-    return ntt_fwd_body(mesh, out, t_q) if eval_out else out
+    return ntt_fwd_body(out, t_q) if eval_out else out
 
 
 def _keyswitch_body(mesh: FheMesh, d2, params: CKKSParams, t_q: ShardedNTT, t_qp: ShardedNTT,
@@ -333,7 +336,7 @@ def _keyswitch_body(mesh: FheMesh, d2, params: CKKSParams, t_q: ShardedNTT, t_qp
     own groups, the partial products are summed exactly over the limb axis,
     then ModDown (K3). Returns a grid of int64[2, K, B, n2] (ks0, ks1)."""
     n2 = d2[0][0].shape[-1]
-    d2_coeff = ntt_inv_body(mesh, d2, t_q) if eval_in else d2
+    d2_coeff = ntt_inv_body(d2, t_q) if eval_in else d2
     raised = _raise(mesh, d2_coeff, params, level, ks, t_qp)
     acc = _gadget_mac(mesh, mesh.map(_flat, raised), ks.key_b, ks.key_a, params, level, t_qp)
     return _ks_finish(mesh, acc, params, level, ks, t_q, t_qp, n2, eval_out)
@@ -365,7 +368,7 @@ def _mult_body(mesh: FheMesh, a0, a1, b0, b1, params: CKKSParams, t_q, t_qp, t_q
     d01 = mesh.map(lambda x: torch.stack(x[:2]), d)
     d2 = mesh.map(lambda x: x[2], d)
     ks01 = _keyswitch_body(mesh, d2, params, t_q, t_qp, ks, level, gmax, eval_out=False)
-    coeff = ntt_inv_body(mesh, d01, t_q)
+    coeff = ntt_inv_body(d01, t_q)
 
     def finish(i, c, x, k):
         dev = mesh.devices[i][c]
@@ -376,7 +379,7 @@ def _mult_body(mesh: FheMesh, a0, a1, b0, b1, params: CKKSParams, t_q, t_qp, t_q
 
     down = [[finish(i, c, x, k) for c, (x, k) in enumerate(zip(*rows))]
             for i, rows in enumerate(zip(coeff, ks01))]
-    out = ntt_fwd_body(mesh, down, t_qm1)
+    out = ntt_fwd_body(down, t_qm1)
     return mesh.map(lambda x: x[0], out), mesh.map(lambda x: x[1], out)
 
 
@@ -537,7 +540,7 @@ def _hoist_gather(mesh: FheMesh, c0, c1, params: CKKSParams, level: int, ks: Sha
                   t_q: ShardedNTT, t_qp: ShardedNTT):
     """The fan's shared operands: each shard's raised digits and c0, each
     all_gathered over coeff to [g, K+alpha, N] and [K, N]."""
-    raised = _raise(mesh, ntt_inv_body(mesh, c1, t_q), params, level, ks, t_qp)
+    raised = _raise(mesh, ntt_inv_body(c1, t_q), params, level, ks, t_qp)
     full_r = mesh.all_gather(raised, "coeff", dim=2)  # [g, K+alpha, n1, n2]
     full_c0 = mesh.all_gather(c0, "coeff", dim=1)  # [K, n1, n2]
     return (mesh.map(lambda r: r.reshape(*r.shape[:2], -1), full_r),
@@ -604,7 +607,7 @@ def make_sharded_fan(params: CKKSParams, level: int, mesh: FheMesh, n_offsets: i
             got = [[macs(i, c) for c in range(len(row))] for i, row in enumerate(c0)]
             down = _ks_finish(mesh, [[a for a, _ in r] for r in got], params, level, ks, t_q,
                               t_qp, n2, eval_out=False)
-            e_coeff = ntt_inv_body(mesh, [[_e3(torch.stack(e), n2) for _, e in r] for r in got],
+            e_coeff = ntt_inv_body([[_e3(torch.stack(e), n2) for _, e in r] for r in got],
                                    t_q)
 
             def finish(i, c):
@@ -615,13 +618,13 @@ def make_sharded_fan(params: CKKSParams, level: int, mesh: FheMesh, n_offsets: i
                                   for j in range(2)])
                 lvl = level
                 for _ in range(words):
-                    cc = rescale(cc, params, lvl, t_q.ctx(dev), make_ks_context(params, lvl, dev))
+                    cc = rescale(cc, params, lvl, t_q.ctx(dev), make_ks_context(params, lvl, device=dev))
                     lvl -= 1
                 return _e3(cc, n2)
 
             cc = [[finish(i, c) for c in range(len(row))] for i, row in enumerate(c0)]
             t_out, = _tables(params, mesh, range(level - words))
-            out = ntt_fwd_body(mesh, cc, t_out)
+            out = ntt_fwd_body(cc, t_out)
             outs.append((mesh.map(lambda x: x[0], out), mesh.map(lambda x: x[1], out)))
         return outs
 

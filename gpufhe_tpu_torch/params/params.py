@@ -366,4 +366,4 @@ def make_context(name_or_params, *, device: str = "cuda"):
 
     if isinstance(name_or_params, str):
         name_or_params = preset(name_or_params)
-    return _make(name_or_params, device)
+    return _make(name_or_params, device=device)

@@ -32,6 +32,8 @@ from gpufhe_tpu_torch.ops.convert_cuda import ConvertTables, make_convert_tables
 from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, sub_mod
 from gpufhe_tpu_torch.params.params import CKKSParams
 
+R = 1 << 32  # the Montgomery radix
+
 
 def ks_groups(params: CKKSParams, level: int) -> list[tuple[int, int]]:
     """(start, stop) limb ranges of the active key-switch decomposition groups."""
@@ -57,7 +59,7 @@ class KSContext:
 
 
 @functools.lru_cache(maxsize=None)
-def make_ks_context(params: CKKSParams, level: int, device: str = "cuda") -> KSContext:
+def make_ks_context(params: CKKSParams, level: int, *, device: str = "cuda") -> KSContext:
     """Host-side table build (exact python ints), one upload. Cached on
     (params, level, device): plain_modulus is part of params, so a BGV chain
     and its CKKS view (BFV's key switch) get separate tables."""

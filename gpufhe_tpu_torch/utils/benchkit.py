@@ -78,31 +78,43 @@ class Bounds:
 
     def record(self, fn) -> dict:
         """Call fn once with the three kernels' wrappers recording the work of
-        each launch: {"ntt": [work, ...], "convert": [...], "mac": [...]}."""
+        each launch: {"ntt": [work, ...], "convert": [...], "mac": [...]}. On
+        the CPU each call of a kernel's plain version counts as its launch."""
         from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda
 
         seen = {"ntt": [], "convert": [], "mac": []}
-        real = (ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda)
+        names = ((ntt_cuda, "fourstep_cuda"), (ntt_cuda, "fourstep_plain"),
+                 (convert_cuda, "base_convert_cuda"), (convert_cuda, "base_convert_plain"),
+                 (mac_cuda, "mac_cuda"), (mac_cuda, "mac_plain"))
+        real = [getattr(mod, name) for mod, name in names]
 
-        def ntt_rec(x, idx_, ctx_, inverse, kernel=ntt_cuda.KERNEL):
-            seen["ntt"].append(self.ntt(x.shape[0], idx_.numel()))
-            return real[0](x, idx_, ctx_, inverse, kernel)
+        def ntt_rec(real_fn):
+            def rec(x, idx_, ctx_, inverse, *kernel):
+                seen["ntt"].append(self.ntt(x.shape[0], idx_.numel()))
+                return real_fn(x, idx_, ctx_, inverse, *kernel)
+            return rec
 
-        def conv_rec(x, tabs):
-            seen["convert"].append(self.conv(x.shape[0], tabs.dq.numel()))
-            return real[1](x, tabs)
+        def conv_rec(real_fn):
+            def rec(x, tabs):
+                seen["convert"].append(self.conv(x.shape[0], tabs.dq.numel()))
+                return real_fn(x, tabs)
+            return rec
 
-        def mac_rec(x, y0, y1, rows, chain, ctx_, perm=None, out=None):
-            seen["mac"].append(self.mac(x.shape[0], x.shape[1], perm is not None,
-                                        1 if y1 is None else 2))
-            return real[2](x, y0, y1, rows, chain, ctx_, perm, out)
+        def mac_rec(real_fn):
+            def rec(x, y0, y1, rows, chain, ctx_, perm=None, out=None):
+                seen["mac"].append(self.mac(x.shape[0], x.shape[1], perm is not None,
+                                            1 if y1 is None else 2))
+                return real_fn(x, y0, y1, rows, chain, ctx_, perm, out)
+            return rec
 
-        ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = (
-            ntt_rec, conv_rec, mac_rec)
+        wraps = (ntt_rec, ntt_rec, conv_rec, conv_rec, mac_rec, mac_rec)
+        for (mod, name), wrap, fn_ in zip(names, wraps, real):
+            setattr(mod, name, wrap(fn_))
         try:
             fn()
         finally:
-            ntt_cuda.fourstep_cuda, convert_cuda.base_convert_cuda, mac_cuda.mac_cuda = real
+            for (mod, name), fn_ in zip(names, real):
+                setattr(mod, name, fn_)
         return seen
 
     def report(self, what: str, fn) -> dict:
@@ -175,7 +187,7 @@ def bench_all(preset_name: str = "config5_boot", iters: int = 20, *,
     from gpufhe_tpu_torch.primitives import rns
 
     params = preset(preset_name)
-    ctx = make_context(params, device)
+    ctx = make_context(params, device=device)
     L, n = params.num_limbs, params.n
     level = L
     bounds = measured_bounds(ctx) if ctx.device.type == "cuda" else None
@@ -190,7 +202,7 @@ def bench_all(preset_name: str = "config5_boot", iters: int = 20, *,
     qb, qinvb, r2b = ctx.col("q", rows_l), ctx.col("qinv_neg", rows_l), ctx.col("r2", rows_l)
     qp_idx = ksw.qp_indices(params, level)
     xp = limbs(qp_idx)
-    ksc = rns.make_ks_context(params, level, ctx.device)
+    ksc = rns.make_ks_context(params, level, device=ctx.device)
     chest = keygen(params, np.random.default_rng(1), ctx=ctx)
     raised = torch.stack([xp] * params.dnum)
     elementwise = 3 * 8 * L * n  # two int64 operands read, one written

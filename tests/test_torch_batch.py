@@ -45,7 +45,7 @@ def tiny2():
     params, rparams = preset("tiny2"), ref_preset("tiny2")
     rchest = rkeys.keygen(rparams, np.random.default_rng(0))
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rng = np.random.default_rng(1)
     zs = [rng.uniform(-1, 1, size=(2, params.slots)) for _ in range(B)]
     cts = [[pct.encrypt(penc.encode(z[k] + 0j, params), params, chest.device_pk, ctx,
@@ -111,7 +111,7 @@ def test_double_word_batch_rescales_once_as_the_reference():
     params, rparams = preset("boot_dw_ci"), ref_preset("boot_dw_ci")
     rchest = rkeys.keygen(rparams, np.random.default_rng(3))
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rng = np.random.default_rng(4)
     pairs = [[pct.encrypt(penc.encode(rng.uniform(-1, 1, size=params.slots) + 0j, params),
                           params, chest.device_pk, ctx, np.random.default_rng(20 + 2 * i + k),

@@ -59,7 +59,7 @@ def _assert_equal(got, want):
 @pytest.fixture(scope="module", params=["bfv_tiny", "bfv_ci"])
 def stack(request):
     params, rparams = preset(request.param), ref_preset(request.param)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pbfv.keygen(params, np.random.default_rng(21), rotations=STEPS, ctx=ctx)
     rng = np.random.default_rng(21)
     sk, pk = rgbfv.keygen(rparams, rng)
@@ -167,7 +167,7 @@ def test_scheme_switching_matches_reference():
     exact with the factors applied."""
     params, rparams = preset("bgv_tiny"), ref_preset("bgv_tiny")
     t = params.plain_modulus
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pbgv.keygen(params, np.random.default_rng(31), ctx=ctx)
     rng = np.random.default_rng(31)
     sk, pk = rgbgv.keygen(rparams, rng)
@@ -199,7 +199,7 @@ def test_cross_scheme_pipeline():
     BFV (one chest serves both: same secret), exact mod t."""
     params = preset("bgv_tiny")
     t, n_s = params.plain_modulus, params.slots
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pbgv.keygen(params, np.random.default_rng(40),
                         rotations=tuple(linalg.bsgs_rotations(n_s)), ctx=ctx)
     be = BGVDeviceBackend(params, ctx, chest)
@@ -225,7 +225,7 @@ def test_backend_matvec_matches_golden_backend():
     rots = tuple(linalg.bsgs_rotations(n_s))
     rchest = rbfv.keygen(rparams, np.random.default_rng(9), rotations=rots)
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rng = np.random.default_rng(6)
     a_mat = rng.integers(0, t, size=(n_s, n_s))
     v = rng.integers(0, t, size=(2, n_s))
@@ -255,7 +255,7 @@ def test_stored_bfv_vector_reproduced():
     ref = np.load(gv.VEC_DIR / "bfv_integer.npz")
     params = preset(bytes(ref["preset"]).decode())
     seed, t = int(ref["seed"]), params.plain_modulus
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pbfv.keygen(params, np.random.default_rng(seed), rotations=(1,), ctx=ctx)
     mrng = np.random.default_rng(seed + 1)
     m1 = mrng.integers(0, t, size=params.n, dtype=np.int64)
@@ -279,7 +279,7 @@ def test_ct_mul_matches_reference_device_path():
     params, rparams = preset("bfv_tiny"), ref_preset("bfv_tiny")
     rchest = rbfv.keygen(rparams, np.random.default_rng(23))
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
+    ctx, rctx = make_context(params, device="cpu"), ref_context(rparams)
     cts, rcts = [], []
     for i in range(2):
         m = np.random.default_rng(i).integers(0, params.plain_modulus, size=params.n)
@@ -299,7 +299,7 @@ def test_mul_tables_match_reference(name):
     the reference's BFVMulTables (canonical values)."""
     params, rparams = preset(name), ref_preset(name)
     level = params.num_limbs
-    auxp, aux_ctx, tabs = pbfv.make_bfv_mul_context(params, level, "cpu")
+    auxp, aux_ctx, tabs = pbfv.make_bfv_mul_context(params, level, device="cpu")
     rauxp, _, rtabs = rbfv.make_bfv_mul_context(rparams, level)
     assert auxp.q_primes == rauxp.q_primes and aux_ctx.primes == rauxp.q_primes
     assert tabs.m_sk == rauxp.q_primes[-1]
@@ -318,7 +318,7 @@ def test_sk_conversion_centred_lift_at_its_boundary(alpha):
     or m_sk - 1: == the golden _sk_convert_to_q."""
     params = preset("bfv_tiny")
     level = params.num_limbs
-    auxp, _, tabs = pbfv.make_bfv_mul_context(params, level, "cpu")
+    auxp, _, tabs = pbfv.make_bfv_mul_context(params, level, device="cpu")
     aux = auxp.q_primes
     m_sk = aux[-1]
     target = {"zero": 0, "below": m_sk // 2 - 1, "at": m_sk // 2, "above": m_sk // 2 + 1,
@@ -328,7 +328,7 @@ def test_sk_conversion_centred_lift_at_its_boundary(alpha):
     conv_sk = pbfv.base_convert(torch.from_numpy(y[:-1]), tabs.b2msk)[0].numpy()
     big_b = math.prod(aux[:-1])
     y[-1] = (conv_sk - target * (big_b % m_sk)) % m_sk  # then alpha = target
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     got = pbfv.sk_convert_to_q(torch.from_numpy(y), tabs, ctx.col("q", range(level))).numpy()
     assert (got == rgbfv._sk_convert_to_q(y, aux, params.q_primes[:level])).all()
 
@@ -337,8 +337,8 @@ def test_key_switch_tables_are_cached_per_scheme():
     """make_ks_context keys on params: a BFV chain's CKKS view and the BGV
     reading of the same primes get different ModDown tables, the same ModUp."""
     params = preset("bfv_ci")
-    plain = prns.make_ks_context(gbfv._ckks_view(params), 6, "cpu")
-    folded = prns.make_ks_context(params, 6, "cpu")
+    plain = prns.make_ks_context(gbfv._ckks_view(params), 6, device="cpu")
+    folded = prns.make_ks_context(params, 6, device="cpu")
     assert plain is not folded and not torch.equal(plain.p2q.conv, folded.p2q.conv)
     assert torch.equal(plain.modup[0].conv, folded.modup[0].conv)
     assert int(plain.bgv_negtinv[0]) == 0 and int(folded.bgv_negtinv[0]) != 0

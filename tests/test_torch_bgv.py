@@ -56,7 +56,7 @@ def stack(request):
     same seed; the port's chest is held == the golden keys in
     test_keygen_matches_reference."""
     params, rparams = preset(request.param), ref_preset(request.param)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pbgv.keygen(params, np.random.default_rng(7), rotations=STEPS, ctx=ctx)
     rng = np.random.default_rng(7)
     sk, pk = rgbgv.keygen(rparams, rng)
@@ -176,14 +176,14 @@ def test_modswitch_centred_lift_at_its_boundary(lift):
     """u = [-x t^-1]_{q_last} at q_last // 2 - 1, q_last // 2 (kept) and
     q_last // 2 + 1 (lifted to u - q_last): == the golden modswitch_coeff."""
     params, rparams = preset("bgv_tiny"), ref_preset("bgv_tiny")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     level = params.num_limbs
     q_last, t = params.q_primes[-1], params.plain_modulus
     u = q_last // 2 + {"below": -1, "at": 0, "above": 1}[lift]
     rng = np.random.default_rng(6)
     x = np.stack([rng.integers(0, q, size=params.n) for q in params.q_primes])
     x[-1] = (-u * t) % q_last  # then -x_last t^-1 = u mod q_last
-    ksc = prns.make_ks_context(params, level, "cpu")
+    ksc = prns.make_ks_context(params, level, device="cpu")
     got = prns.bgv_modswitch(torch.from_numpy(x), params, level, ctx, ksc).numpy()
     assert (got == rgbgv.modswitch_coeff(x, rparams, rparams.q_primes)).all()
 
@@ -199,7 +199,7 @@ def test_backend_matvec_matches_golden_backend():
     rchest = rbgv.keygen(rparams, np.random.default_rng(9), rotations=rots)
     chest = interop.chest_from_reference(rchest, "cpu")
     assert chest.params == params
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rng = np.random.default_rng(6)
     a_mat = rng.integers(0, t, size=(n_s, n_s))
     v = rng.integers(0, t, size=(2, n_s))
@@ -229,7 +229,7 @@ def test_stored_bgv_vector_reproduced():
     params = preset(bytes(ref["preset"]).decode())
     seed = int(ref["seed"])
     t = params.plain_modulus
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rng = np.random.default_rng(seed)
     sk, pk = gbgv.keygen(params, rng, ctx=ctx)
     chest = pbgv.keygen(params, np.random.default_rng(seed), rotations=(1,), ctx=ctx)
@@ -255,7 +255,7 @@ def test_ct_mul_matches_reference_device_path():
     params, rparams = preset("bgv_tiny"), ref_preset("bgv_tiny")
     rchest = rbgv.keygen(rparams, np.random.default_rng(13))
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
+    ctx, rctx = make_context(params, device="cpu"), ref_context(rparams)
     za, zb = _msgs(params, 14)
     cts, rcts = [], []
     for i, z in enumerate((za, zb)):

@@ -64,7 +64,7 @@ def run(log_n: int) -> dict:
     rchest = rkeys.keygen(rparams, np.random.default_rng(7), rotations=tuple(rots),
                           conjugation=True)
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     be = DeviceBackend(params, ctx, chest)
     bs = Bootstrapper(be, **SETTINGS)
     rbs = RefBootstrapper(GoldenBackend(rparams, rchest), **SETTINGS)

@@ -90,7 +90,7 @@ def boot(request):
     rchest = rkeys.keygen(rparams, np.random.default_rng(7), rotations=tuple(rots),
                           conjugation=True)
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     be = DeviceBackend(params, ctx, chest)
     bs = Bootstrapper(be, **settings)
     rbs = RefBootstrapper(GoldenBackend(rparams, rchest), **settings)
@@ -169,7 +169,7 @@ def test_lean_keys_cycle_changes_no_phase_output():
     name = "boot_ci_cheb"
     settings, tol = CASES[name]
     params = preset(name)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rots = bootstrap_rotations(params, "factored", 3)
 
     def chest():

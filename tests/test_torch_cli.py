@@ -163,13 +163,12 @@ def test_keygen_file_equals_the_reference_and_loads_in_a_session(tmp_path):
     assert np.abs(s.decrypt(s.rotate(s.encrypt(z), 2)) - np.roll(z, -2)).max() < 1e-3
 
 
-def test_the_port_has_no_bench_scaling_or_cache():
-    """bench (the reference's bench.py) waits for the port's benchmark;
-    --cache is XLA's. (scaling has come with the parallel package:
+def test_the_port_refuses_cache():
+    """--cache is XLA's compile cache and has no counterpart. (bench is
+    tests/test_torch_bench.py's; scaling has come with the parallel package:
     test_scaling_subcommand_reports_the_one_distinct_device.)"""
-    for argv in (["bench"], ["--cache", "x", "security"]):
-        with pytest.raises(SystemExit):
-            cli.main(argv)
+    with pytest.raises(SystemExit):
+        cli.main(["--cache", "x", "security"])
 
 
 def test_scaling_subcommand_reports_the_one_distinct_device():

@@ -69,7 +69,7 @@ def test_ks_context_tables_match_reference(name):
     rctx = ref_context(rparams)
     alpha = len(params.p_primes)
     for level in (params.num_limbs, params.num_limbs - 1):
-        ksc = prns.make_ks_context(params, level, "cpu")
+        ksc = prns.make_ks_context(params, level, device="cpu")
         rksc = rrns.make_ks_context(rparams, level)
         qp_idx = np.asarray(list(range(level)) + list(range(params.num_limbs, params.num_limbs + alpha)))
         x = _rand(params.q_primes + params.p_primes, params.n, level)
@@ -102,10 +102,10 @@ def test_bgv_moddown_on_folded_tables_matches_reference():
     them == the reference's BGV digit-kernel tables, and the port's mod_down
     == the reference's mod_down (jnp, t-corrected), at two levels."""
     params, rparams = preset("bgv_ci"), ref_preset("bgv_ci")
-    rctx, ctx = ref_context(rparams), make_context(params, "cpu")
+    rctx, ctx = ref_context(rparams), make_context(params, device="cpu")
     t, ps = params.plain_modulus, params.p_primes
     for level in (params.num_limbs, params.num_limbs - 2):
-        ksc = prns.make_ks_context(params, level, "cpu")
+        ksc = prns.make_ks_context(params, level, device="cpu")
         rksc = rrns.make_ks_context(rparams, level)
         qs = params.q_primes[:level]
         assert ksc.p2q.qhinv.tolist() == [

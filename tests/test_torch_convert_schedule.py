@@ -142,7 +142,7 @@ def test_model_equals_plain_at_the_key_switch_tables(name):
     own primes, at N = 2^10 (the tables do not depend on N)."""
     params = preset(name)
     level = params.num_limbs
-    ksc = prns.make_ks_context(params, level, "cpu")
+    ksc = prns.make_ks_context(params, level, device="cpu")
     for g, (d0, d1) in enumerate(prns.ks_groups(params, level)):
         _check(_rand(params.q_primes[d0:d1], N, g), ksc.modup[g])
     _check(_rand(params.p_primes, N, 99), ksc.p2q)
@@ -155,7 +155,7 @@ def test_model_equals_plain_at_the_integer_schemes_tables():
     limbs) and B -> m_sk 33 -> 1 (one destination in a group of 16)."""
     for name in ("bgv_ci", "bfv_n16"):
         params = preset(name)
-        ksc = prns.make_ks_context(params, params.num_limbs, "cpu")
+        ksc = prns.make_ks_context(params, params.num_limbs, device="cpu")
         _check(_rand(params.p_primes, N, 7), ksc.p2q)
     params = preset("bfv_n16")
     aux = bfv_aux_params(params).q_primes
@@ -173,7 +173,7 @@ def test_folded_tables_against_their_definitions():
     tables, qhinv_shoup included, are those values and their companions."""
     params = preset("bfv_n16")
     t, ps, qs = params.plain_modulus, params.p_primes, params.q_primes
-    tabs = prns.make_ks_context(params, params.num_limbs, "cpu").p2q
+    tabs = prns.make_ks_context(params, params.num_limbs, device="cpu").p2q
     big = math.prod(ps)
     qhinv = [pow(big // p, -1, p) * pow(t, -1, p) % p for p in ps]
     assert _u64(tabs.k3.qhinv).tolist() == qhinv == tabs.qhinv.tolist()
@@ -185,7 +185,7 @@ def test_folded_tables_against_their_definitions():
 @pytest.mark.parametrize("tg", [1, 7, 16, 64])
 def test_destination_groups_do_not_change_the_result(tg):
     params = preset("ci_small")
-    ksc = prns.make_ks_context(params, params.num_limbs, "cpu")
+    ksc = prns.make_ks_context(params, params.num_limbs, device="cpu")
     _check(_rand(params.q_primes[:2], N, tg), ksc.modup[0], tg=tg)
 
 

@@ -96,7 +96,7 @@ def chests(request):
     name = request.param
     rots, conj = CASES[name]
     params, rparams = preset(name), ref_preset(name)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pdk.device_keygen(params, np.random.default_rng(7), rots, conj, ctx=ctx)
     rchest = rdk.device_keygen(rparams, np.random.default_rng(7), rots, conj)
     return name, params, rparams, ctx, chest, rchest
@@ -158,7 +158,7 @@ def test_uniform_mod_q_at_the_edges_of_its_input(name):
     q - 1, q, 2^31 and 2^32 - 1 (words that are not residues), against
     Python integers."""
     params = preset(name)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     idx = range(len(ctx.primes))
     q = ctx.col("q", idx)
     words = torch.tensor([0, 1, 2**31, 2**32 - 1], dtype=torch.int64)
@@ -183,7 +183,7 @@ def test_lean_key_drop_regen_cycle():
     truncated one with its rows, bit for bit; a dropped key refuses use
     (port of tests/test_models_utils.py::test_lean_key_drop_regen_cycle)."""
     params = preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pdk.device_keygen(params, np.random.default_rng(21), (1, 3), True, ctx=ctx)
     truncate_galois_device(chest, {1: params.num_limbs - 1}, None, params)
     want = {s: chest.galois[s][1].a_mont.clone() for s in (1, 3)}
@@ -208,7 +208,7 @@ def test_lean_key_drop_regen_cycle():
 def test_lean_cycle_matches_the_reference_on_a_truncated_chest():
     """The same cycle on both packages' chests gives the same rows."""
     params, rparams = preset("tiny2"), ref_preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pdk.device_keygen(params, np.random.default_rng(21), (1, 3), True, ctx=ctx)
     rchest = rdk.device_keygen(rparams, np.random.default_rng(21), (1, 3), True)
     levels = {1: params.num_limbs - 1, 3: params.num_limbs - 2}
@@ -246,7 +246,7 @@ def test_ct_mul_and_rotation_under_device_keys_match_reference():
     params, rparams = preset("tiny2"), ref_preset("tiny2")
     rchest = rdk.device_keygen(rparams, np.random.default_rng(3), (1,), False)
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
+    ctx, rctx = make_context(params, device="cpu"), ref_context(rparams)
     rng = np.random.default_rng(0)
     z = rng.normal(size=params.slots) + 1j * rng.normal(size=params.slots)
     pt = penc.encode(z, params)

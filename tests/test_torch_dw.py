@@ -40,7 +40,7 @@ def stack():
     assert (params.dnum, params.scale_words, params.eph_hamming_weight) == (6, 2, 16)
     rchest = rkeys.keygen(rparams, np.random.default_rng(23))
     chest = interop.chest_from_reference(rchest, "cpu")
-    return params, rparams, make_context(params, "cpu"), chest, rchest
+    return params, rparams, make_context(params, device="cpu"), chest, rchest
 
 
 @pytest.mark.parametrize("drop", [0, 5])
@@ -53,7 +53,7 @@ def test_key_switch_core_matches_reference(stack, drop):
     d2 = np.stack([rng.integers(0, q, size=params.n, dtype=np.int64)
                    for q in params.q_primes[:level]])
     got = pks.key_switch_core(torch.from_numpy(d2), params, level, ctx,
-                              prns.make_ks_context(params, level, "cpu"), chest.device_rlk)
+                              prns.make_ks_context(params, level, device="cpu"), chest.device_rlk)
     gold = gckks.key_switch_core(d2, rparams, level, rchest.rlk)
     for g, gw in zip(got, gold):
         assert (g.numpy() == gw).all()

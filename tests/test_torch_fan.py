@@ -56,7 +56,7 @@ def _stack(name, rotations, conjugation, seed=7):
     rchest = rkeys.keygen(rparams, np.random.default_rng(seed), rotations=tuple(rotations),
                           conjugation=conjugation)
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     return params, rparams, ctx, chest, rchest
 
 
@@ -181,7 +181,7 @@ def test_truncated_galois_keys_give_equal_results(tiny2):
 
 def test_mac_writes_into_out():
     params = preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rng = np.random.default_rng(2)
     q = np.asarray(params.q_primes, dtype=np.int64)[:, None]
     rand = lambda *lead: torch.from_numpy(  # noqa: E731

@@ -224,7 +224,7 @@ def test_keygen_with_ctx_equals_without(name):
     ops) equal the golden ones from the same seed."""
     params = preset(name)
     mod = gbgv if params.plain_modulus else gckks
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     conj = mod is gckks
     host = _keys(mod, params, 9, conj=conj)
     dev = _keys(mod, params, 9, ctx=ctx, conj=conj)

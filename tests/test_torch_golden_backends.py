@@ -73,7 +73,7 @@ def ckks():
     rots = tuple(plinalg.bsgs_rotations(params.slots))
     assert list(rots) == rlinalg.bsgs_rotations(rparams.slots)
     chest = pkeys.keygen(params, np.random.default_rng(3), rotations=rots, conjugation=True,
-                         ctx=make_context(params, "cpu"))
+                         ctx=make_context(params, device="cpu"))
     rchest = rkeys.keygen(rparams, np.random.default_rng(3), rotations=rots, conjugation=True)
     be, rbe = pbackend.GoldenBackend(params, chest), rbackend.GoldenBackend(rparams, rchest)
     rng = np.random.default_rng(4)
@@ -146,7 +146,7 @@ def test_integer_golden_backend_matches_reference(scheme):
     t, n_s = params.plain_modulus, params.slots
     rots = tuple(plinalg.bsgs_rotations(n_s))
     chest = dev_mod.keygen(params, np.random.default_rng(12), rotations=rots,
-                           ctx=make_context(params, "cpu"))
+                           ctx=make_context(params, device="cpu"))
     rchest = ref_mod.keygen(rparams, np.random.default_rng(12), rotations=rots)
     be, rbe = pb(params, chest), rb(rparams, rchest)
     rng = np.random.default_rng(13)
@@ -194,7 +194,7 @@ def test_golden_bootstrap_matches_reference():
     params, rparams = preset(name), ref_preset(name)
     rots = tuple(bootstrap_rotations(params, "factored", 3))
     chest = pkeys.keygen(params, np.random.default_rng(7), rotations=rots, conjugation=True,
-                         ctx=make_context(params, "cpu"))
+                         ctx=make_context(params, device="cpu"))
     rchest = rkeys.keygen(rparams, np.random.default_rng(7), rotations=rots, conjugation=True)
     bs = Bootstrapper(pbackend.GoldenBackend(params, chest), **settings)
     rbs = RefBootstrapper(rbackend.GoldenBackend(rparams, rchest), **settings)

@@ -52,7 +52,7 @@ def test_scan_covers_the_port():
     for module in ("__init__", "linear", "mlp", "cnn", "logreg", "logreg_train", "pir",
                    "attention", "transformer"):
         assert f"gpufhe_tpu_torch/models/{module}.py" in names
-    for module in ("api", "cli", "__init__"):
+    for module in ("api", "cli", "bench", "__init__"):
         assert f"gpufhe_tpu_torch/{module}.py" in names
     for module in ("__init__", "serialization", "security", "noise", "profiling", "benchkit"):
         assert f"gpufhe_tpu_torch/utils/{module}.py" in names
@@ -62,23 +62,39 @@ def test_scan_covers_the_port():
 
 
 def test_package_import_builds_nothing_and_needs_no_card():
-    from gpufhe_tpu_torch.golden import native
+    """In a fresh process with no card, `import gpufhe_tpu_torch` starts no
+    process (so no nvcc and no cc) and loads no shared library (ctypes.CDLL:
+    no kernel and no golden NTT library), and loads neither jax nor the
+    reference. torch and numpy are imported before the traps are set: their
+    own libraries are not the package's. Nothing here reads the build
+    directory, which other test processes may be writing at the same time."""
+    code = """
+import ctypes, subprocess, sys
+import numpy, torch
 
-    build = ROOT / "gpufhe_tpu_torch" / "csrc" / "build"
-    # the golden NTT's library is built on the first golden transform of any
-    # test: build it before the listing, so that no other test process
-    # running beside this one has it left to write there
-    native.get_lib()
-    before = sorted(build.iterdir()) if build.exists() else []
-    code = ("import sys, gpufhe_tpu_torch as g; "
-            "assert g.Session.__module__ == 'gpufhe_tpu_torch.api'; "
-            "assert g.CKKSParams.__module__ == 'gpufhe_tpu_torch.params.params'; "
-            "assert g.make_context.__module__ == 'gpufhe_tpu_torch.params.params'; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gpufhe_tpu')]; "
-            "assert not bad, bad")
+called = []
+
+
+def refuse(name):
+    def trap(*args, **kwargs):
+        called.append(name)
+        raise RuntimeError(f"import gpufhe_tpu_torch called {name}")
+    return trap
+
+
+subprocess.run = refuse("subprocess.run")
+subprocess.Popen = refuse("subprocess.Popen")
+ctypes.CDLL = refuse("ctypes.CDLL")
+import gpufhe_tpu_torch as g
+assert not called, called
+assert g.Session.__module__ == "gpufhe_tpu_torch.api"
+assert g.CKKSParams.__module__ == "gpufhe_tpu_torch.params.params"
+assert g.make_context.__module__ == "gpufhe_tpu_torch.params.params"
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gpufhe_tpu")]
+assert not bad, bad
+"""
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120,
                    env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT)})
-    assert (sorted(build.iterdir()) if build.exists() else []) == before
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -202,7 +218,7 @@ def test_golden_model_reaches_no_port_op_and_no_torch(monkeypatch):
             params = preset(name)
             rots = tuple(linalg.bsgs_rotations(params.slots))
             chests[name] = (params, keygen(params, np.random.default_rng(8), rotations=rots,
-                                           ctx=make_context(params, "cpu")))
+                                           ctx=make_context(params, device="cpu")))
         assert _trap_port_ops(monkeypatch) > 20
         with NoTorch():
             for name, gen in vectors.GENERATORS.items():

@@ -27,7 +27,7 @@ def stack():
         zz = z.normal(size=params.slots) + 1j * z.normal(size=params.slots)
         cts.append(rct.encrypt(renc.encode(zz, rparams), rparams, rchest.device_pk, rctx,
                                np.random.default_rng(seed), rparams.scale))
-    return params, rparams, make_context(params, "cpu"), rctx, rchest, cts
+    return params, rparams, make_context(params, device="cpu"), rctx, rchest, cts
 
 
 def test_keys_carry_over_unchanged(stack):

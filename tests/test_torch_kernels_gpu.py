@@ -46,7 +46,7 @@ def _rand(primes, rows, n, seed):
                                   "config5_boot"])
 def test_ntt_kernel_matches_plain(cuda_device, name):
     params = preset(name)
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     primes = params.q_primes + params.p_primes
     sel = list(range(len(primes)))[::-1]
     idx = ctx.index(sel, torch.int32)
@@ -100,7 +100,7 @@ def test_mul_full_on_card_equals_cpu_path(cuda_device):
     za = z.normal(size=params.slots) + 1j * z.normal(size=params.slots)
     outs = []
     for dev in (cuda_device, "cpu"):
-        ctx = make_context(params, dev)
+        ctx = make_context(params, device=dev)
         chest = dkeys.keygen(params, np.random.default_rng(2), ctx=ctx)
         ca = dct.encrypt(encoder.encode(za, params), params, chest.device_pk, ctx,
                          np.random.default_rng(3), params.scale)
@@ -119,7 +119,7 @@ def test_mul_full_on_card_equals_cpu_path(cuda_device):
 ])
 def test_mac_kernel_matches_plain(cuda_device, name, d_dim, drop, with_perm):
     params = preset(name)
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     level = params.num_limbs - drop
     rows = ctx.index(keyswitch.key_row_index(params, level, ctx.num_total), torch.int32)
     chain_rows = keyswitch.qp_indices(params, level)
@@ -141,7 +141,7 @@ def test_mac_kernel_matches_plain(cuda_device, name, d_dim, drop, with_perm):
 def test_mac_kernel_single_output_matches_plain(cuda_device):
     """ct_mul_plain's launch for a third component: y1 None, one output."""
     params = preset("config5_boot")
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     rows = list(range(params.num_limbs))
     idx = ctx.index(rows, torch.int32)
     x, y0 = (torch.from_numpy(_rand(ctx.primes, rows, params.n, s)[None]).to(cuda_device)
@@ -164,7 +164,7 @@ def test_mac_kernel_fan_plaintext_level(cuda_device):
     switch outputs (T = 58), written into slices of a larger stack through
     `out`; and the gathered c0 stack against the plaintext stack's q rows."""
     params = preset("config5_boot_dw")
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     qp = keyswitch.qp_indices(params, params.num_limbs)
     rows_qp = ctx.index(range(len(qp)), torch.int32)
     chain = ctx.index(qp, torch.int32)
@@ -187,7 +187,7 @@ def test_mac_kernel_fan_key_level_truncated_key(cuda_device):
     against a Galois key truncated to level 40 of 48 (rows selected by
     truncate_galois_device), used at level 36, == the full key's result."""
     params = preset("config5_boot_dw")
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     level = 36
     qp = keyswitch.qp_indices(params, level)
     chain = ctx.index(qp, torch.int32)
@@ -223,7 +223,7 @@ def test_bootstrap_on_card_equals_cpu_path(cuda_device, name, settings):
     z = (z.normal(size=params.slots) + 1j * z.normal(size=params.slots)) * 0.2
     phases = []
     for dev in (cuda_device, "cpu"):
-        ctx = make_context(params, dev)
+        ctx = make_context(params, device=dev)
         chest = dkeys.keygen(params, np.random.default_rng(7), rots, conjugation=True, ctx=ctx)
         bs = Bootstrapper(DeviceBackend(params, ctx, chest), **settings)
         ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
@@ -245,7 +245,7 @@ def test_ntt_kernel_on_the_bfv_n16_aux_basis(cuda_device):
     from gpufhe_tpu_torch.golden.bfv import bfv_aux_params
 
     auxp = bfv_aux_params(preset("bfv_n16"))
-    ctx = make_context(auxp, cuda_device)
+    ctx = make_context(auxp, device=cuda_device)
     assert ctx.k1_refusal is None
     sel = list(range(len(auxp.q_primes)))
     idx = ctx.index(sel, torch.int32)
@@ -264,9 +264,9 @@ def test_convert_kernel_at_the_integer_shapes(cuda_device, which):
 
     params = preset("bfv_n16")
     if which == "p2q_bgv":
-        tabs = rns.make_ks_context(params, params.num_limbs, cuda_device).p2q
+        tabs = rns.make_ks_context(params, params.num_limbs, device=cuda_device).p2q
     else:
-        tabs = getattr(make_bfv_mul_context(params, params.num_limbs, cuda_device)[2], which)
+        tabs = getattr(make_bfv_mul_context(params, params.num_limbs, device=cuda_device)[2], which)
     src = tabs.sq.tolist()
     x = torch.from_numpy(_rand(src, range(len(src)), 2**16, 11)).to(cuda_device)
     top = (tabs.sq[:, None] - 1).expand(len(src), 2**16).contiguous()
@@ -288,7 +288,7 @@ def test_integer_mul_on_card_equals_cpu_path(cuda_device, scheme):
     za, zb = (np.random.default_rng(i).integers(0, t, size=params.n) for i in (1, 2))
     outs = []
     for dev in (cuda_device, "cpu"):
-        ctx = make_context(params, dev)
+        ctx = make_context(params, device=dev)
         chest = mod.keygen(params, np.random.default_rng(2), ctx=ctx)
         a, b = (mod.encrypt(gbgv.encode(z, params), params, chest.device_pk, ctx,
                             np.random.default_rng(3 + i)) for i, z in enumerate((za, zb)))
@@ -306,7 +306,7 @@ def test_keygen_keeps_canonical_keys_on_host(cuda_device):
     host and its device form on the card, each equal to the CPU keygen's."""
     params = preset("boot_dw_ci_enc")
     chests = [dkeys.keygen(params, np.random.default_rng(7), (1,), conjugation=True,
-                           ctx=make_context(params, dev))
+                           ctx=make_context(params, device=dev))
               for dev in (cuda_device, "cpu")]
     pairs = [[c.galois[1], c.conj, c.eph["to_eph"], c.eph["from_eph"]] for c in chests]
     for (canon, key), (canon_c, key_c) in zip(*pairs):
@@ -318,7 +318,7 @@ def test_keygen_keeps_canonical_keys_on_host(cuda_device):
 
 
 def test_mac_kernel_refuses_bad_input(cuda_device):
-    ctx = make_context(preset("tiny"), cuda_device)
+    ctx = make_context(preset("tiny"), device=cuda_device)
     idx = ctx.index(range(ctx.num_total), torch.int32)
     x = torch.zeros((1, ctx.num_total, ctx.n), dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError):
@@ -337,7 +337,7 @@ def test_int_rate_kernel_matches_plain(cuda_device, mix):
 def test_ntt_natural_store_build_is_still_the_ntt(cuda_device, name):
     """The ablation without the tile's padding changes the banks, not the function."""
     params = preset(name)
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     rows = list(range(ctx.num_total))
     x = torch.from_numpy(_rand(ctx.primes, rows, params.n, 6)).to(cuda_device)
     idx = ctx.index(rows, torch.int32)
@@ -351,7 +351,7 @@ def test_ntt_narrow_tfast_build_is_still_the_ntt(cuda_device, name):
     """The ablation with one word per thread on pass B's t-fast side (no
     pairs, no shuffle) changes the segment width, not the function."""
     params = preset(name)
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     rows = list(range(ctx.num_total))
     x = torch.from_numpy(_rand(ctx.primes, rows, params.n, 5)).to(cuda_device)
     idx = ctx.index(rows, torch.int32)
@@ -362,7 +362,7 @@ def test_ntt_narrow_tfast_build_is_still_the_ntt(cuda_device, name):
 
 def test_ntt_copy_only_build_matches_plain(cuda_device):
     params = preset("ci_small")
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     rows = list(range(ctx.num_total))
     x = torch.from_numpy(_rand(ctx.primes, rows, params.n, 7)).to(cuda_device)
     got = ntt_cuda.fourstep_cuda(x, ctx.index(rows, torch.int32), ctx, False,
@@ -376,7 +376,7 @@ def test_convert_kernel_at_the_boot_h_shapes(cuda_device, which):
     ModDown 5 -> 30, random and x = q - 1, == plain."""
     params = preset("config5_boot_h")
     level, alpha = params.num_limbs, len(params.p_primes)
-    ksc = rns.make_ks_context(params, level, cuda_device)
+    ksc = rns.make_ks_context(params, level, device=cuda_device)
     primes = params.q_primes + params.p_primes
     cases = ([(ksc.modup[g], range(d0, d1)) for g, (d0, d1) in
               enumerate(rns.ks_groups(params, level))] if which == "modup"
@@ -409,7 +409,7 @@ def test_device_keygen_on_card_equals_cpu(cuda_device):
     gives the keys back."""
     params = preset("boot_dw_ci_enc")
     chests = [dkg.device_keygen(params, np.random.default_rng(7), (1, 5), True,
-                                ctx=make_context(params, dev)) for dev in (cuda_device, "cpu")]
+                                ctx=make_context(params, device=dev)) for dev in (cuda_device, "cpu")]
     card, cpu = chests
 
     def keys(c):
@@ -421,7 +421,7 @@ def test_device_keygen_on_card_equals_cpu(cuda_device):
     assert all(torch.equal(card.seeds[k], cpu.seeds[k]) for k in cpu.seeds)
     want = card.galois[5][1].a_mont.clone()
     assert card.drop_galois_a() == 3
-    assert card.regen_galois_a(make_context(params, cuda_device)) == 3
+    assert card.regen_galois_a(make_context(params, device=cuda_device)) == 3
     assert torch.equal(card.galois_key(5).a_mont, want)
 
 
@@ -434,7 +434,7 @@ def test_ntt_kernel_at_the_mlp_n15_shapes(cuda_device, rows, batch):
     """K1 at N = 2^15: the hoist's 4 raised digits over Q+P (15 limbs), both
     accumulators over Q+P, both components over Q and one, fwd and inv."""
     params = preset("config3_ckks")
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     sel = list(range(rows))
     idx = ctx.index(sel, torch.int32)
     x = torch.from_numpy(_rand(ctx.primes, sel * batch, params.n, 12)).to(cuda_device)
@@ -449,7 +449,7 @@ def test_convert_kernel_at_the_mlp_n15_shapes(cuda_device, which):
     ModDown 3 -> 12, random and x = q - 1, == plain."""
     params = preset("config3_ckks")
     level, alpha = params.num_limbs, len(params.p_primes)
-    ksc = rns.make_ks_context(params, level, cuda_device)
+    ksc = rns.make_ks_context(params, level, device=cuda_device)
     primes = params.q_primes + params.p_primes
     cases = ([(ksc.modup[g], range(d0, d1)) for g, (d0, d1) in
               enumerate(rns.ks_groups(params, level))] if which == "modup"
@@ -467,7 +467,7 @@ def test_mac_kernel_at_the_mlp_n15_shape(cuda_device):
     """K4 at D = 4 x T = 15 against a key stored over the full chain, with a
     rotation's automorphism folded in, == plain."""
     params = preset("config3_ckks")
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     level = params.num_limbs
     rows = ctx.index(keyswitch.key_row_index(params, level, ctx.num_total), torch.int32)
     chain_rows = keyswitch.qp_indices(params, level)
@@ -500,7 +500,7 @@ def test_mlp_forward_on_card_equals_cpu_path(cuda_device):
     z[:12] = x
     outs = []
     for dev in (cuda_device, "cpu"):
-        ctx = make_context(params, dev)
+        ctx = make_context(params, device=dev)
         chest = dkeys.keygen(params, np.random.default_rng(0),
                              tuple(mlp_rotations_for(layers, params.slots)), ctx=ctx)
         be = DeviceBackend(params, ctx, chest)
@@ -590,7 +590,7 @@ def test_ntt_pass_kernel_matches_plain(cuda_device, name):
     """Each of ntt_pass's four kinds == fourstep_pass_plain on every block
     of a 4-way cut of the Q+P chain, at its column offset."""
     params = preset(name)
-    ctx = make_context(params, cuda_device)
+    ctx = make_context(params, device=cuda_device)
     rows, n1, n2 = ctx.num_total, ctx.n1, ctx.n2
     idx = ctx.index(range(rows), torch.int32)
     q = torch.tensor(ctx.primes, dtype=torch.int64, device=cuda_device)[:, None, None]
@@ -627,7 +627,7 @@ def test_sharded_mult_on_card_equals_cpu(cuda_device, name):
     level = params.num_limbs
     comps = [torch.from_numpy(_rand(params.q_primes, range(level), params.n, s))
              for s in range(4)]
-    ctx_cpu = make_context(params, "cpu")
+    ctx_cpu = make_context(params, device="cpu")
     chest = dkeys.keygen(params, np.random.default_rng(7), ctx=ctx_cpu)
     make = make_sharded_bfv_mult if name == "bfv_ci" else sh.make_sharded_mult
     outs = {}

@@ -20,7 +20,7 @@ def _np(x):
 @pytest.mark.parametrize("name", ["tiny2", "ci_small"])
 def test_keygen_matches_reference(name):
     params, rparams = preset(name), ref_preset(name)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pkeys.keygen(params, np.random.default_rng(5), ctx=ctx)
     ref = rkeys.keygen(rparams, np.random.default_rng(5))
     assert (chest.sk.s == ref.sk.s).all()
@@ -40,7 +40,7 @@ def test_sparse_secret_keygen_matches_golden():
     base = preset("tiny2")
     params = dataclasses.replace(base, hamming_weight=16)
     rparams = dataclasses.replace(ref_preset("tiny2"), hamming_weight=16)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pkeys.keygen(params, np.random.default_rng(9), ctx=ctx)
     rng = np.random.default_rng(9)
     sk, pk = gckks.keygen(rparams, rng)
@@ -70,7 +70,7 @@ def test_keygen_with_galois_conj_and_eph_matches_reference(name, eph):
         params = dataclasses.replace(params, eph_hamming_weight=eph)
         rparams = dataclasses.replace(rparams, eph_hamming_weight=eph)
     steps = (1, 3, 5)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pkeys.keygen(params, np.random.default_rng(21), rotations=steps, conjugation=True,
                          ctx=ctx)
     ref = rkeys.keygen(rparams, np.random.default_rng(21), rotations=steps, conjugation=True)
@@ -94,7 +94,7 @@ def test_keygen_with_galois_conj_and_eph_matches_reference(name, eph):
 
 def test_keygen_without_extras_has_none():
     params = preset("tiny")
-    chest = pkeys.keygen(params, np.random.default_rng(1), ctx=make_context(params, "cpu"))
+    chest = pkeys.keygen(params, np.random.default_rng(1), ctx=make_context(params, device="cpu"))
     assert chest.galois == {} and chest.conj is None and chest.eph is None
     with pytest.raises(KeyError):
         chest.conj_key()

@@ -30,7 +30,7 @@ def stacks(request):
     ref = rkeys.keygen(rparams, np.random.default_rng(3))
     rlk = interop.ks_key_from_numpy(np.asarray(ref.device_rlk.b_mont),
                                     np.asarray(ref.device_rlk.a_mont), "cpu")
-    return params, rparams, make_context(params, "cpu"), ref_context(rparams), ref, rlk
+    return params, rparams, make_context(params, device="cpu"), ref_context(rparams), ref, rlk
 
 
 def test_qp_indices_and_key_rows(stacks):
@@ -53,7 +53,7 @@ def test_key_switch_core_matches_reference(stacks, eval_in, eval_out):
         d2 = np.stack([rng.integers(0, q, size=params.n, dtype=np.int64)
                        for q in params.q_primes[:level]])
         got = pks.key_switch_core(torch.from_numpy(d2), params, level, ctx,
-                                  prns.make_ks_context(params, level, "cpu"), rlk,
+                                  prns.make_ks_context(params, level, device="cpu"), rlk,
                                   eval_out=eval_out, eval_in=eval_in)
         want = rks.key_switch_core(jnp.asarray(d2.astype(np.uint32)), rparams, level, rctx,
                                    rrns.make_ks_context(rparams, level), ref.device_rlk,

@@ -75,7 +75,7 @@ class CKKSPair:
         self.rchest = rkeys.keygen(self.rparams, np.random.default_rng(seed),
                                    rotations=tuple(rotations))
         self.chest = interop.chest_from_reference(self.rchest, "cpu")
-        self.ctx = make_context(self.params, "cpu")
+        self.ctx = make_context(self.params, device="cpu")
         self.be = DeviceBackend(self.params, self.ctx, self.chest)
         self.rbe = GoldenBackend(self.rparams, self.rchest)
 
@@ -236,7 +236,7 @@ def bfv_eq():
     params, rparams = preset("bfv_eq"), ref_preset("bfv_eq")
     rchest = rbfv.keygen(rparams, np.random.default_rng(51))
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     be, rbe = BFVDeviceBackend(params, ctx, chest), BFVGoldenBackend(rparams, rchest)
 
     def encrypt(v, seed):
@@ -288,7 +288,7 @@ def bgv_ci():
     params, rparams = preset("bgv_ci"), ref_preset("bgv_ci")
     rchest = rbgv.keygen(rparams, np.random.default_rng(61), rotations=(1, 2, 4))
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     be, rbe = BGVDeviceBackend(params, ctx, chest), BGVGoldenBackend(rparams, rchest)
     v = np.random.default_rng(62).integers(0, params.plain_modulus, size=params.slots)
     raw = np.empty(params.n, dtype=np.int64)

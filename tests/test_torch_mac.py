@@ -28,7 +28,7 @@ from gpufhe_tpu_torch.params.params import preset
 @pytest.fixture(scope="module")
 def ctx():
     # 30-bit base primes, 28-bit limbs and 30-bit special primes, N = 2^7
-    return make_context(preset("boot_dw_ci_enc"), "cpu")
+    return make_context(preset("boot_dw_ci_enc"), device="cpu")
 
 
 def _operands(ctx, d_dim, rows, seed):

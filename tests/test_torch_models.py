@@ -78,7 +78,7 @@ class Pair:
         self.rchest = rkeys.keygen(self.rparams, np.random.default_rng(seed),
                                    rotations=tuple(rotations), conjugation=conjugation)
         self.chest = interop.chest_from_reference(self.rchest, "cpu")
-        self.ctx = make_context(self.params, "cpu")
+        self.ctx = make_context(self.params, device="cpu")
         self.be = DeviceBackend(self.params, self.ctx, self.chest)
         self.rbe = GoldenBackend(self.rparams, self.rchest)
 
@@ -349,7 +349,7 @@ def test_pir_matches_reference(scheme):
     assert rots == rpir.pir_rotations(params.slots)
     rchest = rmod.keygen(rparams, np.random.default_rng(3), rotations=rots)
     chest = interop.chest_from_reference(rchest, "cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     be = getattr(pback, f"{scheme.upper()}DeviceBackend")(params, ctx, chest)
     rbe = getattr(rback, f"{scheme.upper()}GoldenBackend")(rparams, rchest)
     t = params.plain_modulus

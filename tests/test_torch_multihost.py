@@ -34,7 +34,7 @@ def _operands():
     from gpufhe_tpu_torch.params.params import preset
 
     params = preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = dkeys.keygen(params, np.random.default_rng(7), ctx=ctx)
     z = np.random.default_rng(5).normal(size=(params.slots, 2)) @ np.array([1, 1j])
     ct = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
@@ -117,7 +117,7 @@ def test_one_process_is_the_degenerate_case():
     from gpufhe_tpu_torch.ciphertext import ct as dct
     from gpufhe_tpu_torch.ops.context import make_context
 
-    want = dct.ct_mul(ct, ct, params, make_context(params, "cpu"), chest.device_rlk).c
+    want = dct.ct_mul(ct, ct, params, make_context(params, device="cpu"), chest.device_rlk).c
     assert all(torch.equal(g, w) for g, w in zip(_sharded_mult(mesh, params, chest, ct), want))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

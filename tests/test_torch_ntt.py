@@ -35,7 +35,7 @@ def _rand(primes, rows, n, seed):
 @pytest.mark.parametrize("name", ["tiny", "tiny2", "ci_small"])
 def test_ntt_matches_reference_jnp_path(name):
     params, rparams = preset(name), ref_preset(name)
-    ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
+    ctx, rctx = make_context(params, device="cpu"), ref_context(rparams)
     primes = params.q_primes + params.p_primes
     x = _rand(primes, range(len(primes)), params.n, 1)
     got = ntt_fwd(torch.from_numpy(x), ctx).numpy()
@@ -49,7 +49,7 @@ def test_ntt_matches_reference_jnp_path(name):
 @pytest.mark.parametrize("limbs", [[1, 3, 0], [4, 5], slice(1, 3)])
 def test_ntt_limb_subsets_match_golden(limbs):
     params = preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     primes = params.q_primes + params.p_primes
     rows = range(len(primes))[limbs] if isinstance(limbs, slice) else limbs
     x = _rand(primes, rows, params.n, 3)
@@ -62,7 +62,7 @@ def test_ntt_limb_subsets_match_golden(limbs):
 
 def test_ntt_leading_batch_dims():
     params = preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     primes = params.q_primes + params.p_primes
     rows = [0, 2, 5]
     x = np.stack([_rand(primes, rows, params.n, 10 + b) for b in range(6)]).reshape(2, 3, 3, -1)
@@ -81,7 +81,7 @@ def test_ntt_rectangular_split_matches_golden(n):
     params = CKKSParams(n=n, q_primes=qs, p_primes=(), scale_bits=20)
     n1, n2 = fourstep_split(n)
     assert n1 == 2 * n2 and (n1, n2) == ref_split(n)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     x = _rand(qs, range(2), n, 4)
     got = ntt_fwd(torch.from_numpy(x), ctx).numpy()
     for i in range(2):
@@ -96,7 +96,7 @@ def test_ntt_matches_pallas_v3_interpret(direction):
     from gpufhe_tpu.ops.ntt_pallas import fourstep_pallas_v3
 
     params, rparams = preset("tiny2"), ref_preset("tiny2")
-    ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
+    ctx, rctx = make_context(params, device="cpu"), ref_context(rparams)
     primes = params.q_primes + params.p_primes
     n1, n2 = ref_split(params.n)
     sel = [1, 3, 0]
@@ -119,7 +119,7 @@ def test_ntt_matches_pallas_v2_interpret(direction):
     from gpufhe_tpu.ops.ntt_pallas import fourstep_pallas_v2
 
     params, rparams = preset("tiny2"), ref_preset("tiny2")
-    ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
+    ctx, rctx = make_context(params, device="cpu"), ref_context(rparams)
     primes = params.q_primes + params.p_primes
     L, n = len(primes), params.n
     n1, n2 = ref_split(n)
@@ -140,7 +140,7 @@ def test_ntt_matches_pallas_v1_interpret():
     from gpufhe_tpu.ops.ntt_pallas import fourstep_pallas
 
     params, rparams = preset("tiny"), ref_preset("tiny")
-    ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
+    ctx, rctx = make_context(params, device="cpu"), ref_context(rparams)
     primes = params.q_primes + params.p_primes
     L, n = len(primes), params.n
     n1, n2 = ref_split(n)
@@ -156,7 +156,7 @@ def test_ntt_matches_pallas_v1_interpret():
 def test_cuda_wrapper_rejects_cpu_tensors():
     """The wrapper launches the kernel or raises: no fallback to the plain version."""
     params = preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     x = torch.zeros((2, params.n), dtype=torch.int64)
     idx = ctx.index(range(2), torch.int32)
     before = ntt_cuda.KERNEL.launches
@@ -167,6 +167,6 @@ def test_cuda_wrapper_rejects_cpu_tensors():
 
 def test_ntt_rejects_wrong_limb_count():
     params = preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     with pytest.raises(ValueError):
         ntt_fwd(torch.zeros((3, params.n), dtype=torch.int64), ctx, limbs=[0, 1])

@@ -185,7 +185,7 @@ def _model_inputs(primes, psis, n):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_model_equals_plain(name, inverse):
     params = preset(name)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     primes = ctx.primes
     tabs, q, qinv = _model_inputs(primes, params.psi, params.n)
     sel = list(range(len(primes)))[::-1]
@@ -202,7 +202,7 @@ def test_model_at_n16_on_config5_boot_primes():
     """R = 256 both passes (16 threads x 16 registers), the path's primes."""
     params = preset("config5_boot")
     n = params.n
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rows = [0, 29, 44]  # first and last q-limb, last special prime
     primes = [ctx.primes[r] for r in rows]
     psis = [params.psi[r] for r in rows]
@@ -265,7 +265,7 @@ def test_twist_and_twiddle_products_at_worst_case_inputs(q):
 
 def test_tables_against_their_definitions():
     params = preset("ci_small")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     q = np.asarray(ctx.primes, dtype=object)[:, None]
     u32 = lambda t: t.numpy().view(np.uint32).astype(object)  # noqa: E731
     n, n1 = params.n, ctx.n1
@@ -449,7 +449,7 @@ def test_exchange_has_no_bank_conflicts(logr):
 def test_wrapper_refuses_lengths_and_primes_it_has_no_build_for():
     import dataclasses
 
-    ctx = make_context(preset("tiny2"), "cpu")
+    ctx = make_context(preset("tiny2"), device="cpu")
     x = torch.zeros((1, ctx.n), dtype=torch.int64)
     idx = ctx.index([0], torch.int32)
     before = ntt_cuda.KERNEL.launches

@@ -39,7 +39,7 @@ def _slots(params, rng):
 
 
 def _stack(params, rparams, seed=7):
-    ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
+    ctx, rctx = make_context(params, device="cpu"), ref_context(rparams)
     chest = pkeys.keygen(params, np.random.default_rng(seed), ctx=ctx)
     rchest = rkeys.keygen(rparams, np.random.default_rng(seed))
     return ctx, rctx, chest, rchest
@@ -121,7 +121,7 @@ def test_config3_vectors_limb_trace():
     want = np.load(gv.VEC_DIR / "config3_ckks.npz")
     seed = int(want["seed"])
     params = preset(want["preset"].item().decode())
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = pkeys.keygen(params, np.random.default_rng(seed), ctx=ctx)
     pa, pb = penc.encode(want["za"], params), penc.encode(want["zb"], params)
     ca = pct.encrypt(pa, params, chest.device_pk, ctx, np.random.default_rng(seed + 2), params.scale)

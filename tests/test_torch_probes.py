@@ -62,7 +62,7 @@ def test_shoup32_step_is_the_modular_product(q):
 
 def test_copy_only_plain_is_the_bit_reversed_transpose():
     params = preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     n1, n2 = ctx.n1, ctx.n2
     rev = lambda j, r: int(f"{j:0{r.bit_length() - 1}b}"[::-1], 2)
     x = torch.arange(3 * params.n, dtype=torch.int64).view(3, params.n)

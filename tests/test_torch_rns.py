@@ -30,7 +30,7 @@ def _np(x):
 def stacks(request):
     name = request.param
     params, rparams = preset(name), ref_preset(name)
-    return params, rparams, make_context(params, "cpu"), ref_context(rparams)
+    return params, rparams, make_context(params, device="cpu"), ref_context(rparams)
 
 
 @pytest.mark.parametrize("drop", [0, 1, 3])
@@ -38,7 +38,7 @@ def test_mod_up_mod_down_rescale_match_reference(stacks, drop):
     params, rparams, ctx, rctx = stacks
     level = params.num_limbs - drop
     alpha = len(params.p_primes)
-    ksc = prns.make_ks_context(params, level, "cpu")
+    ksc = prns.make_ks_context(params, level, device="cpu")
     rksc = rrns.make_ks_context(rparams, level)
     qs = params.q_primes[:level]
     x = _rand(qs, params.n, level)
@@ -71,8 +71,8 @@ def test_config2_rns_vectors():
     a = torch.from_numpy(want["a"])
     tabs = make_convert_tables(params.q_primes, params.p_primes, "cpu")
     assert (base_convert(a, tabs).numpy() == want["base_convert_to_p"]).all()
-    ctx = make_context(params, "cpu")
-    ksc = prns.make_ks_context(params, params.num_limbs, "cpu")
+    ctx = make_context(params, device="cpu")
+    ksc = prns.make_ks_context(params, params.num_limbs, device="cpu")
     got = prns.rescale(a, params, params.num_limbs, ctx, ksc).numpy()
     assert (got == want["rescale"]).all()
     assert (grns.base_convert(want["a"][:3], params.q_primes[:3], params.p_primes)

@@ -45,7 +45,7 @@ def stack(request):
     params, rparams = preset(request.param), ref_preset(request.param)
     rchest = rkeys.keygen(rparams, np.random.default_rng(17), rotations=STEPS, conjugation=True)
     chest = interop.chest_from_reference(rchest, "cpu")
-    return params, rparams, make_context(params, "cpu"), ref_context(rparams), chest, rchest
+    return params, rparams, make_context(params, device="cpu"), ref_context(rparams), chest, rchest
 
 
 def _encrypt_both(stack, z, seed):
@@ -175,7 +175,7 @@ def test_config4_rotations_vector_limb_trace():
     want = np.load(gv.VEC_DIR / "config4_rotations.npz")
     seed = int(want["seed"])
     params = preset(want["preset"].item().decode())
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rng = np.random.default_rng(seed)
     sk, pk = pgolden.keygen(params, rng, ctx=ctx)
     gks = {s: pkeys.upload_ks_key(pgolden.make_galois_key(params, s, sk, rng, ctx=ctx), params,

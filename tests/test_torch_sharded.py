@@ -94,7 +94,7 @@ def test_fourstep_pass_plain_composes_to_fourstep_plain(name):
     blocks through pass B give fourstep_plain's transform in the [k1, k2]
     layout, and back."""
     params = preset(name)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     n1, n2, L = ctx.n1, ctx.n2, params.num_limbs
     x = torch.from_numpy(np.stack(_random_limbs(params, L, np.random.default_rng(0), 1)[0]))
     idx = ctx.index(range(L), torch.int32)
@@ -120,7 +120,7 @@ def test_fourstep_pass_plain_composes_to_fourstep_plain(name):
 @pytest.mark.parametrize("name", ["tiny2", "ci_small"])
 def test_distributed_ntt_round_trip_matches_single_device(name, mesh):
     params = preset(name)
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     n1, n2, L = ctx.n1, ctx.n2, params.num_limbs
     rng = np.random.default_rng(0)
     x, y = (torch.from_numpy(v) for v in _random_limbs(params, L, rng, 2))
@@ -128,12 +128,12 @@ def test_distributed_ntt_round_trip_matches_single_device(name, mesh):
     b = n1 // 4
     blocks = mesh.put(lambda l, c, d: sh.coeff_to_3d(x, n1, n2)[:, c * b:(c + 1) * b]
                       .contiguous())
-    e = sh.ntt_fwd_body(mesh, blocks, t_q)
+    e = sh.ntt_fwd_body(blocks, t_q)
     assert torch.equal(_got(e), ntt_fwd(x, ctx, limbs=range(L)))
-    back = sh.ntt_inv_body(mesh, e, t_q)
+    back = sh.ntt_inv_body(e, t_q)
     for row in back:  # every limb row holds the whole coefficient matrix
         assert torch.equal(torch.cat(row, dim=1).reshape(L, -1), x)
-    got_inv = sh.ntt_inv_body(mesh, sh.shard_ct_component(y, params, mesh), t_q)
+    got_inv = sh.ntt_inv_body(sh.shard_ct_component(y, params, mesh), t_q)
     assert torch.equal(torch.cat(got_inv[0], dim=1).reshape(L, -1),
                        ntt_inv(y, ctx, limbs=range(L)))
 
@@ -154,7 +154,7 @@ def test_sharded_mult_matches_reference_sharded_mult(mesh):
     params, rparams = preset("ci_small"), ref_preset("ci_small")
     rchest = rkeys.keygen(rparams, np.random.default_rng(7))
     chest = interop.chest_from_reference(rchest, device="cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     level = params.num_limbs
     comps = _random_limbs(params, level, np.random.default_rng(5), 4)
     want = _reference_run(rsh.make_sharded_mult, rparams, level, rchest.device_rlk, comps)
@@ -177,7 +177,7 @@ def test_sharded_bfv_mult_matches_reference_sharded_bfv_mult(mesh):
     params, rparams = preset("bfv_ci"), ref_preset("bfv_ci")
     rchest = rbfv.keygen(rparams, np.random.default_rng(7))
     chest = interop.chest_from_reference(rchest, device="cpu")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     level = params.num_limbs
     comps = _random_limbs(params, level, np.random.default_rng(2), 4)
     want = _reference_run(rbfv_sh.make_sharded_bfv_mult, rparams, level, rchest.device_rlk,
@@ -195,7 +195,7 @@ def test_sharded_bfv_mult_matches_reference_sharded_bfv_mult(mesh):
 @pytest.fixture(scope="module")
 def ckks_stack():
     params = preset("tiny2")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = dkeys.keygen(params, np.random.default_rng(11), rotations=(1, 2, 5),
                          conjugation=True, ctx=ctx)
     z = np.random.default_rng(12).normal(size=(params.slots, 2)) @ np.array([1, 1j])
@@ -237,7 +237,7 @@ def test_sharded_integer_ops_match_single_device(scheme, mesh):
     slots."""
     mod, gold = (pbgv, gbgv) if scheme == "bgv" else (pbfv, gbfv)
     params = preset(f"{scheme}_ci")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     chest = mod.keygen(params, np.random.default_rng(7), rotations=(3, 5), ctx=ctx)
     t = params.plain_modulus
     rng = np.random.default_rng(2)
@@ -275,7 +275,7 @@ def test_permute_v2_routing_matches_v1_all_gather(mesh):
     """The 1x-traffic all_to_all-routed automorphism == the all_gather path,
     for rotations and conjugation, at ci_small."""
     params = preset("ci_small")
-    n1, n2 = make_context(params, "cpu").n1, make_context(params, "cpu").n2
+    n1, n2 = make_context(params, device="cpu").n1, make_context(params, device="cpu").n2
     qp = np.asarray(params.q_primes + params.p_primes, dtype=np.int64)
     x = torch.from_numpy(np.random.default_rng(3).integers(0, qp[:, None, None],
                                                            size=(len(qp), n1, n2)))
@@ -301,7 +301,7 @@ def test_sharded_backend_transform_and_fused_fan_match_device_backend(mesh):
     DeviceBackend, decoded back to the input; the fused diagonal fan (one
     hoisted ModUp, a zero-offset diagonal in one set) == DeviceBackend's."""
     params = preset("fft_ci_small")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rots = fb.factored_rotations(params.slots, radix_log=3)
     chest = dkeys.keygen(params, np.random.default_rng(7), rotations=tuple(rots),
                          conjugation=True, ctx=ctx)
@@ -332,7 +332,7 @@ def test_sharded_double_word_bootstrap_matches_device_backend(mesh):
     limb; Bootstrapper, fftboot and polyeval take the sharded backend
     unchanged, and a second call performs no host encode."""
     params = preset("boot_dw_ci")
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     rots = bootstrap_rotations(params, transform="factored", radix_log=6)
     chest = dkeys.keygen(params, np.random.default_rng(7), rotations=tuple(rots),
                          conjugation=True, ctx=ctx)

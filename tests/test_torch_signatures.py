@@ -95,7 +95,7 @@ def test_bootstrapper_defaults_match_the_reference():
 @pytest.fixture(scope="module")
 def tiny():
     params, rparams = preset("tiny"), ref_preset("tiny")
-    ctx, rctx = make_context(params, "cpu"), ref_context(rparams)
+    ctx, rctx = make_context(params, device="cpu"), ref_context(rparams)
     chest = pkeys.keygen(params, np.random.default_rng(5), ctx=ctx)
     rchest = rkeys.keygen(rparams, np.random.default_rng(5))
     return params, rparams, ctx, rctx, chest, rchest
@@ -199,7 +199,7 @@ def cpu_by_default(monkeypatch):
 
     def cpu_context(params):
         asked.append(params)
-        return make_context(params, "cpu")
+        return make_context(params, device="cpu")
 
     monkeypatch.setattr(pkeys, "make_context", cpu_context)
     return asked
@@ -453,9 +453,9 @@ def test_package_and_utils_export_the_reference_names():
 
 
 def test_cli_subcommands_and_arguments_match_the_reference(monkeypatch):
-    """Every subcommand of the reference's CLI but bench, with
-    the reference's arguments and defaults; the global --cpu flag, not
-    --cache (XLA's compile cache)."""
+    """Every subcommand of the reference's CLI, bench included, with the
+    reference's arguments and defaults; the global --cpu flag, not --cache
+    (XLA's compile cache)."""
     import argparse
 
     from gpufhe_tpu import cli as rcli
@@ -482,7 +482,7 @@ def test_cli_subcommands_and_arguments_match_the_reference(monkeypatch):
 
     port, port_flags = parsers(pcli.main)
     ref, ref_flags = parsers(rcli.main)
-    assert sorted(port) == sorted(set(ref) - {"bench"})
+    assert sorted(port) == sorted(ref)
     for name, args in port.items():
         assert args == ref[name], name
     assert port_flags == ["cpu"] and ref_flags == ["cache", "cpu"]
@@ -624,3 +624,154 @@ def test_golden_keygen_called_the_reference_way_equals_reference(name):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert isinstance(g, np.ndarray) and g.dtype == np.int64 and (g == w).all()
+
+
+# --- every module of the reference: its counterpart in the port, every name it
+#     defines, and each name's parameters -----------------------------------------
+
+def _reference_modules() -> list[str]:
+    import pkgutil
+
+    import gpufhe_tpu
+
+    return sorted(m.name.split(".", 1)[1]
+                  for m in pkgutil.walk_packages(gpufhe_tpu.__path__, "gpufhe_tpu."))
+
+
+# the reference's Pallas kernels, ported as hand-written CUDA kernels behind
+# modules of their own (csrc/ntt.cu, csrc/convert.cu)
+KERNEL_MODULES = {"ops.ntt_pallas": "ops.ntt_cuda", "ops.convert_pallas": "ops.convert_cuda"}
+# JAX-only mechanics, not ported as behaviour (ROADMAP §1): the fused jit
+# pipeline and raw jit cores, the lazy-recombine table type, the key switch's
+# fence gate and staged key-row gather, and the PartitionSpecs of the sharded
+# tables (the planner's _capture_jit and _sds are private, and the CLI's
+# --cache is test_cli_subcommands_and_arguments_match_the_reference's)
+JAX_ONLY = {("ciphertext.backend", "FusedPipeline"), ("ciphertext.ct", "raw_cores"),
+            ("ops.context", "NTTTablesLazy"), ("primitives.keyswitch", "fence_enabled"),
+            ("primitives.keyswitch", "key_rows"), ("parallel.sharded", "ShardedNTT.spec"),
+            ("parallel.sharded", "ShardedKS.spec")}
+# names only the port defines: the cores BGV and BFV share with CKKS, the key
+# switch's stages, the kernels' tables, the golden model's host helpers, the
+# card's bounds, and the bench's lines beyond the reference's bench_mult
+PORT_ONLY = {
+    "bench": {"bench_int_mult", "bench_ntt", "bench_bootstrap", "bench_mlp",
+              "bench_deep_mlp", "bench_mesh_parity"},
+    "ciphertext.bfv": {"sk_convert_to_q"},
+    "ciphertext.ct": {"add_core", "decrypt_core", "encrypt_core", "galois_core", "galois_perm",
+                      "hoisted_galois_core", "mul_plain_core", "relin_core", "rescale_core",
+                      "sub_core", "tensor_core"},
+    "golden.ckks": {"host_limbs", "inner_product_coeff", "ntt_small"},
+    "golden.native": {"lib_path"},
+    "keys.keys": {"IntegerKeyChest", "default_context", "host", "integer_chest_fields",
+                  "mont_form"},
+    "ops.context": {"K1Tables", "k1_refusal", "ntt_tables_np", "pow_table", "shoup",
+                    "stage_root_exponents"},
+    "parallel.sharded": {"mesh_contexts"},
+    "primitives.keyswitch": {"gadget_mac", "hoist", "key_row_index", "ks_finish"},
+    "utils.benchkit": {"Bounds", "measured_bounds"},
+}
+# device tables whose layout the port is free in (ROADMAP, the north star):
+# the reference's NamedTuples of jnp arrays; their fields are not compared
+TABLE_LAYOUTS = {("ops.context", "Context"), ("ops.context", "NTTTables"),
+                 ("primitives.rns", "KSContext"), ("ciphertext.bfv", "BFVMulTables"),
+                 ("parallel.sharded", "ShardedNTT"), ("parallel.sharded", "ShardedKS")}
+# keyword-only extras the port needs without a default: the mesh, which the
+# reference's shard_map bodies find around them
+REQUIRED_EXTRAS = {"mesh"}
+# the root bench.py, whose counterpart is gpufhe_tpu_torch/bench.py
+SCANNED = sorted(set(_reference_modules()) - set(KERNEL_MODULES)) + ["bench"]
+
+
+def _scan_modules(path):
+    import importlib
+
+    ref = importlib.import_module("bench" if path == "bench" else f"gpufhe_tpu.{path}")
+    return importlib.import_module(f"gpufhe_tpu_torch.{path}"), ref
+
+
+def _members(cls) -> dict:
+    """A class's public methods, class and static methods (unwrapped) and
+    properties, its own and its bases' (the port's chests share a base)."""
+    out = {}
+    for klass in reversed(cls.__mro__[:-1]):
+        for name, f in vars(klass).items():
+            if name.startswith("_") and name != "__init__":
+                continue
+            if isinstance(f, (classmethod, staticmethod)):
+                out[name] = f.__func__
+            elif inspect.isfunction(f):
+                out[name] = f
+            elif isinstance(f, property) and f.fget is not None:
+                out[name] = f.fget
+    return out
+
+
+def _generated_init(cls) -> bool:
+    import dataclasses
+
+    return dataclasses.is_dataclass(cls) or hasattr(cls, "_fields")
+
+
+def _signature_extends(port, ref) -> str | None:
+    """None if port takes ref's parameters in order, with ref's kinds and
+    defaults (a default where ref has none is allowed), then keyword-only
+    extras, each with a default or named in REQUIRED_EXTRAS; else what
+    differs."""
+    p = list(inspect.signature(inspect.unwrap(port)).parameters.values())
+    r = list(inspect.signature(inspect.unwrap(ref)).parameters.values())
+    for x, y in zip(p, r):
+        if (x.name, x.kind) != (y.name, y.kind) or (
+                y.default is not inspect.Parameter.empty and x.default != y.default):
+            return f"{x} against the reference's {y}"
+    if len(p) < len(r):
+        return f"missing {[y.name for y in r[len(p):]]}"
+    bad = [x.name for x in p[len(r):] if x.kind is not inspect.Parameter.KEYWORD_ONLY
+           or (x.default is inspect.Parameter.empty and x.name not in REQUIRED_EXTRAS)]
+    return f"extras not keyword-only with defaults: {bad}" if bad else None
+
+
+@pytest.mark.parametrize("path", SCANNED)
+def test_every_reference_module_has_its_names_in_the_port(path):
+    port, ref = _scan_modules(path)
+    want = {n for n in _defined(ref) if (path, n) not in JAX_ONLY}
+    assert sorted(n for n in want if not hasattr(port, n)) == []
+    assert sorted(set(_defined(port)) - set(_defined(ref))) == sorted(PORT_ONLY.get(path, ()))
+
+
+def test_kernel_modules_are_the_reference_pallas_modules():
+    """The scan leaves out only the reference's two Pallas modules, and the
+    port has the module of each one's hand-written kernel."""
+    import importlib
+
+    assert sorted(set(_reference_modules()) - set(SCANNED)) == sorted(KERNEL_MODULES)
+    for path in KERNEL_MODULES.values():
+        assert hasattr(importlib.import_module(f"gpufhe_tpu_torch.{path}"), "KERNEL")
+
+
+SCANNED_NAMES = [(path, name) for path in SCANNED
+                 for name in sorted(_defined(_scan_modules(path)[1]))
+                 if (path, name) not in JAX_ONLY]
+
+
+@pytest.mark.parametrize("path,name", SCANNED_NAMES, ids=lambda x: x)
+def test_every_reference_name_takes_the_reference_parameters(path, name):
+    import dataclasses
+
+    port_mod, ref_mod = _scan_modules(path)
+    port, ref = getattr(port_mod, name), getattr(ref_mod, name)
+    if not inspect.isclass(ref):
+        assert not inspect.isclass(port), name
+        assert _signature_extends(port, ref) is None, (name, _signature_extends(port, ref))
+        return
+    assert inspect.isclass(port), name
+    if _generated_init(ref) and (path, name) not in TABLE_LAYOUTS:
+        fields = (lambda c: [f.name for f in dataclasses.fields(c)]
+                  if dataclasses.is_dataclass(c) else list(c._fields))
+        assert fields(port) == fields(ref), name
+    pm, rm = _members(port), _members(ref)
+    for key, rf in rm.items():
+        if (path, f"{name}.{key}") in JAX_ONLY or (key == "__init__" and _generated_init(ref)):
+            continue
+        assert key in pm, f"{name}.{key}"
+        assert _signature_extends(pm[key], rf) is None, (
+            f"{name}.{key}", _signature_extends(pm[key], rf))

@@ -75,7 +75,7 @@ def _shares(name, seed):
     pk = th.aggregate_public_key(params, a, [s.b for s in shares])
     rpk = rth.aggregate_public_key(rparams, ra, [s.b for s in rshares])
     assert (_np(pk.b) == rpk.b).all() and (_np(pk.a) == rpk.a).all()
-    ctx = make_context(params, "cpu")
+    ctx = make_context(params, device="cpu")
     return params, rparams, ctx, shares, rshares, pk, rpk
 
 

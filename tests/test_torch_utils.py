@@ -146,7 +146,7 @@ KEYCHESTS = [("ckks", "tiny2", (1, 2), True), ("ckks", "boot_dw_ci_enc", (1,), F
                          ids=[f"{s}-{n}" for s, n, _, _ in KEYCHESTS])
 def test_keychest_files_load_across_packages(tmp_path, scheme, name, rots, conj):
     p, r = _params_pair(name)
-    ctx = make_context(p, "cpu")
+    ctx = make_context(p, device="cpu")
     rng, rrng = np.random.default_rng(3), np.random.default_rng(3)
     if scheme == "ckks":
         chest = pkeys.keygen(p, rng, rots, conj, ctx=ctx)
@@ -218,7 +218,7 @@ def test_seeded_device_keychest_files_load_across_packages(tmp_path, name, rots)
     a rows from it again. The port's chest comes from device_keygen on the
     CPU; the reference's saver is given the same arrays."""
     p = preset(name)
-    ctx = make_context(p, "cpu")
+    ctx = make_context(p, device="cpu")
     chest = pdk.device_keygen(p, np.random.default_rng(11), rots, True, ctx=ctx)
     rchest = _ref_device_chest(chest)
     for seeded in (True, False):
@@ -238,7 +238,7 @@ def _ciphertexts():
     pt_factor 7, bfv_tiny), with its reference twin built from its limbs."""
     out = []
     p = preset("tiny2")
-    ctx = make_context(p, "cpu")
+    ctx = make_context(p, device="cpu")
     chest = pkeys.keygen(p, np.random.default_rng(3), ctx=ctx)
     z = np.random.default_rng(4).normal(size=p.slots) + 0j
     ct = pct.encrypt(penc.encode(z, p), p, chest.device_pk, ctx, np.random.default_rng(5),
@@ -246,7 +246,7 @@ def _ciphertexts():
     out.append((ct, rct.Ciphertext([jnp.asarray(_np(c).astype(np.uint32)) for c in ct.c],
                                    ct.level, ct.scale)))
     p = preset("bgv_tiny")
-    ctx = make_context(p, "cpu")
+    ctx = make_context(p, device="cpu")
     chest = pbgv.keygen(p, np.random.default_rng(71), ctx=ctx)
     m = np.random.default_rng(72).integers(0, p.plain_modulus, size=p.n, dtype=np.int64)
     ct = pbgv.encrypt(gbgv.encode(m, p), p, chest.device_pk, ctx, np.random.default_rng(73))
@@ -260,7 +260,7 @@ def _ciphertexts():
 
 
 def test_ciphertext_files_load_across_packages(tmp_path):
-    ctx = make_context(preset("tiny2"), "cpu")
+    ctx = make_context(preset("tiny2"), device="cpu")
     for ct, ref in _ciphertexts():
         ser.save_ciphertext(tmp_path / "port.npz", ct)
         rser.save_ciphertext(tmp_path / "ref.npz", ref)
@@ -335,7 +335,7 @@ def test_ckks_noise_report_equals_the_reference():
     """Fresh and after one multiply (the reference's tests/test_models_utils.py
     scenario), each report == the reference's on the same limbs."""
     p, r = _params_pair("tiny2")
-    ctx, rctx = make_context(p, "cpu"), ref_context(r)
+    ctx, rctx = make_context(p, device="cpu"), ref_context(r)
     chest = pkeys.keygen(p, np.random.default_rng(5), ctx=ctx)
     rchest = rkeys.keygen(r, np.random.default_rng(5))
     z = np.random.default_rng(6).normal(size=p.slots) + 0j
@@ -360,7 +360,7 @@ def test_golden_noise_budget_bits_equals_the_reference(scheme):
     CPU) == the reference's (on the same limbs as its golden ciphertexts)."""
     name = f"{scheme}_tiny"
     p = preset(name)
-    ctx = make_context(p, "cpu")
+    ctx = make_context(p, device="cpu")
     mod, gold, rgold = {"bgv": (pbgv, gbgv, rgbgv), "bfv": (pbfv, gbfv, rgbfv)}[scheme]
     chest = mod.keygen(p, np.random.default_rng(11), ctx=ctx)
     r = rparams_mod.preset(name)
@@ -384,7 +384,7 @@ def test_golden_noise_budget_bits_equals_the_reference(scheme):
 
 def test_bfv_inner_product_centered_equals_the_reference():
     p, r = _params_pair("bfv_tiny")
-    ctx = make_context(p, "cpu")
+    ctx = make_context(p, device="cpu")
     chest = pbfv.keygen(p, np.random.default_rng(21), ctx=ctx)
     m = np.random.default_rng(22).integers(0, p.plain_modulus, size=p.n, dtype=np.int64)
     ct = pbfv.encrypt(gbfv.encode(m, p), p, chest.device_pk, ctx, np.random.default_rng(23))
