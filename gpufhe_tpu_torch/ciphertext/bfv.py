@@ -40,6 +40,7 @@ from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.keyswitch import hoist, key_switch_core
 from gpufhe_tpu_torch.primitives.rns import KSContext, make_ks_context
+from gpufhe_tpu_torch.utils.profiling import stage
 
 
 @dataclasses.dataclass
@@ -204,27 +205,29 @@ def _tensor_coeff(ca, cb, params: CKKSParams, ctx: Context, level: int) -> torch
 
     Transforms are batched over the components (one K1 launch per basis and
     direction); each conversion is one K3 launch per component: Q -> aux for
-    the four inputs and for [t d]_Q, B -> m_sk and B -> Q per output."""
-    auxp, aux_ctx, tabs = make_bfv_mul_context(params, level, device=ctx.device)
-    a_dim = len(auxp.q_primes)
-    q_rows, a_rows = range(level), range(a_dim)
-    q, aq = ctx.col("q", q_rows), aux_ctx.col("q", a_rows)
+    the four inputs and for [t d]_Q, B -> m_sk and B -> Q per output. Span
+    `tensor` (tensor_core's two nest inside it)."""
+    with stage("tensor"):
+        auxp, aux_ctx, tabs = make_bfv_mul_context(params, level, device=ctx.device)
+        a_dim = len(auxp.q_primes)
+        q_rows, a_rows = range(level), range(a_dim)
+        q, aq = ctx.col("q", q_rows), aux_ctx.col("q", a_rows)
 
-    # 1. extend both inputs to the aux basis (approximate conversion)
-    coeff = ntt_inv(torch.stack([*ca, *cb]), ctx, limbs=q_rows)
-    ext = ntt_fwd(torch.stack([base_convert(x, tabs.q2aux) for x in coeff]), aux_ctx,
-                  limbs=a_rows)
-    # 2. tensor over both bases
-    d_q = torch.stack(dct.tensor_core(ca, cb, ctx, level))
-    d_aux = torch.stack(dct.tensor_core(ext[:2], ext[2:], aux_ctx, a_dim))
-    dq = ntt_inv(d_q, ctx, limbs=q_rows)
-    daux = ntt_inv(d_aux, aux_ctx, limbs=a_rows)
-    # 3. y = (t d - [t d]_Q) / Q over aux: an exact division
-    r = mul_mod(dq, tabs.t_q, q)
-    r_aux = torch.stack([base_convert(x, tabs.q2aux) for x in r])
-    y = mul_mod(sub_mod(mul_mod(daux, tabs.t_aux, aq), r_aux, aq), tabs.qinv_aux, aq)
-    # 4. back to Q, exactly
-    return torch.stack([sk_convert_to_q(yc, tabs, q) for yc in y])
+        # 1. extend both inputs to the aux basis (approximate conversion)
+        coeff = ntt_inv(torch.stack([*ca, *cb]), ctx, limbs=q_rows)
+        ext = ntt_fwd(torch.stack([base_convert(x, tabs.q2aux) for x in coeff]), aux_ctx,
+                      limbs=a_rows)
+        # 2. tensor over both bases
+        d_q = torch.stack(dct.tensor_core(ca, cb, ctx, level))
+        d_aux = torch.stack(dct.tensor_core(ext[:2], ext[2:], aux_ctx, a_dim))
+        dq = ntt_inv(d_q, ctx, limbs=q_rows)
+        daux = ntt_inv(d_aux, aux_ctx, limbs=a_rows)
+        # 3. y = (t d - [t d]_Q) / Q over aux: an exact division
+        r = mul_mod(dq, tabs.t_q, q)
+        r_aux = torch.stack([base_convert(x, tabs.q2aux) for x in r])
+        y = mul_mod(sub_mod(mul_mod(daux, tabs.t_aux, aq), r_aux, aq), tabs.qinv_aux, aq)
+        # 4. back to Q, exactly
+        return torch.stack([sk_convert_to_q(yc, tabs, q) for yc in y])
 
 
 def sk_convert_to_q(y: torch.Tensor, tabs: BFVMulTables, q: torch.Tensor) -> torch.Tensor:
@@ -276,11 +279,13 @@ def _relin_coeff(d: torch.Tensor, params: CKKSParams, ctx: Context, level: int,
 def ct_mul(a: BFVCiphertext, b: BFVCiphertext, params: CKKSParams, ctx: Context,
            rlk: DeviceKSKey) -> BFVCiphertext:
     """Tensor and relinearise with the boundary transforms cancelled: limbs
-    equal ct_relinearize(ct_tensor(a, b)) (NTT linearity). The level stays."""
+    equal ct_relinearize(ct_tensor(a, b)) (NTT linearity). The level stays.
+    Span `bfv.mul`."""
     if a.level != b.level or len(a.c) != 2 or len(b.c) != 2:
         raise ValueError("ct_mul takes two 2-component ciphertexts at one level")
-    d = _tensor_coeff(a.c, b.c, params, ctx, a.level)
-    return BFVCiphertext(_relin_coeff(d, params, ctx, a.level, rlk), a.level)
+    with stage("bfv.mul"):
+        d = _tensor_coeff(a.c, b.c, params, ctx, a.level)
+        return BFVCiphertext(_relin_coeff(d, params, ctx, a.level, rlk), a.level)
 
 
 def ct_mod_reduce(ct: BFVCiphertext, params: CKKSParams, ctx: Context) -> BFVCiphertext:

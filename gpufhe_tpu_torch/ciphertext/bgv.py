@@ -31,6 +31,7 @@ from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.keyswitch import hoist, key_switch_core
 from gpufhe_tpu_torch.primitives.rns import bgv_modswitch, make_ks_context
+from gpufhe_tpu_torch.utils.profiling import stage
 
 
 @dataclasses.dataclass
@@ -140,11 +141,13 @@ def _modswitched_factor(pt_factor: int, params: CKKSParams, level: int) -> int:
 
 def ct_modswitch(ct: BGVCiphertext, params: CKKSParams, ctx: Context) -> BGVCiphertext:
     """Drop q_last (level K -> K-1), the t-corrected division; one batched
-    transform each way."""
+    transform each way. Span `rescale`."""
     level = ct.level
-    ksc = make_ks_context(params, level, device=ctx.device)
-    coeff = ntt_inv(torch.stack(ct.c), ctx, limbs=range(level))
-    down = ntt_fwd(bgv_modswitch(coeff, params, level, ctx, ksc), ctx, limbs=range(level - 1))
+    with stage("rescale"):
+        ksc = make_ks_context(params, level, device=ctx.device)
+        coeff = ntt_inv(torch.stack(ct.c), ctx, limbs=range(level))
+        down = ntt_fwd(bgv_modswitch(coeff, params, level, ctx, ksc), ctx,
+                       limbs=range(level - 1))
     return BGVCiphertext(list(down), level - 1, _modswitched_factor(ct.pt_factor, params, level))
 
 
@@ -155,17 +158,21 @@ def ct_mul(a: BGVCiphertext, b: BGVCiphertext, params: CKKSParams, ctx: Context,
     are brought there by one batched iNTT and added, ModSwitch runs there,
     and one batched NTT brings both components back: by NTT linearity the
     limbs equal ct_modswitch(ct_relinearize(ct_tensor)). Output at level
-    - 1, pt_factor the factors' product times q_last mod t."""
+    - 1, pt_factor the factors' product times q_last mod t. Span `bgv.mul`, the
+    ModSwitch inside it `rescale`."""
     if a.level != b.level or len(a.c) != 2 or len(b.c) != 2:
         raise ValueError("ct_mul takes two 2-component ciphertexts at one level")
     level = a.level
-    q = ctx.col("q", range(level))
-    d0, d1, d2 = dct.tensor_core(a.c, b.c, ctx, level)
-    ksc = make_ks_context(params, level, device=ctx.device)
-    ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
-    cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
-                 torch.stack([ks0, ks1]), q)
-    down = ntt_fwd(bgv_modswitch(cc, params, level, ctx, ksc), ctx, limbs=range(level - 1))
+    with stage("bgv.mul"):
+        q = ctx.col("q", range(level))
+        d0, d1, d2 = dct.tensor_core(a.c, b.c, ctx, level)
+        ksc = make_ks_context(params, level, device=ctx.device)
+        ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
+        cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
+                     torch.stack([ks0, ks1]), q)
+        with stage("rescale"):
+            cc = bgv_modswitch(cc, params, level, ctx, ksc)
+        down = ntt_fwd(cc, ctx, limbs=range(level - 1))
     t = params.plain_modulus
     return BGVCiphertext(list(down), level - 1,
                          _modswitched_factor(a.pt_factor * b.pt_factor % t, params, level))

@@ -43,6 +43,7 @@ import torch
 from gpufhe_tpu_torch.ciphertext.fftboot import FactoredCtS, FactoredStC, factored_rotations
 from gpufhe_tpu_torch.ciphertext.linalg import BsgsPlan, bsgs_rotations
 from gpufhe_tpu_torch.params.params import CKKSParams
+from gpufhe_tpu_torch.utils.profiling import stage
 
 
 def bootstrap_rotations(
@@ -236,13 +237,10 @@ class Bootstrapper:
         return _align_to(self.be, ct, self.params.scale,
                          self.be.level(ct) - w)
 
-    def __call__(self, ct, _phase=None):
-        """_phase: optional callable(name, outs) fired as each pipeline
-        phase's outputs are produced, outs a tuple of its ciphertexts:
-        mod_raise (raised,), coeff_to_slot (t0, t1), evalmod (y0, y1) and
-        slot_to_coeff (out,). timed_call uses it to sync and attribute wall
-        time per phase; the reference's hook receives the last of them."""
-        mark = _phase if _phase is not None else (lambda name, outs: None)
+    def _mod_raise(self, ct):
+        """Align the input to Delta where it has the spare limbs, drop it to
+        scale_words limbs and raise it to the full chain (under the ephemeral
+        sparse secret where the chest has one)."""
         be = self.be
         w = self.params.scale_words
         delta = self.params.scale
@@ -269,7 +267,7 @@ class Bootstrapper:
                 f"bootstrap input scale drifts {drift:.2e} from Delta with "
                 f"no spare limbs to align; EvalMod error grows by "
                 f"~2*pi*{drift:.1e}*I rad — reserve scale_words limbs for "
-                f"exact alignment", RuntimeWarning, stacklevel=2)
+                f"exact alignment", RuntimeWarning, stacklevel=3)
         assert drift < 1e-4, (
             f"bootstrap input scale {ct.scale:.6g} != Delta {delta:.6g} and "
             f"no spare limbs to align (level {be.level(ct)}); EvalMod would "
@@ -283,52 +281,72 @@ class Bootstrapper:
             # dense base secret
             ct = be.key_switch(ct, "to_eph")
             raised = be.mod_raise(ct)
-            raised = be.key_switch(raised, "from_eph")
-        else:
-            raised = be.mod_raise(ct)
-        mark("mod_raise", (raised,))
+            return be.key_switch(raised, "from_eph")
+        return be.mod_raise(ct)
 
-        if self.evalmod == "cheb":
-            t0, t1 = self.f_cts(raised)
+    def __call__(self, ct, _phase=None):
+        """_phase: optional callable(name, outs) fired as each pipeline
+        phase's outputs are produced, outs a tuple of its ciphertexts:
+        mod_raise (raised,), coeff_to_slot (t0, t1), evalmod (y0, y1) and
+        slot_to_coeff (out,). timed_call uses it to sync and attribute wall
+        time per phase; the reference's hook receives the last of them.
+        Span `boot`, and inside it one span a phase over the stretch that
+        phase's mark ends: `boot.mod_raise`, `boot.coeff_to_slot`,
+        `boot.evalmod`, `boot.slot_to_coeff`."""
+        mark = _phase if _phase is not None else (lambda name, outs: None)
+        with stage("boot"):
+            be = self.be
+            with stage("boot.mod_raise"):
+                raised = self._mod_raise(ct)
+            mark("mod_raise", (raised,))
+
+            if self.evalmod == "cheb":
+                with stage("boot.coeff_to_slot"):
+                    t0, t1 = self.f_cts(raised)
+                mark("coeff_to_slot", (t0, t1))
+                with stage("boot.evalmod"):
+                    if self._lean_pending:
+                        be.chest.drop_galois_a()
+                    y0 = self._cheb(t0)
+                    y1 = self._cheb(t1)
+                    if self._lean_pending:
+                        be.chest.regen_galois_a(be.ctx)
+                        self._lean_pending = False
+                mark("evalmod", (y0, y1))
+                with stage("boot.slot_to_coeff"):
+                    lvl = self.f_stc.first_lo.level  # ghost-planned == actual level
+                    out = self.f_stc(be.drop_to_level(y0, lvl), be.drop_to_level(y1, lvl))
+                    out = self._normalize(out)
+                mark("slot_to_coeff", (out,))
+                return out
+
+            with stage("boot.coeff_to_slot"):
+                if self.transform == "factored":
+                    t0, t1 = self.f_cts(raised)
+                else:
+                    t0 = self.cts0.apply(raised)
+                    t1 = self.cts1.apply(raised)
+                shift = -math.pi / 2.0 ** (self.r + 1)
+                t0 = be.add_plain(t0, shift)
+                t1 = be.add_plain(t1, shift)
             mark("coeff_to_slot", (t0, t1))
-            if self._lean_pending:
-                be.chest.drop_galois_a()
-            y0 = self._cheb(t0)
-            y1 = self._cheb(t1)
-            if self._lean_pending:
-                be.chest.regen_galois_a(be.ctx)
-                self._lean_pending = False
+
+            with stage("boot.evalmod"):
+                y0 = self._evalmod(t0)
+                y1 = self._evalmod(t1)
             mark("evalmod", (y0, y1))
-            lvl = self.f_stc.first_lo.level  # ghost-planned == actual level
-            out = self.f_stc(be.drop_to_level(y0, lvl), be.drop_to_level(y1, lvl))
-            out = self._normalize(out)
+
+            with stage("boot.slot_to_coeff"):
+                if self.transform == "factored":
+                    lvl = self.f_stc.first_lo.level
+                    out = self.f_stc(be.drop_to_level(y0, lvl), be.drop_to_level(y1, lvl))
+                else:
+                    y0 = be.drop_to_level(y0, self.stc0.level)
+                    y1 = be.drop_to_level(y1, self.stc1.level)
+                    out = be.add(self.stc0.apply(y0), self.stc1.apply(y1))
+                out = self._normalize(out)
             mark("slot_to_coeff", (out,))
             return out
-
-        if self.transform == "factored":
-            t0, t1 = self.f_cts(raised)
-        else:
-            t0 = self.cts0.apply(raised)
-            t1 = self.cts1.apply(raised)
-        shift = -math.pi / 2.0 ** (self.r + 1)
-        t0 = be.add_plain(t0, shift)
-        t1 = be.add_plain(t1, shift)
-        mark("coeff_to_slot", (t0, t1))
-
-        y0 = self._evalmod(t0)
-        y1 = self._evalmod(t1)
-        mark("evalmod", (y0, y1))
-
-        if self.transform == "factored":
-            lvl = self.f_stc.first_lo.level
-            out = self.f_stc(be.drop_to_level(y0, lvl), be.drop_to_level(y1, lvl))
-        else:
-            y0 = be.drop_to_level(y0, self.stc0.level)
-            y1 = be.drop_to_level(y1, self.stc1.level)
-            out = be.add(self.stc0.apply(y0), self.stc1.apply(y1))
-        out = self._normalize(out)
-        mark("slot_to_coeff", (out,))
-        return out
 
     def timed_call(self, ct):
         """(out, {phase: seconds}): wall time per phase, with the device

@@ -38,6 +38,7 @@ from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.keyswitch import (gadget_mac, hoist, key_switch_core, ks_finish,
                                                    qp_indices)
 from gpufhe_tpu_torch.primitives.rns import KSContext, make_ks_context, rescale
+from gpufhe_tpu_torch.utils.profiling import stage
 
 
 @dataclasses.dataclass
@@ -123,12 +124,13 @@ def sub_core(ca, cb, ctx: Context, level: int) -> list:
 
 
 def tensor_core(ca, cb, ctx: Context, level: int):
-    """(a0, a1) x (b0, b1) -> (d0, d1, d2), NTT-domain pointwise."""
-    q = ctx.col("q", range(level))
-    a0, a1 = ca
-    b0, b1 = cb
-    d1 = add_mod(mul_mod(a0, b1, q), mul_mod(a1, b0, q), q)
-    return mul_mod(a0, b0, q), d1, mul_mod(a1, b1, q)
+    """(a0, a1) x (b0, b1) -> (d0, d1, d2), NTT-domain pointwise. Span `tensor`."""
+    with stage("tensor"):
+        q = ctx.col("q", range(level))
+        a0, a1 = ca
+        b0, b1 = cb
+        d1 = add_mod(mul_mod(a0, b1, q), mul_mod(a1, b0, q), q)
+        return mul_mod(a0, b0, q), d1, mul_mod(a1, b1, q)
 
 
 def mul_plain_core(cs, pt_mont: torch.Tensor, ctx: Context, level: int) -> list:
@@ -155,9 +157,11 @@ def relin_core(cs, ctx: Context, ksc: KSContext, rlk: DeviceKSKey, params: CKKSP
 
 def rescale_core(cs, ctx: Context, ksc: KSContext, params: CKKSParams, level: int) -> list:
     """Divide by the last active prime: level K -> K-1, one batched transform
-    each way."""
-    coeff = ntt_inv(torch.stack(list(cs)), ctx, limbs=range(level))
-    return list(ntt_fwd(rescale(coeff, params, level, ctx, ksc), ctx, limbs=range(level - 1)))
+    each way. Span `rescale`."""
+    with stage("rescale"):
+        coeff = ntt_inv(torch.stack(list(cs)), ctx, limbs=range(level))
+        return list(ntt_fwd(rescale(coeff, params, level, ctx, ksc), ctx,
+                            limbs=range(level - 1)))
 
 
 def galois_core(cs, g: int, ctx: Context, ksc: KSContext, key: DeviceKSKey, params: CKKSParams,
@@ -236,8 +240,9 @@ def ct_rescale(ct: Ciphertext, params: CKKSParams, ctx: Context) -> Ciphertext:
 
 def ct_mul(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
            rlk: DeviceKSKey) -> Ciphertext:
-    """Homomorphic multiply: tensor -> relinearize -> rescale."""
-    return ct_rescale(ct_relinearize(ct_tensor(a, b, ctx), params, ctx, rlk), params, ctx)
+    """Homomorphic multiply: tensor -> relinearize -> rescale. Span `ckks.mul`."""
+    with stage("ckks.mul"):
+        return ct_rescale(ct_relinearize(ct_tensor(a, b, ctx), params, ctx, rlk), params, ctx)
 
 
 def ct_mul_full(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
@@ -248,29 +253,34 @@ def ct_mul_full(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
     The key switch stays in the coefficient domain (eval_out=False): iNTT(d_i)
     + ks_i equals iNTT(d_i + NTT(ks_i)) mod q, so the rescales run back to back
     without an NTT round trip, and one batched NTT brings both components back.
+    Span `ckks.mul`.
     """
     if a.level != b.level or len(a.c) != 2 or len(b.c) != 2:
         raise ValueError("ct_mul_full takes two 2-component ciphertexts at one level")
-    level = a.level
-    q = ctx.col("q", range(level))
-    d0, d1, d2 = tensor_core(a.c, b.c, ctx, level)
-    ksc = make_ks_context(params, level, device=ctx.device)
-    ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
-    cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
-                 torch.stack([ks0, ks1]), q)
-    cc, lvl, scale = _rescale_chain(cc, params, level, ctx, a.scale * b.scale)
-    out = ntt_fwd(cc, ctx, limbs=range(lvl))
-    return Ciphertext(list(out), lvl, scale)
+    with stage("ckks.mul"):
+        level = a.level
+        q = ctx.col("q", range(level))
+        d0, d1, d2 = tensor_core(a.c, b.c, ctx, level)
+        ksc = make_ks_context(params, level, device=ctx.device)
+        ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
+        cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
+                     torch.stack([ks0, ks1]), q)
+        cc, lvl, scale = _rescale_chain(cc, params, level, ctx, a.scale * b.scale)
+        out = ntt_fwd(cc, ctx, limbs=range(lvl))
+        return Ciphertext(list(out), lvl, scale)
 
 
 def _rescale_chain(cc: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
                    scale: float) -> tuple[torch.Tensor, int, float]:
-    """scale_words rescales of coefficient-domain int64[..., K, N], back to back."""
-    for _ in range(params.scale_words):
-        cc = rescale(cc, params, level, ctx, make_ks_context(params, level, device=ctx.device))
-        scale = scale / params.q_primes[level - 1]
-        level -= 1
-    return cc, level, scale
+    """scale_words rescales of coefficient-domain int64[..., K, N], back to
+    back. Span `rescale`."""
+    with stage("rescale"):
+        for _ in range(params.scale_words):
+            cc = rescale(cc, params, level, ctx,
+                         make_ks_context(params, level, device=ctx.device))
+            scale = scale / params.q_primes[level - 1]
+            level -= 1
+        return cc, level, scale
 
 
 def ct_plain_mac(cts: list, pt_monts: list, const_ntt, params: CKKSParams, ctx: Context,
@@ -406,39 +416,41 @@ def ct_diag_fan(
     plaintext stack against that stack (R digits, two outputs); per set,
     the gathered c0 stack against the plaintext stack's q rows (one
     output); and per set with a zero-offset diagonal, c0 and c1 times it.
+    Span `fan`.
     """
     if len(ct.c) != 2:
         raise ValueError("ct_diag_fan takes a 2-component ciphertext")
-    level = ct.level
-    r_count = len(offsets)
-    qp = qp_indices(params, level)
-    ksc = make_ks_context(params, level, device=ctx.device)
-    raised = hoist(ct.c[1], params, level, ctx, ksc)
-    exps = [gckks.galois_exponent(s, params.n) for s in offsets]
-    t = torch.empty((2, r_count, len(qp), params.n), dtype=torch.int64, device=ctx.device)
-    for j, (s, g) in enumerate(zip(offsets, exps)):
-        gadget_mac(raised, params, level, ctx, gks[s], perm=galois_perm(g, ctx, torch.int32),
-                   out=t[:, j])
-    c0, c1 = ct.c[0].contiguous(), ct.c[1].contiguous()
-    c0g = torch.stack([c0[:, galois_perm(g, ctx)] for g in exps])
-    rows_qp = ctx.index(range(len(qp)), torch.int32)
-    chain_qp = ctx.index(qp, torch.int32)
-    rows_q = ctx.index(range(level), torch.int32)
-    q = ctx.col("q", range(level))
-    outs = []
-    for pts, pt0 in zip(pt_stacks, pt0s):
-        acc = mac(pts, t[0], t[1], rows_qp, chain_qp, ctx)
-        down = ks_finish(acc, params, level, ctx, ksc, eval_out=False)
-        e = [mac(c0g, pts, None, rows_q, rows_q, ctx)[0]]
-        if pt0 is not None:
-            p0 = mac(pt0[:level][None], c0[None], c1[None], rows_q, rows_q, ctx)
-            e = [add_mod(e[0], p0[0], q), p0[1]]
-        e_coeff = ntt_inv(torch.stack(e), ctx, limbs=range(level))
-        cc = torch.stack([add_mod(down[i], e_coeff[i], q) if i < len(e) else down[i]
-                          for i in range(2)])
-        cc, lvl, scale = _rescale_chain(cc, params, level, ctx, ct.scale * pt_scale)
-        outs.append(Ciphertext(list(ntt_fwd(cc, ctx, limbs=range(lvl))), lvl, scale))
-    return outs
+    with stage("fan"):
+        level = ct.level
+        r_count = len(offsets)
+        qp = qp_indices(params, level)
+        ksc = make_ks_context(params, level, device=ctx.device)
+        raised = hoist(ct.c[1], params, level, ctx, ksc)
+        exps = [gckks.galois_exponent(s, params.n) for s in offsets]
+        t = torch.empty((2, r_count, len(qp), params.n), dtype=torch.int64, device=ctx.device)
+        for j, (s, g) in enumerate(zip(offsets, exps)):
+            gadget_mac(raised, params, level, ctx, gks[s], perm=galois_perm(g, ctx, torch.int32),
+                       out=t[:, j])
+        c0, c1 = ct.c[0].contiguous(), ct.c[1].contiguous()
+        c0g = torch.stack([c0[:, galois_perm(g, ctx)] for g in exps])
+        rows_qp = ctx.index(range(len(qp)), torch.int32)
+        chain_qp = ctx.index(qp, torch.int32)
+        rows_q = ctx.index(range(level), torch.int32)
+        q = ctx.col("q", range(level))
+        outs = []
+        for pts, pt0 in zip(pt_stacks, pt0s):
+            acc = mac(pts, t[0], t[1], rows_qp, chain_qp, ctx)
+            down = ks_finish(acc, params, level, ctx, ksc, eval_out=False)
+            e = [mac(c0g, pts, None, rows_q, rows_q, ctx)[0]]
+            if pt0 is not None:
+                p0 = mac(pt0[:level][None], c0[None], c1[None], rows_q, rows_q, ctx)
+                e = [add_mod(e[0], p0[0], q), p0[1]]
+            e_coeff = ntt_inv(torch.stack(e), ctx, limbs=range(level))
+            cc = torch.stack([add_mod(down[i], e_coeff[i], q) if i < len(e) else down[i]
+                              for i in range(2)])
+            cc, lvl, scale = _rescale_chain(cc, params, level, ctx, ct.scale * pt_scale)
+            outs.append(Ciphertext(list(ntt_fwd(cc, ctx, limbs=range(lvl))), lvl, scale))
+        return outs
 
 
 # ---------------------------------------------------------------------------

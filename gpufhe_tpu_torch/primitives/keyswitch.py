@@ -24,6 +24,7 @@ from gpufhe_tpu_torch.ops.mac_cuda import mac
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.rns import KSContext, mod_down, mod_up
+from gpufhe_tpu_torch.utils.profiling import stage
 
 
 def qp_indices(params: CKKSParams, level: int) -> list[int]:
@@ -48,30 +49,34 @@ def gadget_mac(raised: torch.Tensor, params: CKKSParams, level: int, ctx: Contex
     """Inner products of the raised digits int64[D, K+alpha, N] (NTT domain)
     with both components of the gadget key: one K4 launch, int64[2, K+alpha,
     N] (written into `out` when given). `perm` gathers the digits'
-    coefficients first (a hoisted rotation's automorphism)."""
-    rows = ctx.index(key_row_index(params, level, ksk.b_mont.shape[1]), torch.int32)
-    chain = ctx.index(qp_indices(params, level), torch.int32)
-    return mac(raised, ksk.b_mont, ksk.a_mont, rows, chain, ctx, perm, out)
+    coefficients first (a hoisted rotation's automorphism). Span `ks.inner`:
+    one key applied."""
+    with stage("ks.inner"):
+        rows = ctx.index(key_row_index(params, level, ksk.b_mont.shape[1]), torch.int32)
+        chain = ctx.index(qp_indices(params, level), torch.int32)
+        return mac(raised, ksk.b_mont, ksk.a_mont, rows, chain, ctx, perm, out)
 
 
 def hoist(d2: torch.Tensor, params: CKKSParams, level: int, ctx: Context, ksc: KSContext,
           eval_in: bool = True) -> torch.Tensor:
     """Stages 1-2 and the NTT of 3: the raised digits int64[D, K+alpha, N]
     (NTT domain over the active Q+P basis) of one polynomial int64[K, N].
-    A hoisted rotation computes them once for every step."""
-    d2_coeff = ntt_inv(d2, ctx, limbs=range(level)) if eval_in else d2
-    raised = torch.stack(mod_up(d2_coeff, params, level, ctx, ksc))
-    return ntt_fwd(raised, ctx, limbs=qp_indices(params, level))
+    A hoisted rotation computes them once for every step. Span `ks.mod_up`."""
+    with stage("ks.mod_up"):
+        d2_coeff = ntt_inv(d2, ctx, limbs=range(level)) if eval_in else d2
+        raised = torch.stack(mod_up(d2_coeff, params, level, ctx, ksc))
+        return ntt_fwd(raised, ctx, limbs=qp_indices(params, level))
 
 
 def ks_finish(acc: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
               ksc: KSContext, eval_out: bool = True) -> torch.Tensor:
     """Stage 4: iNTT both accumulators int64[2, K+alpha, N] (one batched
     transform), ModDown by P, and NTT back (one batched transform) unless
-    eval_out is False. Returns int64[2, K, N]."""
-    coeff = ntt_inv(acc, ctx, limbs=qp_indices(params, level))
-    down = torch.stack([mod_down(c, params, level, ctx, ksc) for c in coeff])
-    return ntt_fwd(down, ctx, limbs=range(level)) if eval_out else down
+    eval_out is False. Returns int64[2, K, N]. Span `ks.mod_down`."""
+    with stage("ks.mod_down"):
+        coeff = ntt_inv(acc, ctx, limbs=qp_indices(params, level))
+        down = torch.stack([mod_down(c, params, level, ctx, ksc) for c in coeff])
+        return ntt_fwd(down, ctx, limbs=range(level)) if eval_out else down
 
 
 def key_switch_core(
