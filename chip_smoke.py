@@ -5,7 +5,9 @@
 
 Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
 against its plain PyTorch version on the card: K1 (NTT), K3 (base
-conversion), K4 (key-switch MAC), and the two probes, the integer rate (P2)
+conversion), K4 (key-switch MAC), the rescale kernel (rescale_kernel_run,
+which also times it alone at the benchmark cells' shapes), and the two
+probes, the integer rate (P2)
 and the K1 ablation builds (P1), and K1's pass entry point (ntt_pass, the
 distributed four-step's stage, `mesh_kernels`). Then it drives the paths
 below through the package's entry points, each with the launch counts set
@@ -406,6 +408,13 @@ def or_null(ms: float) -> float | None:
     return None if math.isnan(ms) else ms
 
 
+def kernel_missing(per: dict) -> bool:
+    """Whether K1, K3 or K4 made no launch in `per` (launches by kernel). The
+    rescale kernel runs only where a path rescales, and is counted where it
+    must run."""
+    return min(per[k] for k in ("ntt", "convert", "mac")) <= 0
+
+
 def exact(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
     """Max |a - b|; raises unless the two are equal element for element."""
     if a.is_cuda or b.is_cuda:
@@ -574,7 +583,7 @@ def boot_ci_path(dev, counts, reset, launches: dict):
     err = decode_err(be.decrypt_decode(out), z, params.slots, "boot_ci bootstrap", BOOT_TOL)
     launches["boot_ci"] = counts()
     for name, per in per_phase.items():
-        if min(per.values()) <= 0:
+        if kernel_missing(per):
             raise AssertionError(f"boot_ci phase {name}: a kernel did not run ({per})")
     say("boot_ci_path", f"keygen ({len(bootstrap_rotations(params, 'factored', BOOT_RADIX))} Galois keys, conj, eph h="
         f"{params.eph_hamming_weight}), Bootstrapper(factored, radix {BOOT_RADIX}, cheb, k_bound "
@@ -724,7 +733,7 @@ def boot_path(dev, smi, counts, reset, launches: dict, ctx_cpu) -> dict:
     mark_peak("first call")
     errs = [decode_err(be.decrypt_decode(out), z, params.slots, "boot first call", BOOT_TOL)]
     for name, per in per_phase.items():
-        if min(per.values()) <= 0:
+        if kernel_missing(per):
             raise AssertionError(f"boot phase {name}: a kernel did not run ({per})")
     say("boot_first", f"first call {first_s:.3f} s, {first_misses} host encodes; output level "
         f"{out.level}, scale 2^{math.log2(out.scale):.6f}; max |dec - z| = {errs[0]!r} < "
@@ -1232,15 +1241,21 @@ class OpLog:
         self.launches[name] = {k: v - before[k] for k, v in self.counts().items()}
         return out
 
-    def check(self, path: str, k4: dict) -> None:
-        """Every kernel ran on the path; K4 ran as often as each op in k4 needs."""
+    def check(self, path: str, k4: dict, rescales: dict) -> None:
+        """K1, K3 and K4 ran on the path; K4 ran as often as each op in k4
+        needs, and the rescale kernel as often as each op in rescales (every
+        op of the log named there)."""
         total = {k: sum(p[k] for p in self.launches.values()) for k in self.counts()}
-        if min(total.values()) <= 0:
+        if kernel_missing(total):
             raise AssertionError(f"{path}: a kernel did not run ({total})")
-        for name, want in k4.items():
-            if self.launches[name]["mac"] != want:
-                raise AssertionError(f"{path} {name}: K4 launched "
-                                     f"{self.launches[name]['mac']} times, not {want}")
+        for key, wants in (("mac", k4), ("rescale", rescales)):
+            for name, want in wants.items():
+                if self.launches[name][key] != want:
+                    raise AssertionError(f"{path} {name}: {key} launched "
+                                         f"{self.launches[name][key]} times, not {want}")
+        if set(rescales) != set(self.launches):
+            raise AssertionError(f"{path}: rescale launches given for {sorted(rescales)}, not "
+                                 f"for each op {sorted(self.launches)}")
 
 
 def exact_slots(got: np.ndarray, want: np.ndarray, what: str) -> int:
@@ -1561,7 +1576,7 @@ def golden_vectors(dev, smi, counts, reset, launches: dict) -> None:
         print(f"golden_vectors {name}: {r['arrays']} arrays, {r['limbs']} limbs == the stored "
               f"vector at N={r['n']} ({time.perf_counter() - t1:.2f} s)  [{smi}]", flush=True)
     launches["golden_vectors"] = counts()
-    if min(launches["golden_vectors"].values()) <= 0:
+    if kernel_missing(launches["golden_vectors"]):
         raise AssertionError(f"golden_vectors: a kernel did not run ({launches['golden_vectors']})")
     say("golden_vectors", f"the card == {sum(r['arrays'] for r in done.values())} stored arrays "
         f"({sum(r['limbs'] for r in done.values())} limbs) of {', '.join(done)}; launches "
@@ -1821,7 +1836,10 @@ def bgv_path(dev, smi, counts, reset, launches) -> dict:
     if levels != [params.num_limbs - i for i in (1, 2, 3)]:
         raise AssertionError(f"three squarings went through levels {levels}")
     log.check("bgv", {"ct_mul a*b": 1, "square 1": 1, "ct_mul_plain": 1, "ct_add": 0,
-                      "ct_rotate 1": 1, hoisted: len(INT_ROTATIONS)})
+                      "ct_rotate 1": 1, hoisted: len(INT_ROTATIONS)},
+              # one ModSwitch a multiply, one launch each
+              {**{f"square {i}": 1 for i in (1, 2, 3)}, "ct_mul a*b": 1, "ct_mul_plain": 0,
+               "ct_add": 0, "ct_rotate 1": 0, hoisted: 0})
     say("bgv_path", f"at {INT_PRESET} (N={n}, L={params.num_limbs}, t={tm}): keygen (rlk, "
         f"Galois {INT_ROTATIONS}) {keygen_s:.2f} s; host encode x2 and slot permutations "
         f"{host_s:.2f} s; encrypt x2, {', '.join(log.outs)} {ops_s:.2f} s; {slots} slots "
@@ -1894,7 +1912,10 @@ def bfv_path(dev, smi, counts, reset, launches, bgv: dict) -> dict:
     if [log.outs[f"square {i}"][0].level for i in (1, 2, 3)] != [params.num_limbs] * 3:
         raise AssertionError("a BFV multiply changed the level")
     log.check("bfv", {"ct_mul a*b": 1, "square 1": 1, "ct_mod_reduce": 0, "ct_add_plain": 0,
-                      "ct_rotate 1": 1})
+                      "ct_rotate 1": 1},
+              # the multiply keeps its level; ct_mod_reduce drops one limb
+              {**{f"square {i}": 0 for i in (1, 2, 3)}, "ct_mul a*b": 0, "ct_mod_reduce": 1,
+               "ct_add_plain": 0, "ct_rotate 1": 0})
     say("bfv_path", f"at {INT_PRESET}: keygen (rlk, Galois (1,)) {keygen_s:.2f} s; encrypt "
         f"x2, {', '.join(log.outs)} {ops_s:.2f} s; bgv_to_bfv and bfv_to_bgv of the BGV "
         f"square (pt_factor {sq.pt_factor}, message factor {factor}, then pt_factor "
@@ -1979,7 +2000,7 @@ def int_ci(dev, smi, counts, reset, launches):
     reset()
     card = {scheme: int_ci_ops(scheme, dev) for scheme in ("bgv", "bfv")}
     launches["int_ci"] = counts()
-    if min(launches["int_ci"].values()) <= 0:
+    if kernel_missing(launches["int_ci"]):
         raise AssertionError(f"int_ci: a kernel did not run ({launches['int_ci']})")
     done = "; ".join(f"{scheme}: {', '.join(ops)}" for scheme, ops in card.items())
     say("int_ci", f"on the card, {done}; launches {launches['int_ci']}  [{smi}]", t)
@@ -2704,7 +2725,7 @@ def models_ci(dev, smi, counts, reset, launches: dict) -> tuple:
     for name, per in per_item.items():
         if per["ntt"] <= 0:
             raise AssertionError(f"models_ci {name}: K1 did not run ({per})")
-    if min(launches["models_ci"].values()) <= 0:
+    if kernel_missing(launches["models_ci"]):
         raise AssertionError(f"models_ci: a kernel did not run ({launches['models_ci']})")
     say("models_ci", "on the card: " + "; ".join(
         f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v} values exact"
@@ -2785,7 +2806,7 @@ def session_ckks(dev, smi, counts, reset, launches: dict, times: dict) -> dict:
         tol = SESSION_ROT_TOL if name == "rotate" else DECODE_TOL
         errs[name] = decode_err(got, want, slots, f"session {name}", tol)
     launches["session_ckks"] = counts()
-    if min(launches["session_ckks"].values()) <= 0:
+    if kernel_missing(launches["session_ckks"]):
         raise AssertionError(f"session_ckks: a kernel did not run ({launches['session_ckks']})")
     say("session_ckks", f"Session.create({PRESET!r}, rotations=(1,), seed={SEED}) {create_s:.2f} "
         f"s, encrypt {encrypt_s:.3f} s, decrypt {np.median(decrypt_s):.3f} s (median); max |dec "
@@ -2895,7 +2916,7 @@ def session_io(dev, smi, counts, reset, launches: dict, sess: dict, job: dict) -
     prod = r.mul(ca2, cb2)
     same_limbs(prod, sess["prod"], "the loaded session's mul")
     launches["session_io"] = counts()
-    if min(launches["session_io"].values()) <= 0:
+    if kernel_missing(launches["session_io"]):
         raise AssertionError(f"session_io: a kernel did not run ({launches['session_io']})")
     say("session_io", "save / load " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
         + f" (the saves in a background thread beside deep_mlp, mlp_n15, models_ci, "
@@ -2938,7 +2959,7 @@ def session_bfv(dev, smi, counts, reset, launches: dict) -> dict:
     if s.level(outs["mul"]) != s.level(ca):
         raise AssertionError("session_bfv: the BFV multiply changed the level")
     launches["session_bfv"] = counts()
-    if min(launches["session_bfv"].values()) <= 0:
+    if kernel_missing(launches["session_bfv"]):
         raise AssertionError(f"session_bfv: a kernel did not run ({launches['session_bfv']})")
     say("session_bfv", f"Session.create({INT_PRESET!r}, scheme='bfv', rotations=(1,)) "
         f"{create_s:.2f} s; encrypt, mul, add, rotate 1 each exact in "
@@ -3029,7 +3050,7 @@ def session_ci(dev, smi, counts, reset, launches: dict) -> tuple:
     reset()
     outs, errs, per_item = session_ci_run(dev, counts)
     launches["session_ci"] = counts()
-    if min(launches["session_ci"].values()) <= 0:
+    if kernel_missing(launches["session_ci"]):
         raise AssertionError(f"session_ci: a kernel did not run ({launches['session_ci']})")
     say("session_ci", "on the card: " + "; ".join(
         f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v} slots exact"
@@ -3537,6 +3558,88 @@ def mesh_ci(dev, smi, counts, reset, launches: dict, cpu: dict) -> None:
         f"{per}", t)
 
 
+RESCALE_NAME = r"rescale_kernel<[^>]*>"
+
+
+def rescale_kernel_run(dev, smi) -> dict:
+    """The rescale kernel (csrc/rescale.cu) == its plain versions (rns
+    _rescale_plain, _modswitch_plain, one call a dropped limb) at the paths'
+    shapes, in each of its three instances: config5_boot_dw's double-word
+    rescale of both components at the multiply's levels 48 .. 34 (dw), its
+    one-limb rescale at the refresh's EvalMod levels 38 .. 25 (backend.rescale,
+    one drop a word) and PRESET's at its multiply levels 30 .. 26 (ckks), and
+    the BGV ModSwitch at INT_PRESET's levels 30 .. 26 (bgv); each with the
+    largest residues (q - 1) in one column and the centred lift's tie (q_l //
+    2, q_l // 2 + 1; for BGV through [-t^-1]) in two, on a leading-K view of
+    a larger stack and at K = words + 1. Then each instance's top shape timed
+    alone: CUDA events, the profiler's kernel time, the plain version, and the
+    bound by bytes (each input residue read once and each output written
+    once, at 4 B a residue as every bound of the kernels line counts them;
+    the bytes the int64 interface moves, 8 B a residue, beside it)."""
+    from gpufhe_tpu_torch.ops import probes, rescale_cuda
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+    from gpufhe_tpu_torch.primitives import rns
+
+    rng = np.random.default_rng(SEED)
+    # the instance: (preset, limbs dropped a launch, [levels checked], the level timed)
+    chains = {"dw": (DW_PRESET, 2, [*range(48, 33, -2)], 48),
+              "ckks": (DW_PRESET, 1, [*range(38, 24, -1)], 38),
+              "bgv": (INT_PRESET, 1, [*range(30, 25, -1)], 30)}
+
+    def data(params, level, limbs):
+        q = np.asarray(params.q_primes[:limbs], dtype=np.int64)[:, None]
+        x = rng.integers(0, q, size=(2, limbs, params.n), dtype=np.int64)
+        x[..., 0] = q[:, 0] - 1
+        t, q_l = params.plain_modulus, params.q_primes[level - 1]
+        for col, want in ((1, q_l // 2), (2, q_l // 2 + 1)):
+            x[:, level - 1, col] = want * (-t) % q_l if t else want
+        return torch.from_numpy(x).to(dev)
+
+    def kernel(x, params, level, words):
+        tabs = [rns.make_ks_context(params, level - d, device=dev).drop for d in range(words)]
+        return rescale_cuda.drop_limbs(x, level, tabs, bool(params.plain_modulus))
+
+    def plain(x, params, level, words):
+        c = make_context(params, device=dev)
+        body = rns._modswitch_plain if params.plain_modulus else rns._rescale_plain
+        for d in range(words):
+            x = body(x, params, level - d, c, rns.make_ks_context(params, level - d, device=dev))
+        return x
+
+    checked = []
+    cases = [(tag, name, words, levels) for tag, (name, words, levels, _) in chains.items()]
+    cases.append(("ckks", PRESET, 1, [*range(30, 25, -1)]))
+    for tag, name, words, levels in cases:
+        params = preset(name)
+        top = params.num_limbs
+        # each level with its own limbs; a leading-K view; the edge
+        for level, limbs in [(lv, lv) for lv in levels] + [(top - words, top),
+                                                          (words + 1, words + 1)]:
+            x = data(params, level, limbs)
+            exact(kernel(x, params, level, words), plain(x, params, level, words),
+                  f"rescale kernel {tag} at {name} level {level} of {limbs} limbs")
+            checked.append(f"{tag} {name} {level}/{limbs}")
+    timing = {}
+    for tag, (name, words, _, level) in chains.items():
+        params = preset(name)
+        x = data(params, level, level)
+        residues = x.shape[0] * (2 * level - words) * params.n
+        row = {"shape": [x.shape[0], level, params.n], "words": words,
+               "ms": probes.cuda_ms(lambda: kernel(x, params, level, words), iters=50),
+               "plain_ms": probes.cuda_ms(lambda: plain(x, params, level, words), iters=10),
+               "bound_ms": 4 * residues / HBM_BYTES_PER_S * 1e3,
+               "int64_bytes_ms": 8 * residues / HBM_BYTES_PER_S * 1e3}
+        row["device_ms"], _ = kernel_ms(lambda: kernel(x, params, level, words), RESCALE_NAME)
+        timing[tag] = row
+        print(f"rescale kernel {tag} [2, {level}, 2^{params.n.bit_length() - 1}] drop {words}: "
+              f"events {row['ms']:.4f} ms, device {row['device_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f} ({4 * residues / 1e6:.1f} MB at 4 B a residue; the "
+              f"int64 interface's {8 * residues / 1e6:.1f} MB {row['int64_bytes_ms']:.4f}), "
+              f"plain {row['plain_ms']:.4f} ms  [{smi}]", flush=True)
+    return {"checked": checked, "timing": timing}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -3544,7 +3647,8 @@ def main() -> None:
     from gpufhe_tpu_torch.encoding import encoder
     from gpufhe_tpu_torch.golden import ckks as gckks
     from gpufhe_tpu_torch.keys import keys as dkeys
-    from gpufhe_tpu_torch.ops import convert_cuda, cuda_build, mac_cuda, ntt_cuda, probes
+    from gpufhe_tpu_torch.ops import (convert_cuda, cuda_build, mac_cuda, ntt_cuda, probes,
+                                      rescale_cuda)
     from gpufhe_tpu_torch.ops.context import make_context
     from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
     from gpufhe_tpu_torch.params.params import preset
@@ -3557,7 +3661,8 @@ def main() -> None:
     # start (CpuTwins); the checks against them are deferred to
     # join_cpu_twins, near the end of the run
     twins, ci_twins, gold_twins = CpuTwins("n16"), CpuTwins("ci"), CpuTwins("golden")
-    kernels = {"ntt": ntt_cuda.KERNEL, "convert": convert_cuda.KERNEL, "mac": mac_cuda.KERNEL}
+    kernels = {"ntt": ntt_cuda.KERNEL, "convert": convert_cuda.KERNEL, "mac": mac_cuda.KERNEL,
+               "rescale": rescale_cuda.KERNEL}
 
     def reset() -> None:
         for k in (*kernels.values(), ntt_cuda.PASS_KERNEL):
@@ -3714,6 +3819,11 @@ def main() -> None:
     mac_inputs = {"mul": mac_cases[f"D=2 T={qp}"], "dw": mac_cases[f"D=5 T={qp_dw}"]}
     say("mac_vs_plain", "== at " + "; ".join(mac_cases), t)
 
+    # 5a. the rescale kernel against its plain versions, and timed alone
+    t = time.perf_counter()
+    resc = rescale_kernel_run(dev, smi)
+    say("rescale_vs_plain", "== at (chain level/limbs) " + ", ".join(resc["checked"]), t)
+
     # 6. P1: K1 and its ablation builds at the 45-limb forward shape; the
     #    copy_only build == its plain version (two bit-reversed transposes),
     #    the natural_store build (the unpadded exchange tile) and the
@@ -3771,8 +3881,9 @@ def main() -> None:
     say("mul_path", f"keygen (rlk, Galois {ROTATIONS}, conj), encode, encrypt x2, ct_mul_full, "
         f"decrypt_decode at {PRESET}; launches {launches['mul']}, per ct_mul_full {per_mul}", t)
     err = decode_err(got, za * zb, params.slots, "ct_mul_full")
-    if min(per_mul.values()) <= 0:
-        raise AssertionError(f"a kernel did not run inside ct_mul_full: {per_mul}")
+    if kernel_missing(per_mul) or per_mul["rescale"] != 1:
+        raise AssertionError(f"ct_mul_full: a kernel did not run, or the rescale kernel not "
+                             f"once: {per_mul}")
 
     # 8. path "dw": the config5_boot_dw multiply
     da, db = dw_inputs(dw)
@@ -3788,8 +3899,9 @@ def main() -> None:
         f"ct_mul_full {per_dw}", t)
     ctx_dw_cpu = make_context(dw, device="cpu")
     err_dw = decode_err(got_dw, da * db, dw.slots, "dw ct_mul_full")
-    if min(per_dw.values()) <= 0:
-        raise AssertionError(f"a kernel did not run inside the dw ct_mul_full: {per_dw}")
+    if kernel_missing(per_dw) or per_dw["rescale"] != 1:  # both limbs in one launch
+        raise AssertionError(f"dw ct_mul_full: a kernel did not run, or the rescale kernel not "
+                             f"once: {per_dw}")
 
     # 9. path "rotate" at config5_boot, on the mul path's keys: three fresh
     #    ciphertexts at 2^ROT_SCALE_BITS and three plaintexts at the preset's scale
@@ -4187,6 +4299,18 @@ def main() -> None:
                      for k, v in mesh_rows.items() if v},
         "mesh_n16": n16,
     })
+    # the rescale kernel: its launches on the paths; the dw instance timed
+    # alone at the top of the mul8 cell, each instance in "shapes"
+    r = resc["timing"]["dw"]
+    rows.append({
+        "name": "rescale", "route": "cuda", "source": "gpufhe_tpu_torch/csrc/rescale.cu",
+        "replaces": None, "launches": total["rescale"], "launches_by_path": by_path["rescale"],
+        "max_abs_err": 0, "ms": r["ms"], "device_ms": or_null(r["device_ms"]),
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "shapes": {tag: {**v, "device_ms": or_null(v["device_ms"])}
+                   for tag, v in resc["timing"].items()},
+    })
     for mix in probes.MIXES:
         r, err, plain, n_launch = rate_rows[mix]
         ops = r["blocks"] * probes.THREADS * probes.CHAINS * r["depth"] * (2 if mix == "muladd" else 1)
@@ -4208,7 +4332,8 @@ def main() -> None:
     print(f"# launches per path {launches}; ms: CUDA events per call (the host's launch "
           f"included), as in earlier runs; device_ms: the profiler's kernel time per call (no "
           f"host time; null for the int_rate probe, whose ms is its own event timing); shapes: "
-          f"ntt_fourstep fwd {qp} x 2^{log_n}; base_convert ModUp {s_up}->{t_up}; key_switch_mac D=2 T={qp}; bounds with modular "
+          f"ntt_fourstep fwd {qp} x 2^{log_n}; base_convert ModUp {s_up}->{t_up}; key_switch_mac D=2 T={qp}; rescale [2, 48, 2^16] "
+          f"dropping 2 limbs (its other instances in its shapes); bounds with modular "
           f"products at the shoup32 rate measured here; int_rate "
           f"{probes.CHAINS} chains x {rate_rows['modmul'][0]['depth']} steps per thread (bound: "
           f"one op per modular product, two per multiply-add, at {int_peak / 1e12:.2f} T/s: "

@@ -10,8 +10,9 @@ same path under the other package:
                every CKKS, BGV and BFV ciphertext op, the exact NTT (in C
                by golden/native.py), RNS helpers, the known-answer vectors
   ops/         int64 modular arithmetic, device tables, the negacyclic NTT
-               (kernel K1, csrc/ntt.cu) and the RNS base conversion
-               (kernel K3, csrc/convert.cu)
+               (kernel K1, csrc/ntt.cu), the RNS base conversion (kernel K3,
+               csrc/convert.cu), the key-switch MAC (K4, csrc/mac.cu) and
+               the rescale (csrc/rescale.cu)
   primitives/  ModUp / ModDown (t-corrected for BGV) / rescale / BGV
                ModSwitch, hybrid key switching
   keys/        Montgomery-form device keys and the key chest

@@ -37,7 +37,7 @@ from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.keyswitch import (gadget_mac, hoist, key_switch_core, ks_finish,
                                                    qp_indices)
-from gpufhe_tpu_torch.primitives.rns import KSContext, make_ks_context, rescale
+from gpufhe_tpu_torch.primitives.rns import KSContext, make_ks_context, rescale, rescale_words
 from gpufhe_tpu_torch.utils.profiling import stage
 
 
@@ -273,14 +273,13 @@ def ct_mul_full(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
 def _rescale_chain(cc: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
                    scale: float) -> tuple[torch.Tensor, int, float]:
     """scale_words rescales of coefficient-domain int64[..., K, N], back to
-    back. Span `rescale`."""
+    back (one kernel launch on the card). Span `rescale`."""
+    words = params.scale_words
     with stage("rescale"):
-        for _ in range(params.scale_words):
-            cc = rescale(cc, params, level, ctx,
-                         make_ks_context(params, level, device=ctx.device))
-            scale = scale / params.q_primes[level - 1]
-            level -= 1
-        return cc, level, scale
+        cc = rescale_words(cc, params, level, words, ctx)
+    for q_last in reversed(params.q_primes[level - words : level]):  # the sequential rounding
+        scale = scale / q_last
+    return cc, level - words, scale
 
 
 def ct_plain_mac(cts: list, pt_monts: list, const_ntt, params: CKKSParams, ctx: Context,

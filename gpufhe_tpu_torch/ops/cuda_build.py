@@ -33,6 +33,7 @@ LIBS = {
     "ntt": ("ntt", ()),
     "convert": ("convert", ()),
     "mac": ("mac", ()),
+    "rescale": ("rescale", ()),
     "int_rate": ("int_rate", ()),
     **{f"ntt_{variant}": ("ntt", (f"-DNTT_ABLATE={k}",))
        for k, variant in enumerate(("no_modmul", "no_twiddle", "copy_only", "natural_store",

@@ -48,7 +48,7 @@ from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.parallel.mesh import FheMesh
 from gpufhe_tpu_torch.primitives.keyswitch import key_row_index, qp_indices
 from gpufhe_tpu_torch.primitives.rns import (bgv_modswitch, ks_groups, make_ks_context, mod_down,
-                                             rescale)
+                                             rescale, rescale_words)
 
 
 def make_fhe_mesh(n_limb: int, n_coeff: int, devices=None) -> FheMesh:
@@ -616,11 +616,7 @@ def make_sharded_fan(params: CKKSParams, level: int, mesh: FheMesh, n_offsets: i
                 e, dn = _flat(e_coeff[i][c]), _flat(down[i][c])
                 cc = torch.stack([add_mod(dn[j], e[j], q) if j < len(e) else dn[j]
                                   for j in range(2)])
-                lvl = level
-                for _ in range(words):
-                    cc = rescale(cc, params, lvl, t_q.ctx(dev), make_ks_context(params, lvl, device=dev))
-                    lvl -= 1
-                return _e3(cc, n2)
+                return _e3(rescale_words(cc, params, level, words, t_q.ctx(dev)), n2)
 
             cc = [[finish(i, c) for c in range(len(row))] for i, row in enumerate(c0)]
             t_out, = _tables(params, mesh, range(level - words))

@@ -7,7 +7,9 @@ source count, which mod_up and mod_down launch), and the rescale and
 ModSwitch use the same centered lift of the dropped limb. base_convert is the
 reference's public conversion from its Montgomery tables, on the plain
 modular ops. Polynomials are int64[K, N] in the coefficient domain;
-rescale and bgv_modswitch also take leading batch axes.
+rescale, rescale_words and bgv_modswitch also take leading batch axes, and
+on a CUDA tensor launch the rescale kernel (ops/rescale_cuda.py) once, for
+every limb they drop; on a CPU tensor they run their plain int64 version.
 
 For BGV parameters (plain_modulus t > 0) the key switch's ModDown must
 divide by P with a correction that is 0 mod t. make_ks_context folds it into
@@ -27,7 +29,7 @@ import torch
 
 from gpufhe_tpu_torch.golden import rns as grns
 from gpufhe_tpu_torch.ops.context import Context
-from gpufhe_tpu_torch.ops import convert_cuda
+from gpufhe_tpu_torch.ops import convert_cuda, rescale_cuda
 from gpufhe_tpu_torch.ops.convert_cuda import ConvertTables, make_convert_tables
 from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, sub_mod
 from gpufhe_tpu_torch.params.params import CKKSParams
@@ -51,11 +53,10 @@ class KSContext:
     modup: tuple[ConvertTables, ...]
     p2q: ConvertTables  # ModDown: P basis -> active Q basis
     pinv: torch.Tensor  # int64[K]   [P^-1]_{q_i}
-    qlast_mod: torch.Tensor  # int64[K-1] q_last mod q_i
-    qlast_inv: torch.Tensor  # int64[K-1] [q_last^-1]_{q_i}
-    # BGV ModSwitch (zeros for CKKS parameters), canonical
-    bgv_negtinv: torch.Tensor  # int64[1]   [-t^-1]_{q_last}
-    bgv_t: torch.Tensor  # int64[K-1] t mod q_i
+    # the rescale and ModSwitch constants of dropping q_last, in the rescale
+    # kernel's layout (ops/rescale_cuda.py make_drop_table; the plain
+    # versions read them through table_rows)
+    drop: torch.Tensor
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,7 +67,6 @@ def make_ks_context(params: CKKSParams, level: int, *, device: str = "cuda") -> 
     qs = params.q_primes[:level]
     ps = params.p_primes
     big_p = math.prod(ps)
-    q_last = qs[-1]
 
     def dev(v):
         return torch.tensor(v, dtype=torch.int64, device=device)
@@ -85,10 +85,7 @@ def make_ks_context(params: CKKSParams, level: int, *, device: str = "cuda") -> 
         ),
         p2q=p2q,
         pinv=dev([pow(big_p, -1, q) for q in qs]),
-        qlast_mod=dev([q_last % q for q in qs[:-1]]),
-        qlast_inv=dev([pow(q_last, -1, q) for q in qs[:-1]]),
-        bgv_negtinv=dev([-pow(t, -1, q_last) % q_last if t else 0]),
-        bgv_t=dev([t % q for q in qs[:-1]]),
+        drop=rescale_cuda.make_drop_table(qs, t, device),
     )
 
 
@@ -139,14 +136,35 @@ def rescale(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
 
     (x - centered([x]_{q_last})) / q_last on every remaining limb.
     """
+    if x_coeff.device.type != "cpu":
+        return rescale_cuda.drop_limbs(x_coeff, level, (ksc.drop,), bgv=False)
+    return _rescale_plain(x_coeff, params, level, ctx, ksc)
+
+
+def rescale_words(x_coeff: torch.Tensor, params: CKKSParams, level: int, words: int,
+                  ctx: Context) -> torch.Tensor:
+    """`words` rescales back to back (a double-word scale drops a limb pair):
+    int64[..., K, N] -> int64[..., K-words, N], equal to `words` calls of
+    rescale; one kernel launch on the card."""
+    kscs = [make_ks_context(params, level - d, device=ctx.device) for d in range(words)]
+    if x_coeff.device.type != "cpu":
+        return rescale_cuda.drop_limbs(x_coeff, level, [k.drop for k in kscs], bgv=False)
+    for d, ksc in enumerate(kscs):
+        x_coeff = _rescale_plain(x_coeff, params, level - d, ctx, ksc)
+    return x_coeff
+
+
+def _rescale_plain(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
+                   ksc: KSContext) -> torch.Tensor:
     k = level
     q_last = params.q_primes[k - 1]
     q = ctx.col("q", range(k - 1))
+    c = rescale_cuda.table_rows(ksc.drop)
     last = x_coeff[..., k - 1 : k, :]
     r = torch.remainder(last, q)  # [x]_{q_last} mod q_i
-    lifted = torch.where(last > q_last // 2, sub_mod(r, ksc.qlast_mod[:, None], q), r)
+    lifted = torch.where(last > q_last // 2, sub_mod(r, c["ql_mod"][:, None], q), r)
     diff = sub_mod(x_coeff[..., : k - 1, :], lifted, q)
-    return torch.remainder(diff * ksc.qlast_inv[:, None], q)
+    return torch.remainder(diff * c["ql_inv"][:, None], q)
 
 
 def bgv_modswitch(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
@@ -158,12 +176,20 @@ def bgv_modswitch(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Co
     limb, the centered lift by the rescale's rule (u > q_last // 2 lifts to
     u - q_last).
     """
+    if x_coeff.device.type != "cpu":
+        return rescale_cuda.drop_limbs(x_coeff, level, (ksc.drop,), bgv=True)
+    return _modswitch_plain(x_coeff, params, level, ctx, ksc)
+
+
+def _modswitch_plain(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
+                     ksc: KSContext) -> torch.Tensor:
     k = level
     q_last = params.q_primes[k - 1]
     q = ctx.col("q", range(k - 1))
-    u = torch.remainder(x_coeff[..., k - 1 : k, :] * ksc.bgv_negtinv, q_last)
+    c = rescale_cuda.table_rows(ksc.drop)
+    u = torch.remainder(x_coeff[..., k - 1 : k, :] * c["negtinv"], q_last)
     r = torch.remainder(u, q)
-    lifted = torch.where(u > q_last // 2, sub_mod(r, ksc.qlast_mod[:, None], q), r)
+    lifted = torch.where(u > q_last // 2, sub_mod(r, c["ql_mod"][:, None], q), r)
     summed = add_mod(x_coeff[..., : k - 1, :],
-                     torch.remainder(lifted * ksc.bgv_t[:, None], q), q)
-    return torch.remainder(summed * ksc.qlast_inv[:, None], q)
+                     torch.remainder(lifted * c["t"][:, None], q), q)
+    return torch.remainder(summed * c["ql_inv"][:, None], q)

@@ -37,6 +37,7 @@ from gpufhe_tpu_torch.ciphertext.bfv_backend import BFVDeviceBackend
 from gpufhe_tpu_torch.ciphertext.bgv_backend import BGVDeviceBackend
 from gpufhe_tpu_torch.golden import bfv as gbfv
 from gpufhe_tpu_torch.golden import bgv as gbgv
+from gpufhe_tpu_torch.ops import rescale_cuda
 from gpufhe_tpu_torch.ops.context import make_context
 from gpufhe_tpu_torch.params.params import preset
 from gpufhe_tpu_torch.primitives import rns as prns
@@ -341,4 +342,5 @@ def test_key_switch_tables_are_cached_per_scheme():
     folded = prns.make_ks_context(params, 6, device="cpu")
     assert plain is not folded and not torch.equal(plain.p2q.conv, folded.p2q.conv)
     assert torch.equal(plain.modup[0].conv, folded.modup[0].conv)
-    assert int(plain.bgv_negtinv[0]) == 0 and int(folded.bgv_negtinv[0]) != 0
+    negtinv = [int(rescale_cuda.table_rows(k.drop)["negtinv"][0]) for k in (plain, folded)]
+    assert negtinv[0] == 0 and negtinv[1] != 0

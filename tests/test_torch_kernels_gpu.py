@@ -19,7 +19,7 @@ from gpufhe_tpu_torch.encoding import encoder
 from gpufhe_tpu_torch.keys import device_keygen as dkg
 from gpufhe_tpu_torch.keys import keys as dkeys
 from gpufhe_tpu_torch.keys import prng
-from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda, probes
+from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda, probes, rescale_cuda
 from gpufhe_tpu_torch.ops.context import make_context
 from gpufhe_tpu_torch.ops.convert_cuda import make_convert_tables
 from gpufhe_tpu_torch.params.params import gen_ntt_primes, is_prime, preset
@@ -93,9 +93,11 @@ def test_convert_kernel_raises_its_refusal(cuda_device):
     assert convert_cuda.KERNEL.launches == before
 
 
-def test_mul_full_on_card_equals_cpu_path(cuda_device):
-    """ci_small end to end: the card's limbs equal the CPU path's."""
-    params = preset("ci_small")
+@pytest.mark.parametrize("name", ["ci_small", "boot_dw_ci"])
+def test_mul_full_on_card_equals_cpu_path(cuda_device, name):
+    """ci_small and the double-word boot_dw_ci end to end: the card's limbs
+    equal the CPU path's."""
+    params = preset(name)
     z = np.random.default_rng(1)
     za = z.normal(size=params.slots) + 1j * z.normal(size=params.slots)
     outs = []
@@ -673,3 +675,101 @@ def test_golden_vector_on_card(cuda_device, name):
     assert got["arrays"] > 0 and got["limbs"] > 0
     launched = [k.launches - b for k, b in zip(kernels, before)]
     assert launched[1] > 0 if name == "config2_rns" else min(launched) > 0, launched
+
+
+def _drop_input(params, level, limbs, seed):
+    """int64[2, limbs, N], canonical: random, the largest residues (q - 1) in
+    column 0, and in columns 1 and 2 the centred lift's tie of the dropped
+    limb level-1 (q_l // 2 and q_l // 2 + 1; for BGV its value times
+    [-t^-1])."""
+    q = np.asarray(params.q_primes[:limbs], dtype=np.int64)[:, None]
+    x = np.random.default_rng(seed).integers(0, q, size=(2, limbs, params.n), dtype=np.int64)
+    x[..., 0] = q[:, 0] - 1
+    t, q_l = params.plain_modulus, params.q_primes[level - 1]
+    for col, want in ((1, q_l // 2), (2, q_l // 2 + 1)):
+        x[:, level - 1, col] = want * (-t) % q_l if t else want
+    return x
+
+
+# the kernel's three instances: the double-word rescale at the mul8 cell's
+# levels (48 .. 34, two limbs a launch); the one-limb CKKS rescale at the
+# refresh's EvalMod levels (config5_boot_dw 38 .. 25, backend.rescale's one
+# drop a word) and at config5_boot's multiply levels (30 .. 26); the BGV
+# ModSwitch at the bgv_mul5 cell's (30 .. 26). Each on a leading-K view of
+# more limbs, and at K = words + 1
+@pytest.mark.parametrize("name,words,level,limbs", [
+    *(("config5_boot_dw", 2, lv, lv) for lv in range(48, 33, -2)),
+    ("config5_boot_dw", 2, 44, 46), ("config5_boot_dw", 2, 3, 3),
+    *(("config5_boot_dw", 1, lv, lv) for lv in range(38, 24, -1)),
+    ("config5_boot_dw", 1, 38, 48),
+    *(("config5_boot", 1, lv, lv) for lv in range(30, 25, -1)),
+    ("config5_boot", 1, 28, 30), ("config5_boot", 1, 2, 2),
+    *(("bfv_n16", 1, lv, lv) for lv in range(30, 25, -1)),
+    ("bfv_n16", 1, 28, 30), ("bfv_n16", 1, 2, 2),
+])
+def test_rescale_kernel_matches_plain(cuda_device, name, words, level, limbs):
+    """The kernel == `words` calls of the plain rescale (ModSwitch where the
+    chain has a plaintext modulus), one launch a call."""
+    params = preset(name)
+    ctx = make_context(params, device=cuda_device)
+    bgv = bool(params.plain_modulus)
+    plain = rns._modswitch_plain if bgv else rns._rescale_plain
+    x = torch.from_numpy(_drop_input(params, level, limbs, level + limbs)).to(cuda_device)
+    kscs = [rns.make_ks_context(params, level - d, device=cuda_device) for d in range(words)]
+    want = x
+    for d, ksc in enumerate(kscs):
+        want = plain(want, params, level - d, ctx, ksc)
+    before = rescale_cuda.KERNEL.launches
+    got = rescale_cuda.drop_limbs(x, level, [k.drop for k in kscs], bgv)
+    assert rescale_cuda.KERNEL.launches == before + 1
+    assert torch.equal(got, want)
+    lead = torch.stack([x, x, x])  # [3, 2, K, N]: the leading axes flattened
+    assert torch.equal(rescale_cuda.drop_limbs(lead, level, [k.drop for k in kscs], bgv),
+                       torch.stack([want, want, want]))
+
+
+def test_rescale_kernel_refuses_bad_input(cuda_device):
+    params = preset("ci_small")
+    tab = rns.make_ks_context(params, 4, device=cuda_device).drop
+    x = torch.zeros((2, 4, params.n), dtype=torch.int64, device=cuda_device)
+    for bad in (x.cpu(), x.int(), x.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            rescale_cuda.drop_limbs(bad, 4, [tab], False)
+    with pytest.raises(ValueError):  # a table of another level
+        rescale_cuda.drop_limbs(x, 3, [tab], False)
+
+
+def test_rescale_kernel_once_per_operation(cuda_device, monkeypatch):
+    """One launch per ct_mul_full (two limbs at boot_dw_ci), per BGV ct_mul
+    and per ct_modswitch; a CUDA tensor never reaches the plain versions."""
+    from gpufhe_tpu_torch.ciphertext import bgv
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain rescale")
+
+    monkeypatch.setattr(rns, "_rescale_plain", refuse)
+    monkeypatch.setattr(rns, "_modswitch_plain", refuse)
+    params = preset("boot_dw_ci")
+    ctx = make_context(params, device=cuda_device)
+    chest = dkeys.keygen(params, np.random.default_rng(2), ctx=ctx)
+    z = np.random.default_rng(1).normal(size=params.slots)
+    ca = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                     np.random.default_rng(3), params.scale)
+    before = rescale_cuda.KERNEL.launches
+    out = dct.ct_mul_full(ca, ca, params, ctx, chest.device_rlk)
+    assert rescale_cuda.KERNEL.launches == before + 1 and out.level == ca.level - 2
+
+    params = preset("bgv_ci")
+    ctx = make_context(params, device=cuda_device)
+    chest = bgv.keygen(params, np.random.default_rng(2), ctx=ctx)
+    zi = np.random.default_rng(4).integers(0, params.plain_modulus, size=params.n)
+    a = bgv.encrypt(gbgv.encode(zi, params), params, chest.device_pk, ctx,
+                    np.random.default_rng(5))
+    before = rescale_cuda.KERNEL.launches
+    prod = bgv.ct_mul(a, a, params, ctx, chest.device_rlk)
+    assert rescale_cuda.KERNEL.launches == before + 1
+    down = bgv.ct_modswitch(prod, params, ctx)
+    assert rescale_cuda.KERNEL.launches == before + 2
+    want = zi * zi % params.plain_modulus
+    assert (bgv.decrypt_decode(down, params, chest.device_sk, ctx) == want).all()

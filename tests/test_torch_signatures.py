@@ -651,8 +651,9 @@ JAX_ONLY = {("ciphertext.backend", "FusedPipeline"), ("ciphertext.ct", "raw_core
             ("primitives.keyswitch", "key_rows"), ("parallel.sharded", "ShardedNTT.spec"),
             ("parallel.sharded", "ShardedKS.spec")}
 # names only the port defines: the cores BGV and BFV share with CKKS, the key
-# switch's stages, the kernels' tables, the golden model's host helpers, the
-# card's bounds, and the bench's lines beyond the reference's bench_mult
+# switch's stages, the rescale of a multi-word scale, the kernels' tables, the
+# golden model's host helpers, the card's bounds, and the bench's lines beyond
+# the reference's bench_mult
 PORT_ONLY = {
     "bench": {"bench_int_mult", "bench_ntt", "bench_bootstrap", "bench_mlp",
               "bench_deep_mlp", "bench_mesh_parity"},
@@ -668,6 +669,7 @@ PORT_ONLY = {
                     "stage_root_exponents"},
     "parallel.sharded": {"mesh_contexts"},
     "primitives.keyswitch": {"gadget_mac", "hoist", "key_row_index", "ks_finish"},
+    "primitives.rns": {"rescale_words"},
     "utils.benchkit": {"Bounds", "measured_bounds"},
 }
 # device tables whose layout the port is free in (ROADMAP, the north star):
