@@ -166,11 +166,13 @@ def rescale_core(cs, ctx: Context, ksc: KSContext, params: CKKSParams, level: in
 
 def galois_core(cs, g: int, ctx: Context, ksc: KSContext, key: DeviceKSKey, params: CKKSParams,
                 level: int) -> tuple:
-    """Automorphism gather of both components, then the key switch of c1."""
-    perm = galois_perm(g, ctx)
-    c0g, c1g = cs[0][:, perm], cs[1][:, perm]
-    ks0, ks1 = key_switch_core(c1g, params, level, ctx, ksc, key)
-    return add_mod(c0g, ks0, ctx.col("q", range(level))), ks1
+    """Automorphism gather of both components, then the key switch of c1.
+    Span `galois`."""
+    with stage("galois"):
+        perm = galois_perm(g, ctx)
+        c0g, c1g = cs[0][:, perm], cs[1][:, perm]
+        ks0, ks1 = key_switch_core(c1g, params, level, ctx, ksc, key)
+        return add_mod(c0g, ks0, ctx.col("q", range(level))), ks1
 
 
 def hoisted_galois_core(raised: torch.Tensor, c0: torch.Tensor, g: int, ctx: Context,
@@ -178,10 +180,12 @@ def hoisted_galois_core(raised: torch.Tensor, c0: torch.Tensor, g: int, ctx: Con
                         level: int) -> tuple:
     """One step of a hoisted rotation from the raised digits (keyswitch.hoist):
     one K4 launch reads them through the automorphism and the key, then
-    iNTT, ModDown, NTT, plus the gathered c0."""
-    acc = gadget_mac(raised, params, level, ctx, key, perm=galois_perm(g, ctx, torch.int32))
-    ks0, ks1 = ks_finish(acc, params, level, ctx, ksc)
-    return add_mod(c0[:, galois_perm(g, ctx)], ks0, ctx.col("q", range(level))), ks1
+    iNTT, ModDown, NTT, plus the gathered c0. Span `galois` (the shared
+    ModUp lies outside it)."""
+    with stage("galois"):
+        acc = gadget_mac(raised, params, level, ctx, key, perm=galois_perm(g, ctx, torch.int32))
+        ks0, ks1 = ks_finish(acc, params, level, ctx, ksc)
+        return add_mod(c0[:, galois_perm(g, ctx)], ks0, ctx.col("q", range(level))), ks1
 
 
 

@@ -12,7 +12,8 @@ ladder (bootstrap.py _evalmod), input error is NOT amplified by 2^r — the
 sine is evaluated directly, so output error ~ input error * ||f'||.
 
 Scale management is ACTIVE: mixed-depth adds are aligned by a one-level
-constant multiply that lands on the exact target scale (`_align_to`), so the
+constant multiply that lands on the exact target scale (`_align_to`, a
+one-term `_mac_to`), so the
 evaluator is robust to prime chains whose q_i drift from 2^scale_bits (the
 N=2^16 regime).
 
@@ -54,16 +55,30 @@ def _rescale_prod(be, from_level: int) -> float:
     return float(be.params.q_primes[from_level - 1])
 
 
+def _mac_to(be, terms: list, scale: float, level: int):
+    """sum c * ct over terms [(ct, c), ...] at exactly (scale, level): each
+    ct dropped to one rescale above `level`, times the constant c at the
+    scale that lands it there, then one rescale (a fused plaintext MAC where
+    the backend has one)."""
+    w = be.params.scale_words
+    pairs = []
+    for ct, c in terms:
+        assert ct.level >= level + w, (ct.level, level)
+        ct = be.drop_to_level(ct, level + w)
+        s_x = scale * _rescale_prod(be, ct.level) / ct.scale
+        pairs.append((ct, be.encode_slots(_ones(be) * c, s_x, ct.level)))
+    if hasattr(be, "plain_mac"):  # fused: one dispatch (bit-exact)
+        return be.plain_mac(pairs)
+    prods = [be.mul_plain(ct, pt) for ct, pt in pairs]
+    acc = prods[0]
+    for p in prods[1:]:
+        acc = be.add(acc, p)
+    return be.rescale(acc)
+
+
 def _align_to(be, ct, scale: float, level: int):
     """Bring ct to exactly (scale, level): one const-multiply + rescale."""
-    w = be.params.scale_words
-    assert ct.level >= level + w, (ct.level, level)
-    ct = be.drop_to_level(ct, level + w)
-    s_x = scale * _rescale_prod(be, ct.level) / ct.scale
-    pt = be.encode_slots(_ones(be), s_x, ct.level)
-    if hasattr(be, "plain_mac"):  # fused: one dispatch (bit-exact)
-        return be.plain_mac([(ct, pt)])
-    return be.rescale(be.mul_plain(ct, pt))
+    return _mac_to(be, [(ct, 1.0)], scale, level)
 
 
 class ChebyshevEvaluator:

@@ -8,7 +8,8 @@ structured wall-clock timer for per-op throughput logging.
 
 The program opens spans at its layer boundaries (the multiplies, the
 tensor, the key switch's ModUp, inner product and ModDown, the rescales,
-the bootstrap and its phases, each fan); PERF.md names them all. A span is
+each single-key automorphism, the bootstrap and its phases, each fan);
+PERF.md names them all. A span is
 recorded only while a torch.profiler profile records:
 
 - no profiler: `stage` returns one shared no-op context manager. It reads

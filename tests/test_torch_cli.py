@@ -107,11 +107,26 @@ COMMANDS = {
 }
 
 
+# the port's trainer evaluates the reference's update in another order (lr/m
+# after the SlotSum; models/logreg_train.py), so these values of demo-train
+# are held to a tolerance: at ci_deep the reference's order reads 1.9e-3
+# from the cleartext weights after two steps and the port's 7.7e-5, and a
+# wrong step moves them by about 0.3
+CLOSE = {"demo-train": {"encrypted_weights": 5e-3, "max_abs_err": 5e-3}}
+
+
 @pytest.mark.parametrize("cmd", sorted(COMMANDS))
 def test_subcommand_json_equals_the_reference(cmd, golden_reference):
     got = _lines(cli.main, ["--cpu", cmd, *COMMANDS[cmd]])
     want = _lines(rcli.main, ["--cpu", cmd, *COMMANDS[cmd]])
-    assert len(got) == 1 and _without_times(got) == _without_times(want)
+    close = CLOSE.get(cmd, {})
+    assert len(got) == 1 and len(want) == 1
+    for key, tol in close.items():
+        assert np.abs(np.subtract(got[0][key], want[0][key])).max() < tol, key
+    if "max_abs_err" in close:
+        assert got[0]["max_abs_err"] <= want[0]["max_abs_err"]
+    strip = [{k: v for k, v in r.items() if k not in close} for r in (got[0], want[0])]
+    assert _without_times(strip[:1]) == _without_times(strip[1:])
     assert list(got[0]) == list(want[0])  # the same keys, in order
 
 

@@ -30,7 +30,7 @@ from gpufhe_tpu_torch.utils import profiling
 
 SPANS = {"ckks.mul", "bgv.mul", "bfv.mul", "boot", "tensor", "ks.mod_up", "ks.inner",
          "ks.mod_down", "rescale", "boot.mod_raise", "boot.coeff_to_slot", "boot.evalmod",
-         "boot.slot_to_coeff", "fan"}
+         "boot.slot_to_coeff", "fan", "galois"}
 PHASES = ["boot.mod_raise", "boot.coeff_to_slot", "boot.evalmod", "boot.slot_to_coeff"]
 
 
@@ -170,10 +170,35 @@ def test_single_op_spans(op, ckks):
         run = lambda: bfv.ct_mod_reduce(ct, params, ctx)  # noqa: E731
     want = {"ckks.ct_mul": ["ckks.mul", "tensor", "ks.mod_up", "ks.inner", "ks.mod_down",
                             "rescale"],
-            # one ModUp for both steps, then a key and a ModDown a step
-            "ckks.rotate_hoisted": ["ks.mod_up", "ks.inner", "ks.mod_down", "ks.inner",
-                                    "ks.mod_down"]}.get(op, ["rescale"])
+            # one ModUp for both steps, then per step an automorphism with
+            # its key and ModDown
+            "ckks.rotate_hoisted": ["ks.mod_up", "galois", "ks.inner", "ks.mod_down",
+                                    "galois", "ks.inner", "ks.mod_down"]}.get(op, ["rescale"])
     assert names(spans_of(run)) == want
+
+
+@pytest.mark.parametrize("op", ["rotate", "conjugate", "rotate_hoisted"])
+def test_galois_span_holds_its_key_switch(op):
+    """A CKKS rotation or conjugation opens one `galois` span, with the key
+    applied (`ks.inner`) and the ModDown inside it; a hoisted rotation's
+    shared ModUp stays outside."""
+    params = preset("ci_small")
+    ctx = make_context(params, device="cpu")
+    chest = device_keygen(params, np.random.default_rng(9), rotations=(3,), conjugation=True,
+                          ctx=ctx)
+    rng = np.random.default_rng(10)
+    ct = dct.encrypt(encoder.encode(rng.normal(size=params.slots), params), params,
+                     chest.device_pk, ctx, rng, params.scale)
+    run = {"rotate": lambda: dct.ct_rotate(ct, 3, params, ctx, chest.galois_key(3)),
+           "conjugate": lambda: dct.ct_conjugate(ct, params, ctx, chest.conj_key()),
+           "rotate_hoisted": lambda: dct.ct_rotate_hoisted(ct, [3], params, ctx,
+                                                           {3: chest.galois_key(3)})}[op]
+    spans = spans_of(run)
+    assert names(spans).count("galois") == 1
+    nest = nesting(spans)
+    assert ("ks.inner", "galois") in nest and ("ks.mod_down", "galois") in nest
+    assert ("galois", None) in nest
+    assert ("ks.mod_up", None if op == "rotate_hoisted" else "galois") in nest
 
 
 @pytest.fixture(scope="module")
@@ -209,3 +234,5 @@ def test_bootstrap_spans(boot_spans):
                if n == "ks.inner" and parent(spans, i) == "boot.mod_raise") == 2
     # EvalMod's products are CKKS multiplies, each with its key switch
     assert ("ckks.mul", "boot.evalmod") in nest and ("ks.inner", "ckks.mul") in nest
+    # the fans apply their Galois keys themselves: no single-key automorphism
+    assert ("galois", "fan") not in nest
