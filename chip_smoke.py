@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
 against its plain PyTorch version on the card: K1 (NTT), K3 (base
-conversion), K4 (key-switch MAC), the rescale kernel (rescale_kernel_run,
+conversion, and ModDown with its epilogue at the dw key switch's shape),
+K4 (key-switch MAC), the rescale kernel (rescale_kernel_run,
 which also times it alone at the benchmark cells' shapes), and the two
 probes, the integer rate (P2)
 and the K1 ablation builds (P1), and K1's pass entry point (ntt_pass, the
@@ -179,7 +180,8 @@ timed alone, forward and inverse, at config5_boot's Q+P chain (45 limbs)
 and at the dw key switch's raised digits (58 limbs x 5), beside its bound
 and its achieved bandwidth; K3 alone at ModUp 15->45, ModDown 15->30 and
 ModUp 10->58 likewise, with a sweep of its launch (destinations per block,
-coefficients per thread) and its registers and spills. Every phase prints one line
+coefficients per thread) and its registers and spills, and the fused
+ModDown [2, 58] -> 48 with a two-row addend beside its bound. Every phase prints one line
 with its name, its result, its seconds and the seconds into the run. The run fails (non-zero exit,
 no result line) when no CUDA device is present, when a phase fails, or
 when it outlasts BUDGET_S.
@@ -3661,8 +3663,10 @@ def main() -> None:
     # start (CpuTwins); the checks against them are deferred to
     # join_cpu_twins, near the end of the run
     twins, ci_twins, gold_twins = CpuTwins("n16"), CpuTwins("ci"), CpuTwins("golden")
+    # "mod_down": the fused ModDown's launches (K3 with its epilogue, also
+    # counted under "convert"), printed beside K3's in every launches line
     kernels = {"ntt": ntt_cuda.KERNEL, "convert": convert_cuda.KERNEL, "mac": mac_cuda.KERNEL,
-               "rescale": rescale_cuda.KERNEL}
+               "rescale": rescale_cuda.KERNEL, "mod_down": convert_cuda.MOD_DOWN}
 
     def reset() -> None:
         for k in (*kernels.values(), ntt_cuda.PASS_KERNEL):
@@ -3778,9 +3782,21 @@ def main() -> None:
         conv_err = max(conv_err, exact(convert_cuda.base_convert_cuda(top, tabs),
                                        convert_cuda.base_convert_plain(top, tabs),
                                        f"base conversion {what} at q - 1"))
+    # the fused ModDown (K3 with its epilogue) at the dw key switch's shape:
+    # both components and a two-row addend in one launch == the plain
+    # ModDown and add_mod
+    acc_dw, add_dw = rand_limbs(ctx_dw, range(qp_dw), (2,)), rand_limbs(ctx_dw, range(L_dw), (2,))
+    before = convert_cuda.MOD_DOWN.launches
+    fused = rns.mod_down(acc_dw, dw, L_dw, ctx_dw, ksc_dw, addend=add_dw)
+    fused_launches = convert_cuda.MOD_DOWN.launches - before
+    conv_err = max(conv_err, exact(fused, rns._mod_down_plain(acc_dw, ksc_dw, add_dw),
+                                   f"fused ModDown {qp_dw}->{L_dw} x 2 with an addend"))
+    if fused_launches != 1:
+        raise AssertionError(f"fused ModDown: {fused_launches} launches, not 1")
     say("convert_vs_plain", "== at " + ", ".join(
         f"{k} {len(r)}->{tb.dq.numel()}" for k, (_, tb, r) in conv_cases.items())
-        + f"; and at x = q - 1 at {', '.join(worst)}", t)
+        + f"; and at x = q - 1 at {', '.join(worst)}; fused ModDown [2, {qp_dw}] -> {L_dw} "
+        f"with a two-row addend == plain in {fused_launches} launch", t)
 
     # 5. K4 against its plain version, exact, at the shapes the paths launch:
     #    the relinearisation at config5_boot (a key stored at the level) and one
@@ -4011,6 +4027,12 @@ def main() -> None:
             lambda: convert_cuda.base_convert_cuda(x, tabs), K3_NAME)
         times[f"convert_{what}_plain"] = cuda_ms(
             lambda: convert_cuda.base_convert_plain(x, tabs), iters=5)
+    # the fused ModDown on phase 4's operands (the dw key switch's top shape)
+    fused_down = lambda: rns.mod_down(acc_dw, dw, L_dw, ctx_dw, ksc_dw, addend=add_dw)  # noqa: E731
+    times["mod_down_dw"] = cuda_ms(fused_down)
+    dev_times["mod_down_dw"], _ = kernel_ms(fused_down, K3_NAME)
+    times["mod_down_dw_plain"] = cuda_ms(lambda: rns._mod_down_plain(acc_dw, ksc_dw, add_dw),
+                                         iters=5)
     for key, args in mac_inputs.items():
         times[f"mac_{key}"] = cuda_ms(lambda: mac_cuda.mac_cuda(*args))
         dev_times[f"mac_{key}"], _ = kernel_ms(lambda: mac_cuda.mac_cuda(*args), K4_NAME)
@@ -4213,8 +4235,18 @@ def main() -> None:
         print(f"K3 {s_dim}->{t_dim} sweep, device ms per call by (group, cpt): " + ", ".join(
             f"({g}, {k}) {ms:.4f}" for (g, k), ms in sweep.items())
             + f"; best {min(sweep, key=sweep.get)}  [{smi}]", flush=True)
-    spills = ptxas_summary(logs.get("convert", ""), r"base_convert_kernelILi(\d+)ELi(\d+)E")
-    print("K3 -Xptxas -v (s4, cpt): " + ("; ".join(spills) or "not rebuilt in this run"),
+    # the fused ModDown: its least bytes read each input residue (P and Q
+    # rows, the addend) and write each output once, at 4 B a residue
+    down_bytes = 4 * 2 * (dw.alpha + 3 * L_dw) * n
+    down_b = down_bytes / HBM_BYTES_PER_S * 1e3
+    for what, ms in (("event", times["mod_down_dw"]), ("device", dev_times["mod_down_dw"])):
+        print(f"K3 fused ModDown [2, {qp_dw}] -> {L_dw} + two-row addend {what}: {ms:.4f} ms; "
+              f"bound {down_b:.5f} ms (bytes, {down_bytes / 1e6:.1f} MB at 4 B), "
+              f"{ms / down_b:.2f}x; plain ModDown and add_mod {times['mod_down_dw_plain']:.4f} ms"
+              f"  [{smi}]", flush=True)
+    spills = ptxas_summary(logs.get("convert", ""),
+                           r"base_convert_kernelILi(\d+)ELi(\d+)ELb(\d)E")
+    print("K3 -Xptxas -v (s4, cpt, ModDown): " + ("; ".join(spills) or "not rebuilt in this run"),
           flush=True)
     say("convert_timing", "event / device ms per call: " + ", ".join(
         f"{len(r)}->{tb.dq.numel()} {times[f'convert_{k}']:.4f} / {dev_times[f'convert_{k}']:.4f}"

@@ -267,12 +267,11 @@ def _relin_coeff(d: torch.Tensor, params: CKKSParams, ctx: Context, level: int,
                  rlk: DeviceKSKey) -> list:
     """Relinearise a coefficient-domain tensor int64[3, K, N] (reference
     _bfv_relin_coeff): the key switch of d2 takes and returns the
-    coefficient domain, the sums are formed there, and one batched NTT
-    brings both components back."""
+    coefficient domain, the sums with d0, d1 are formed in its ModDown, and
+    one batched NTT brings both components back."""
     ksc = _ckks_ksc(params, level, ctx.device)
-    ks0, ks1 = key_switch_core(d[2], params, level, ctx, ksc, rlk, eval_out=False,
-                               eval_in=False)
-    cc = add_mod(d[:2], torch.stack([ks0, ks1]), ctx.col("q", range(level)))
+    cc = key_switch_core(d[2], params, level, ctx, ksc, rlk, eval_out=False, eval_in=False,
+                         addend=d[:2])
     return list(ntt_fwd(cc, ctx, limbs=range(level)))
 
 

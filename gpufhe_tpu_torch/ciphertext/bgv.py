@@ -26,7 +26,6 @@ from gpufhe_tpu_torch.golden import ckks as gckks
 from gpufhe_tpu_torch.keys import keys as dkeys
 from gpufhe_tpu_torch.keys.keys import DeviceKSKey, DevicePublicKey, DeviceSecretKey
 from gpufhe_tpu_torch.ops.context import Context
-from gpufhe_tpu_torch.ops.modops import add_mod
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.keyswitch import hoist, key_switch_core
@@ -155,21 +154,19 @@ def ct_mul(a: BGVCiphertext, b: BGVCiphertext, params: CKKSParams, ctx: Context,
            rlk: DeviceKSKey) -> BGVCiphertext:
     """Tensor, relinearise and ModSwitch fused (reference bgv.py:181-230): the
     key switch stays in the coefficient domain (eval_out=False), d0 and d1
-    are brought there by one batched iNTT and added, ModSwitch runs there,
-    and one batched NTT brings both components back: by NTT linearity the
-    limbs equal ct_modswitch(ct_relinearize(ct_tensor)). Output at level
-    - 1, pt_factor the factors' product times q_last mod t. Span `bgv.mul`, the
-    ModSwitch inside it `rescale`."""
+    are brought there by one batched iNTT and added in its ModDown, ModSwitch
+    runs there, and one batched NTT brings both components back: by NTT
+    linearity the limbs equal ct_modswitch(ct_relinearize(ct_tensor)). Output
+    at level - 1, pt_factor the factors' product times q_last mod t. Span
+    `bgv.mul`, the ModSwitch inside it `rescale`."""
     if a.level != b.level or len(a.c) != 2 or len(b.c) != 2:
         raise ValueError("ct_mul takes two 2-component ciphertexts at one level")
     level = a.level
     with stage("bgv.mul"):
-        q = ctx.col("q", range(level))
         d0, d1, d2 = dct.tensor_core(a.c, b.c, ctx, level)
         ksc = make_ks_context(params, level, device=ctx.device)
-        ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
-        cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
-                     torch.stack([ks0, ks1]), q)
+        cc = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False,
+                             addend=ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)))
         with stage("rescale"):
             cc = bgv_modswitch(cc, params, level, ctx, ksc)
         down = ntt_fwd(cc, ctx, limbs=range(level - 1))

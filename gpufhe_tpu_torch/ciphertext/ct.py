@@ -257,18 +257,17 @@ def ct_mul_full(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
     The key switch stays in the coefficient domain (eval_out=False): iNTT(d_i)
     + ks_i equals iNTT(d_i + NTT(ks_i)) mod q, so the rescales run back to back
     without an NTT round trip, and one batched NTT brings both components back.
+    The sums iNTT(d_i) + ks_i are formed in the key switch's ModDown.
     Span `ckks.mul`.
     """
     if a.level != b.level or len(a.c) != 2 or len(b.c) != 2:
         raise ValueError("ct_mul_full takes two 2-component ciphertexts at one level")
     with stage("ckks.mul"):
         level = a.level
-        q = ctx.col("q", range(level))
         d0, d1, d2 = tensor_core(a.c, b.c, ctx, level)
         ksc = make_ks_context(params, level, device=ctx.device)
-        ks0, ks1 = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False)
-        cc = add_mod(ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)),
-                     torch.stack([ks0, ks1]), q)
+        cc = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False,
+                             addend=ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)))
         cc, lvl, scale = _rescale_chain(cc, params, level, ctx, a.scale * b.scale)
         out = ntt_fwd(cc, ctx, limbs=range(lvl))
         return Ciphertext(list(out), lvl, scale)
@@ -419,6 +418,7 @@ def ct_diag_fan(
     plaintext stack against that stack (R digits, two outputs); per set,
     the gathered c0 stack against the plaintext stack's q rows (one
     output); and per set with a zero-offset diagonal, c0 and c1 times it.
+    Those products' coefficient-domain sum is added in the set's ModDown.
     Span `fan`.
     """
     if len(ct.c) != 2:
@@ -443,14 +443,12 @@ def ct_diag_fan(
         outs = []
         for pts, pt0 in zip(pt_stacks, pt0s):
             acc = mac(pts, t[0], t[1], rows_qp, chain_qp, ctx)
-            down = ks_finish(acc, params, level, ctx, ksc, eval_out=False)
             e = [mac(c0g, pts, None, rows_q, rows_q, ctx)[0]]
             if pt0 is not None:
                 p0 = mac(pt0[:level][None], c0[None], c1[None], rows_q, rows_q, ctx)
                 e = [add_mod(e[0], p0[0], q), p0[1]]
             e_coeff = ntt_inv(torch.stack(e), ctx, limbs=range(level))
-            cc = torch.stack([add_mod(down[i], e_coeff[i], q) if i < len(e) else down[i]
-                              for i in range(2)])
+            cc = ks_finish(acc, params, level, ctx, ksc, eval_out=False, addend=e_coeff)
             cc, lvl, scale = _rescale_chain(cc, params, level, ctx, ct.scale * pt_scale)
             outs.append(Ciphertext(list(ntt_fwd(cc, ctx, limbs=range(lvl))), lvl, scale))
         return outs

@@ -320,9 +320,7 @@ def _ks_finish(mesh: FheMesh, acc, params: CKKSParams, level: int, ks: ShardedKS
 
     def down(i, c, x):
         dev = mesh.devices[i][c]
-        ksc, ctx = ks.ksc[dev], t_qp.ctx(dev)
-        return _e3(torch.stack([mod_down(_flat(x[j]), params, level, ctx, ksc)
-                                for j in range(2)]), n2)
+        return _e3(mod_down(_flat(x), params, level, t_qp.ctx(dev), ks.ksc[dev]), n2)
 
     out = [[down(i, c, x) for c, x in enumerate(row)] for i, row in enumerate(coeff)]
     return ntt_fwd_body(out, t_q) if eval_out else out

@@ -5,13 +5,16 @@ stage for stage, so every output limb equals the reference's:
 
   1. iNTT the switched polynomial to the coefficient domain (unless eval_in
      is False and it already is);
-  2. ModUp each of the dnum decomposition groups to the active Q+P basis;
+  2. ModUp each of the dnum decomposition groups to the active Q+P basis,
+     each group's K3 launch writing its row of one [D, K+alpha, N] stack;
   3. NTT all raised groups (one batched transform) and take the inner
      product with the gadget key rows (keys in Montgomery form): one launch
      of kernel K4 (ops/mac_cuda.py) for both key components, reading the
      key's active rows in place;
-  4. iNTT both accumulators (one batched transform), ModDown by P, and NTT
-     back unless eval_out is False.
+  4. iNTT both accumulators (one batched transform), ModDown by P of both
+     in one K3 launch (primitives/rns.py mod_down), a caller's
+     coefficient-domain addend summed in the same launch, and NTT back
+     unless eval_out is False.
 """
 
 from __future__ import annotations
@@ -64,18 +67,21 @@ def hoist(d2: torch.Tensor, params: CKKSParams, level: int, ctx: Context, ksc: K
     A hoisted rotation computes them once for every step. Span `ks.mod_up`."""
     with stage("ks.mod_up"):
         d2_coeff = ntt_inv(d2, ctx, limbs=range(level)) if eval_in else d2
-        raised = torch.stack(mod_up(d2_coeff, params, level, ctx, ksc))
+        raised = mod_up(d2_coeff, params, level, ctx, ksc)
         return ntt_fwd(raised, ctx, limbs=qp_indices(params, level))
 
 
 def ks_finish(acc: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
-              ksc: KSContext, eval_out: bool = True) -> torch.Tensor:
+              ksc: KSContext, eval_out: bool = True, *,
+              addend: torch.Tensor | None = None) -> torch.Tensor:
     """Stage 4: iNTT both accumulators int64[2, K+alpha, N] (one batched
-    transform), ModDown by P, and NTT back (one batched transform) unless
-    eval_out is False. Returns int64[2, K, N]. Span `ks.mod_down`."""
+    transform), ModDown by P plus `addend` (coefficient domain, int64[B', K,
+    N] for the first B' components; mod_down), and NTT back (one batched
+    transform) unless eval_out is False. Returns int64[2, K, N]. Span
+    `ks.mod_down`."""
     with stage("ks.mod_down"):
         coeff = ntt_inv(acc, ctx, limbs=qp_indices(params, level))
-        down = torch.stack([mod_down(c, params, level, ctx, ksc) for c in coeff])
+        down = mod_down(coeff, params, level, ctx, ksc, addend=addend)
         return ntt_fwd(down, ctx, limbs=range(level)) if eval_out else down
 
 
@@ -88,14 +94,16 @@ def key_switch_core(
     ksk: DeviceKSKey,
     eval_out: bool = True,
     eval_in: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    *,
+    addend: torch.Tensor | None = None,
+) -> torch.Tensor:
     """Switch one polynomial int64[K, N] to the key's target secret.
 
-    Returns (ks0, ks1) int64[K, N], NTT domain (coefficient domain when
-    eval_out is False). With eval_in False, d2 arrives in the coefficient
-    domain.
+    Returns int64[2, K, N] holding (ks0, ks1), NTT domain (coefficient domain
+    when eval_out is False), each plus its row of `addend` (coefficient
+    domain, ks_finish) where given. With eval_in False, d2 arrives in the
+    coefficient domain.
     """
     raised = hoist(d2, params, level, ctx, ksc, eval_in)
-    out = ks_finish(gadget_mac(raised, params, level, ctx, ksk), params, level, ctx, ksc,
-                    eval_out)
-    return out[0], out[1]
+    return ks_finish(gadget_mac(raised, params, level, ctx, ksk), params, level, ctx, ksc,
+                     eval_out, addend=addend)

@@ -3,7 +3,9 @@
 Counterpart of gpufhe_tpu/primitives/rns.py. Every result is the canonical
 value the reference computes, limb for limb: the approximate base conversion
 is reduced per term (ops/convert_cuda.py, kernel K3 on the card whatever the
-source count, which mod_up and mod_down launch), and the rescale and
+source count, which mod_up and mod_down launch: mod_up once per group into
+one stack, mod_down once for every component, its subtraction, P^-1 product
+and the caller's addend in the kernel's epilogue), and the rescale and
 ModSwitch use the same centered lift of the dropped limb. base_convert is the
 reference's public conversion from its Montgomery tables, on the plain
 modular ops. Polynomials are int64[K, N] in the coefficient domain;
@@ -22,7 +24,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 
 import numpy as np
 import torch
@@ -52,7 +53,9 @@ class KSContext:
     # (q_j divides Qhat_i for i != j), so no reassembly is needed.
     modup: tuple[ConvertTables, ...]
     p2q: ConvertTables  # ModDown: P basis -> active Q basis
-    pinv: torch.Tensor  # int64[K]   [P^-1]_{q_i}
+    # ModDown's epilogue in K3, [P^-1]_{q_i} first (ops/convert_cuda.py
+    # make_mod_down_table; the plain version reads it there too)
+    p2q_epilogue: torch.Tensor
     # the rescale and ModSwitch constants of dropping q_last, in the rescale
     # kernel's layout (ops/rescale_cuda.py make_drop_table; the plain
     # versions read them through table_rows)
@@ -66,11 +69,6 @@ def make_ks_context(params: CKKSParams, level: int, *, device: str = "cuda") -> 
     and its CKKS view (BFV's key switch) get separate tables."""
     qs = params.q_primes[:level]
     ps = params.p_primes
-    big_p = math.prod(ps)
-
-    def dev(v):
-        return torch.tensor(v, dtype=torch.int64, device=device)
-
     t = params.plain_modulus
     if t:  # BGV: the t-corrected division by P, delta = t [x t^-1]_P
         p_arr = np.asarray(ps, dtype=np.int64)
@@ -84,7 +82,7 @@ def make_ks_context(params: CKKSParams, level: int, *, device: str = "cuda") -> 
             make_convert_tables(qs[d0:d1], qs + ps, device) for d0, d1 in ks_groups(params, level)
         ),
         p2q=p2q,
-        pinv=dev([pow(big_p, -1, q) for q in qs]),
+        p2q_epilogue=convert_cuda.make_mod_down_table(ps, qs, device),
         drop=rescale_cuda.make_drop_table(qs, t, device),
     )
 
@@ -108,26 +106,49 @@ def base_convert(x: torch.Tensor, src_q: torch.Tensor, src_qinv: torch.Tensor,
 
 
 def mod_up(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
-           ksc: KSContext) -> list[torch.Tensor]:
+           ksc: KSContext) -> torch.Tensor:
     """ModUp every decomposition group of int64[K, N] to the active Q+P basis.
 
-    Returns one int64[K + alpha, N] coefficient-domain tensor per group, limb
-    order = active q-chain then p-chain.
+    Returns int64[D, K + alpha, N] (coefficient domain, limb order = active
+    q-chain then p-chain), each group's conversion written into its row.
     """
-    return [
-        convert_cuda.base_convert(x_coeff[d0:d1], ksc.modup[g])
-        for g, (d0, d1) in enumerate(ks_groups(params, level))
-    ]
+    groups = ks_groups(params, level)
+    out = torch.empty((len(groups), ksc.modup[0].dq.numel(), x_coeff.shape[-1]),
+                      dtype=torch.int64, device=x_coeff.device)
+    for g, (d0, d1) in enumerate(groups):
+        convert_cuda.base_convert(x_coeff[d0:d1], ksc.modup[g], out=out[g])
+    return out
 
 
 def mod_down(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
-             ksc: KSContext) -> torch.Tensor:
-    """Division by P: int64[K + alpha, N] -> int64[K, N] (coefficient domain)."""
-    k = level
-    q = ctx.col("q", range(k))
-    p_part = convert_cuda.base_convert(x_coeff[k:], ksc.p2q)
-    diff = sub_mod(x_coeff[:k], p_part, q)
-    return torch.remainder(diff * ksc.pinv[:, None], q)
+             ksc: KSContext, *, addend: torch.Tensor | None = None) -> torch.Tensor:
+    """Division by P: int64[..., K + alpha, N] -> int64[..., K, N] (coefficient
+    domain), plus `addend` (int64[K, N] or int64[B', K, N]: one row for each
+    of the first B' components; coefficient domain). One K3 launch on the
+    card for every component; on the CPU its plain int64 version."""
+    if x_coeff.device.type == "cpu":
+        return _mod_down_plain(x_coeff, ksc, addend)
+    *lead, rows, n = x_coeff.shape
+    out = convert_cuda.mod_down_cuda(
+        x_coeff.reshape(-1, rows, n), ksc.p2q, ksc.p2q_epilogue,
+        None if addend is None else addend.reshape(-1, level, n))
+    return out.view(*lead, level, n)
+
+
+def _mod_down_plain(x_coeff: torch.Tensor, ksc: KSContext,
+                    addend: torch.Tensor | None) -> torch.Tensor:
+    k = ksc.p2q.dq.numel()
+    q = ksc.p2q.dq[:, None]
+    p_part = convert_cuda.base_convert_plain(x_coeff[..., k:, :], ksc.p2q)
+    diff = sub_mod(x_coeff[..., :k, :], p_part, q)
+    pinv = ksc.p2q_epilogue[0].to(torch.int64) & 0xFFFFFFFF  # u32 held in int32
+    down = torch.remainder(diff * pinv[:, None], q)
+    if addend is None:
+        return down
+    flat = down.reshape(-1, k, down.shape[-1])
+    add = addend.reshape(-1, k, down.shape[-1])
+    b = add.shape[0]
+    return torch.cat([add_mod(flat[:b], add, q), flat[b:]]).view(down.shape)
 
 
 def rescale(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,

@@ -39,7 +39,9 @@ class Bounds:
     twist merged into the butterflies' roots, no four-step twiddle).
     K3 needs its data and tables; per coefficient, v_i = x_i Qhat_i^-1 once
     per source limb (S N products), then per destination S multiply-adds
-    and ceil(S / 16) reductions.
+    and ceil(S / 16) reductions. Its fused ModDown of B components is B such
+    conversions that also read the Q rows and the addend's rows, with one
+    product per output residue (P^-1) and one per addend residue.
     K4 needs x, its key stacks, its outputs and per row q, mu, qinv_neg and
     two indices (a permutation: N more words); per output, D multiply-adds,
     ceil(D / 16) reductions and one REDC.
@@ -64,6 +66,12 @@ class Bounds:
         nbytes = 8 * (s_dim * n + t_dim * n + 3 * s_dim + 2 * t_dim + s_dim * t_dim)
         return nbytes, s_dim * n + t_dim * n * self._reductions(s_dim), s_dim * t_dim * n
 
+    def mod_down(self, b_dim, s_dim, t_dim, add_rows):
+        conv = self.conv(s_dim, t_dim)
+        residues = t_dim * self.n * (b_dim + add_rows)
+        return (b_dim * conv[0] + 8 * residues + 16 * t_dim, b_dim * conv[1] + residues,
+                b_dim * conv[2])
+
     def mac(self, d_dim, t_dim, permuted=False, outs=2):
         n = self.n
         nbytes = (8 * n * ((1 + outs) * d_dim * t_dim + outs * t_dim) + 32 * t_dim
@@ -79,13 +87,14 @@ class Bounds:
     def record(self, fn) -> dict:
         """Call fn once with the three kernels' wrappers recording the work of
         each launch: {"ntt": [work, ...], "convert": [...], "mac": [...]}. On
-        the CPU each call of a kernel's plain version counts as its launch."""
+        the CPU each call of a kernel's plain version counts as its launch,
+        a conversion of int64[B, S, N] as B of them."""
         from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda
 
         seen = {"ntt": [], "convert": [], "mac": []}
         names = ((ntt_cuda, "fourstep_cuda"), (ntt_cuda, "fourstep_plain"),
                  (convert_cuda, "base_convert_cuda"), (convert_cuda, "base_convert_plain"),
-                 (mac_cuda, "mac_cuda"), (mac_cuda, "mac_plain"))
+                 (convert_cuda, "mod_down_cuda"), (mac_cuda, "mac_cuda"), (mac_cuda, "mac_plain"))
         real = [getattr(mod, name) for mod, name in names]
 
         def ntt_rec(real_fn):
@@ -95,9 +104,18 @@ class Bounds:
             return rec
 
         def conv_rec(real_fn):
-            def rec(x, tabs):
-                seen["convert"].append(self.conv(x.shape[0], tabs.dq.numel()))
-                return real_fn(x, tabs)
+            def rec(x, tabs, *args, **kwargs):
+                rows = x.numel() // (x.shape[-2] * x.shape[-1])
+                seen["convert"].extend([self.conv(x.shape[-2], tabs.dq.numel())] * rows)
+                return real_fn(x, tabs, *args, **kwargs)
+            return rec
+
+        def down_rec(real_fn):
+            def rec(acc, tabs, table, addend=None, *args, **kwargs):
+                seen["convert"].append(self.mod_down(acc.shape[0], tabs.sq.numel(),
+                                                     tabs.dq.numel(),
+                                                     0 if addend is None else addend.shape[0]))
+                return real_fn(acc, tabs, table, addend, *args, **kwargs)
             return rec
 
         def mac_rec(real_fn):
@@ -107,7 +125,7 @@ class Bounds:
                 return real_fn(x, y0, y1, rows, chain, ctx_, perm, out)
             return rec
 
-        wraps = (ntt_rec, ntt_rec, conv_rec, conv_rec, mac_rec, mac_rec)
+        wraps = (ntt_rec, ntt_rec, conv_rec, conv_rec, down_rec, mac_rec, mac_rec)
         for (mod, name), wrap, fn_ in zip(names, wraps, real):
             setattr(mod, name, wrap(fn_))
         try:

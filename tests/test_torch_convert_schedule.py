@@ -14,7 +14,12 @@ holds == the reference) at the ModUp and ModDown tables of tiny2, ci_small,
 config5_boot and config5_boot_dw, at the integer schemes' tables (BGV's
 t-folded ModDown, BFV's conversions to and from the aux basis at bfv_n16:
 33 source limbs, one destination), and at worst-case inputs: residues q - 1,
-conv = p - 1, primes just below 2^30, and 16, 17 and 33 source limbs. The
+conv = p - 1, primes just below 2^30, and 16, 17 and 33 source limbs.
+ModDown's epilogue (the kDown instances: the addend folded into the first
+chunk's sum, the subtraction and the P^-1 product after the last) is held
+== the plain mod_down and add_mod at each cell's ModDown shape, CKKS and
+BGV's t-folded tables, on a synthetic chunked basis, and with the output
+written over the addend. The
 kernel's tables are checked against their definitions and against the
 entry point's parameter order, and the refusal of a prime >= 2^30 where the
 tables are built.
@@ -86,15 +91,22 @@ def launch_shape(S, T, tg):
     return s4, stride, tg
 
 
-def k3_model(x: np.ndarray, k3: K3Tables, tg: int, stats: dict | None = None) -> np.ndarray:
+def k3_model(x: np.ndarray, k3: K3Tables, tg: int, stats: dict | None = None,
+             down: tuple | None = None) -> np.ndarray:
     """out[t, c] as the kernel computes it, for x uint64[S, n] (every
-    coefficient at once: each is one thread's lane)."""
+    coefficient at once: each is one thread's lane). With down = (acc_q
+    uint64[T, n], add uint64[T, n] or None, tab uint64[4, T], alias), one
+    batch row of ModDown's epilogue; with alias the addend is read from
+    `out` (the kernel's out may be the addend's own buffer)."""
     S, n = x.shape
     sq, w, wp, conv, dq, dmu = (_u64(getattr(k3, f.name)) for f in dataclasses.fields(K3Tables))
     T = dq.size
     s4, stride, tg = launch_shape(S, T, tg)
     W = 4 * s4
     out = np.zeros((T, n), dtype=np.uint64)
+    acc_q, add, tab, alias = down if down is not None else (None, None, None, False)
+    if alias:
+        out = add.copy()
     peak = 0
     for t0 in range(0, T, tg):  # blockIdx.y
         rows = min(tg, T - t0)
@@ -107,7 +119,12 @@ def k3_model(x: np.ndarray, k3: K3Tables, tg: int, stats: dict | None = None) ->
             for r in range(rows):
                 t = t0 + r
                 p, mu = dq[t], dmu[t]
-                acc = out[t].copy() if i0 > 0 else np.zeros(n, dtype=np.uint64)
+                if i0 > 0:
+                    acc = out[t].copy()
+                elif add is not None:  # the addend, as add [-P]_{q_t}
+                    acc = shoup32((out if alias else add)[t], tab[2, t], tab[3, t], p)
+                else:
+                    acc = np.zeros(n, dtype=np.uint64)
                 for j in range(W):  # the unrolled uint4 broadcasts, term by term
                     prod = v[j] * conv_s[r, i0 + j]
                     assert (prod < 1 << 60).all()
@@ -117,7 +134,10 @@ def k3_model(x: np.ndarray, k3: K3Tables, tg: int, stats: dict | None = None) ->
                     peak = max(peak, int(acc.max()))
                     if (j + 1) % UNREDUCED == 0 and j + 1 < W:
                         acc = barrett(acc, p, mu)
-                out[t] = barrett(acc, p, mu)
+                res = barrett(acc, p, mu)
+                if down is not None and i0 + W >= S:  # (acc_q - sum + q_t) [P^-1]_{q_t}
+                    res = shoup32(acc_q[t] + p - res, tab[0, t], tab[1, t], p)
+                out[t] = res
     if stats is not None:
         stats["peak"] = peak
     return out
@@ -224,6 +244,77 @@ def test_model_at_worst_case_inputs(s_dim, largest):
             assert stats["peak"] > 15 << 60  # the 16-term sum is near 2^64
 
 
+# --- ModDown's epilogue ---------------------------------------------------------
+
+def _synthetic_ks_context(alpha: int, k: int) -> prns.KSContext:
+    """The ModDown tables of a basis of `alpha` special primes just below
+    2^30 (above 32 of them: the chunked path) onto k primes below 2^30."""
+    primes = gen_ntt_primes(30, 2**11, alpha + k)
+    ps, qs = primes[:alpha], primes[alpha:]
+    return prns.KSContext(
+        modup=(), p2q=make_convert_tables(ps, qs, "cpu"),
+        p2q_epilogue=convert_cuda.make_mod_down_table(ps, qs, "cpu"),
+        drop=torch.empty(0, dtype=torch.int32))
+
+
+# each cell's ModDown: ckks_n16_dw 58 -> 48 (alpha 10); n16_int 45 -> 30
+# (alpha 15) as BGV (t-folded tables) and as BFV (its CKKS view);
+# ckks_n16_l30 at its lowest level, 21 -> 6; the chunked path at 33 and 40
+def _down_case(case: str):
+    if case.startswith("chunked"):
+        alpha = int(case.split("_")[1])
+        return _synthetic_ks_context(alpha, 5), alpha
+    name, level = {"ckks_n16_dw": ("config5_boot_dw", 48), "n16_int_bgv": ("bfv_n16", 30),
+                   "n16_int_bfv": ("bfv_n16", 30), "ckks_n16_l30": ("config5_boot", 6)}[case]
+    params = preset(name)
+    if case == "n16_int_bfv":
+        params = dataclasses.replace(params, plain_modulus=0)
+    return prns.make_ks_context(params, level, device="cpu"), len(params.p_primes)
+
+
+@pytest.mark.parametrize("case", ["ckks_n16_dw", "n16_int_bgv", "n16_int_bfv", "ckks_n16_l30",
+                                  "chunked_33", "chunked_40"])
+@pytest.mark.parametrize("add_rows,alias", [(0, False), (1, False), (2, False), (1, True),
+                                            (2, True)])
+def test_mod_down_epilogue_model_equals_plain(case, add_rows, alias):
+    """Both components of int64[2, K + alpha, N] in the model's epilogue (the
+    first in the wrapper's one group of every destination, the second in
+    groups of 16) == the plain mod_down (sub_mod, the P^-1 product) and
+    add_mod of the addend's leading rows, with largest residues (q - 1) in
+    column 0."""
+    ksc, alpha = _down_case(case)
+    qs = ksc.p2q.dq.tolist()
+    k = len(qs)
+    primes = qs + ksc.p2q.sq.tolist()
+    x = np.stack([_rand(primes, N, 30 + b) for b in range(2)])
+    x[..., 0] = np.asarray(primes)[None, :] - 1
+    add = np.stack([_rand(qs, N, 40 + b) for b in range(add_rows)]) if add_rows else None
+    want = prns.mod_down(torch.from_numpy(x), None, k, None, ksc,
+                         addend=None if add is None else torch.from_numpy(add)).numpy()
+    bare = prns.mod_down(torch.from_numpy(x), None, k, None, ksc).numpy()
+    assert (want[add_rows:] == bare[add_rows:]).all()
+    tab = _u64(ksc.p2q_epilogue).reshape(4, k)
+    for b, tg in enumerate((convert_cuda.MOD_DOWN_GROUP, convert_cuda.GROUP)):
+        a_b = add[b].astype(np.uint64) if b < add_rows else None
+        got = k3_model(x[b, k:].astype(np.uint64), ksc.p2q.k3, tg,
+                       down=(x[b, :k].astype(np.uint64), a_b, tab, alias and a_b is not None))
+        assert (got.astype(np.int64) == want[b]).all(), (case, b)
+    assert launch_shape(alpha, k, convert_cuda.GROUP)[0] == (8 if alpha >= 32 else -(-alpha // 4))
+
+
+def test_mod_down_table_against_its_definition():
+    params = preset("config5_boot_dw")
+    ps, qs = params.p_primes, params.q_primes[:48]
+    tab = _u64(convert_cuda.make_mod_down_table(ps, qs, "cpu")).reshape(4, 48).tolist()
+    big = math.prod(ps)
+    pinv, negp = [pow(big, -1, q) for q in qs], [-big % q for q in qs]
+    assert tab == [pinv, [(w << 32) // q for w, q in zip(pinv, qs)],
+                   negp, [(w << 32) // q for w, q in zip(negp, qs)]]
+    ksc = prns.make_ks_context(params, 48, device="cpu")
+    assert ksc.p2q_epilogue.dtype == torch.int32
+    assert _u64(ksc.p2q_epilogue).reshape(4, 48).tolist() == tab
+
+
 def test_thread_layout_covers_every_coefficient_once():
     """Block b, thread i, coefficient k of cpt: c = b THREADS cpt + k THREADS
     + i (warps coalesce along c), masked at c >= n; a ragged n included."""
@@ -271,7 +362,8 @@ def test_table_order_is_the_entry_points():
     sig = re.search(r'extern "C" int base_convert\((.*?)\)', src, re.S).group(1)
     names = [p.split()[-1].lstrip("*") for p in sig.split(",")]
     fields = [f.name for f in dataclasses.fields(K3Tables)]
-    assert names == ["x", "out", "S", "T", "n", "tg", "cpt", *fields, "stream"]
+    assert names == ["x", "out", "S", "T", "n", "tg", "cpt", "B", "x_bstride", "out_bstride",
+                     "acc", "add", "b_add", "add_bstride", "down", *fields, "stream"]
     assert len(convert_cuda.KERNEL.argtypes) == len(names)
 
 

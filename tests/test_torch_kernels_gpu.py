@@ -7,6 +7,7 @@ that has only PyTorch (tests/conftest.py imports jax, hence --noconftest):
     python3 -m pytest -q -p no:cacheprovider --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import dataclasses
 import re
 
 import numpy as np
@@ -91,6 +92,130 @@ def test_convert_kernel_raises_its_refusal(cuda_device):
     with pytest.raises(ValueError, match=re.escape(tabs.k3_refusal)):
         convert_cuda.base_convert_cuda(x, tabs)
     assert convert_cuda.KERNEL.launches == before
+
+
+def _mod_down_context(case: str, device):
+    """(KSContext, level) of each cell's ModDown: ckks_n16_dw 58 -> 48
+    (alpha 10); n16_int 45 -> 30 (alpha 15) with BGV's t-folded tables and
+    as BFV's CKKS view; ckks_n16_l30 at its lowest level, 21 -> 6; a
+    synthetic basis of 33 or 40 special primes below 2^30 onto 8 (the
+    kernel's chunked path)."""
+    if case.startswith("chunked"):
+        alpha, k = int(case.split("_")[1]), 8
+        primes = gen_ntt_primes(30, 2**17, alpha + k)
+        ps, qs = primes[:alpha], primes[alpha:]
+        return rns.KSContext(
+            modup=(), p2q=make_convert_tables(ps, qs, device),
+            p2q_epilogue=convert_cuda.make_mod_down_table(ps, qs, device),
+            drop=torch.empty(0, dtype=torch.int32, device=device)), k
+    name, level = {"ckks_n16_dw": ("config5_boot_dw", 48), "n16_int_bgv": ("bfv_n16", 30),
+                   "n16_int_bfv": ("bfv_n16", 30), "ckks_n16_l30": ("config5_boot", 6)}[case]
+    params = preset(name)
+    if case == "n16_int_bfv":
+        params = dataclasses.replace(params, plain_modulus=0)
+    return rns.make_ks_context(params, level, device=device), level
+
+
+@pytest.mark.parametrize("case", ["ckks_n16_dw", "n16_int_bgv", "n16_int_bfv", "ckks_n16_l30",
+                                  "chunked_33", "chunked_40"])
+@pytest.mark.parametrize("b_dim,add_rows,alias", [
+    (1, 0, False), (1, 1, False), (1, 1, True), (2, 0, False), (2, 1, False), (2, 2, False),
+    (2, 1, True), (2, 2, True)])
+def test_mod_down_kernel_matches_plain(cuda_device, case, b_dim, add_rows, alias):
+    """The fused ModDown (K3 with its epilogue) of int64[B, K + alpha, 2^16]
+    == the plain ModDown and add_mod of the addend's leading rows, with the
+    largest residues (q - 1) in column 0; with alias the output is written
+    over the addend. One launch, counted by KERNEL and MOD_DOWN; the plain
+    conversions' launch shape gives the same."""
+    ksc, k = _mod_down_context(case, cuda_device)
+    primes = ksc.p2q.dq.tolist() + ksc.p2q.sq.tolist()
+    acc = torch.from_numpy(np.stack([_rand(primes, range(len(primes)), 2**16, 50 + b)
+                                     for b in range(b_dim)])).to(cuda_device)
+    acc[..., 0] = torch.tensor(primes, device=cuda_device) - 1
+    add = None
+    if add_rows:
+        add = torch.from_numpy(np.stack([_rand(primes, range(k), 2**16, 60 + b)
+                                         for b in range(add_rows)])).to(cuda_device)
+    want = rns._mod_down_plain(acc, ksc, add)
+    out = None
+    if alias:  # the addend as the leading rows of the output buffer
+        out = torch.zeros((b_dim, k, 2**16), dtype=torch.int64, device=cuda_device)
+        out[:add_rows] = add
+        add = out[:add_rows]
+    before = (convert_cuda.KERNEL.launches, convert_cuda.MOD_DOWN.launches,
+              convert_cuda.MOD_DOWN.components)
+    got = convert_cuda.mod_down_cuda(acc, ksc.p2q, ksc.p2q_epilogue, add, out=out)
+    after = (convert_cuda.KERNEL.launches, convert_cuda.MOD_DOWN.launches,
+             convert_cuda.MOD_DOWN.components)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + b_dim)
+    assert torch.equal(got, want)
+    if alias:
+        assert got.data_ptr() == out.data_ptr()
+    else:  # the plain conversions' launch shape: groups of 16, two coefficients a thread
+        assert torch.equal(convert_cuda.mod_down_cuda(acc, ksc.p2q, ksc.p2q_epilogue, add, None,
+                                                      convert_cuda.GROUP, convert_cuda.CPT), want)
+
+
+@pytest.mark.parametrize("name,level", [("config5_boot_dw", 48), ("config5_boot_dw", 37),
+                                        ("bfv_n16", 30), ("config5_boot", 6)])
+def test_mod_up_in_place_matches_stacked_list(cuda_device, name, level):
+    """mod_up writes each group's conversion into its row of one stack: ==
+    the stacked list of plain conversions, one K3 launch per group."""
+    params = preset(name)
+    ctx = make_context(params, device=cuda_device)
+    ksc = rns.make_ks_context(params, level, device=cuda_device)
+    x = torch.from_numpy(_rand(params.q_primes, range(level), params.n, level)).to(cuda_device)
+    groups = rns.ks_groups(params, level)
+    want = torch.stack([convert_cuda.base_convert_plain(x[d0:d1], ksc.modup[g])
+                        for g, (d0, d1) in enumerate(groups)])
+    before = convert_cuda.KERNEL.launches
+    got = rns.mod_up(x, params, level, ctx, ksc)
+    assert convert_cuda.KERNEL.launches == before + len(groups)
+    assert torch.equal(got, want)
+
+
+def test_mod_down_once_per_key_switch(cuda_device):
+    """One fused ModDown launch for both components of every key switch: a
+    ct_mul_full (the addend its d0, d1), a rotation, a BGV and a BFV ct_mul;
+    and the card's limbs == the CPU path's."""
+    from gpufhe_tpu_torch.ciphertext import bfv, bgv
+    from gpufhe_tpu_torch.golden import bfv as gbfv
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+
+    def count(fn):
+        before = (convert_cuda.MOD_DOWN.launches, convert_cuda.MOD_DOWN.components)
+        out = fn()
+        return out, (convert_cuda.MOD_DOWN.launches - before[0],
+                     convert_cuda.MOD_DOWN.components - before[1])
+
+    params = preset("boot_dw_ci")
+    z = np.random.default_rng(1).normal(size=params.slots)
+    outs = {}
+    for device in ("cpu", cuda_device):
+        ctx = make_context(params, device=device)
+        chest = dkeys.keygen(params, np.random.default_rng(2), rotations=(1,), ctx=ctx)
+        ca = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                         np.random.default_rng(3), params.scale)
+        prod, n_mul = count(lambda: dct.ct_mul_full(ca, ca, params, ctx, chest.device_rlk))
+        rot, n_rot = count(lambda: dct.ct_rotate(ca, 1, params, ctx, chest.galois_key(1)))
+        outs[str(device)] = [c.cpu() for c in (*prod.c, *rot.c)]
+        if device != "cpu":
+            assert n_mul == (1, 2) and n_rot == (1, 2)
+        else:
+            assert n_mul == n_rot == (0, 0)
+    assert all(torch.equal(g, w) for g, w in zip(outs[str(cuda_device)], outs["cpu"]))
+
+    for mod, gmod, name in ((bgv, gbgv, "bgv_ci"), (bfv, gbfv, "bfv_ci")):
+        params = preset(name)
+        ctx = make_context(params, device=cuda_device)
+        chest = mod.keygen(params, np.random.default_rng(2), ctx=ctx)
+        zi = np.random.default_rng(4).integers(0, params.plain_modulus, size=params.n)
+        a = mod.encrypt(gmod.encode(zi, params), params, chest.device_pk, ctx,
+                        np.random.default_rng(5))
+        prod, n_mul = count(lambda: mod.ct_mul(a, a, params, ctx, chest.device_rlk))
+        assert n_mul == (1, 2), name
+        want = zi * zi % params.plain_modulus
+        assert (mod.decrypt_decode(prod, params, chest.device_sk, ctx) == want).all(), name
 
 
 @pytest.mark.parametrize("name", ["ci_small", "boot_dw_ci"])
