@@ -3564,8 +3564,8 @@ RESCALE_NAME = r"rescale_kernel<[^>]*>"
 
 
 def rescale_kernel_run(dev, smi) -> dict:
-    """The rescale kernel (csrc/rescale.cu) == its plain versions (rns
-    _rescale_plain, _modswitch_plain, one call a dropped limb) at the paths'
+    """The rescale kernel (csrc/rescale.cu) == its plain version
+    (rescale_cuda.drop_limbs_plain, one call a dropped limb) at the paths'
     shapes, in each of its three instances: config5_boot_dw's double-word
     rescale of both components at the multiply's levels 48 .. 34 (dw), its
     one-limb rescale at the refresh's EvalMod levels 38 .. 25 (backend.rescale,
@@ -3579,9 +3579,7 @@ def rescale_kernel_run(dev, smi) -> dict:
     once, at 4 B a residue as every bound of the kernels line counts them;
     the bytes the int64 interface moves, 8 B a residue, beside it)."""
     from gpufhe_tpu_torch.ops import probes, rescale_cuda
-    from gpufhe_tpu_torch.ops.context import make_context
     from gpufhe_tpu_torch.params.params import preset
-    from gpufhe_tpu_torch.primitives import rns
 
     rng = np.random.default_rng(SEED)
     # the instance: (preset, limbs dropped a launch, [levels checked], the level timed)
@@ -3598,15 +3596,17 @@ def rescale_kernel_run(dev, smi) -> dict:
             x[:, level - 1, col] = want * (-t) % q_l if t else want
         return torch.from_numpy(x).to(dev)
 
+    def tables(params, level, words):
+        return rescale_cuda.drop_tables(params.q_primes[:level], words, params.plain_modulus,
+                                        dev)
+
     def kernel(x, params, level, words):
-        tabs = [rns.make_ks_context(params, level - d, device=dev).drop for d in range(words)]
-        return rescale_cuda.drop_limbs(x, level, tabs, bool(params.plain_modulus))
+        return rescale_cuda.drop_limbs(x, level, tables(params, level, words),
+                                       bool(params.plain_modulus))
 
     def plain(x, params, level, words):
-        c = make_context(params, device=dev)
-        body = rns._modswitch_plain if params.plain_modulus else rns._rescale_plain
-        for d in range(words):
-            x = body(x, params, level - d, c, rns.make_ks_context(params, level - d, device=dev))
+        for d, tab in enumerate(tables(params, level, words)):
+            x = rescale_cuda.drop_limbs_plain(x, level - d, [tab], bool(params.plain_modulus))
         return x
 
     checked = []
@@ -3789,7 +3789,8 @@ def main() -> None:
     before = convert_cuda.MOD_DOWN.launches
     fused = rns.mod_down(acc_dw, dw, L_dw, ctx_dw, ksc_dw, addend=add_dw)
     fused_launches = convert_cuda.MOD_DOWN.launches - before
-    conv_err = max(conv_err, exact(fused, rns._mod_down_plain(acc_dw, ksc_dw, add_dw),
+    conv_err = max(conv_err, exact(fused, convert_cuda.mod_down_plain(
+                                       acc_dw, ksc_dw.p2q, ksc_dw.p2q_epilogue, add_dw),
                                    f"fused ModDown {qp_dw}->{L_dw} x 2 with an addend"))
     if fused_launches != 1:
         raise AssertionError(f"fused ModDown: {fused_launches} launches, not 1")
@@ -4031,8 +4032,8 @@ def main() -> None:
     fused_down = lambda: rns.mod_down(acc_dw, dw, L_dw, ctx_dw, ksc_dw, addend=add_dw)  # noqa: E731
     times["mod_down_dw"] = cuda_ms(fused_down)
     dev_times["mod_down_dw"], _ = kernel_ms(fused_down, K3_NAME)
-    times["mod_down_dw_plain"] = cuda_ms(lambda: rns._mod_down_plain(acc_dw, ksc_dw, add_dw),
-                                         iters=5)
+    times["mod_down_dw_plain"] = cuda_ms(lambda: convert_cuda.mod_down_plain(
+        acc_dw, ksc_dw.p2q, ksc_dw.p2q_epilogue, add_dw), iters=5)
     for key, args in mac_inputs.items():
         times[f"mac_{key}"] = cuda_ms(lambda: mac_cuda.mac_cuda(*args))
         dev_times[f"mac_{key}"], _ = kernel_ms(lambda: mac_cuda.mac_cuda(*args), K4_NAME)

@@ -145,13 +145,10 @@ class DeviceBackend:
             _check_scales(float(ct.scale) * float(s), out_scale)
         const_ntt = None
         if const is not None:
-            lvl = cts[0].level - self.params.scale_words
-            s = out_scale
-            l = cts[0].level
-            for _ in range(self.params.scale_words):
-                s = s / self.params.q_primes[l - 1]
-                l -= 1
-            const_ntt = self._addp_pt(const, s, lvl)
+            level, words = cts[0].level, self.params.scale_words
+            const_ntt = self._addp_pt(
+                const, self._ct._rescaled_scale(out_scale, self.params, level, words),
+                level - words)
         return self._ct.ct_plain_mac(
             cts, pts, const_ntt, self.params, self.ctx, out_scale
         )
@@ -225,9 +222,9 @@ class DeviceBackend:
         return self._ct.ct_mod_raise(ct, self.params, self.ctx)
 
     def rescale(self, ct):
-        for _ in range(self.params.scale_words):
-            ct = self._ct.ct_rescale(ct, self.params, self.ctx)
-        return ct
+        """Drop scale_words limbs: one transform each way, one drop (ct.py
+        rescale_core)."""
+        return self._ct._rescale(ct, self.params, self.ctx, self.params.scale_words)
 
     def rescale_prod(self, level: int) -> float:
         """Product of the primes a rescale from `level` divides by."""

@@ -290,8 +290,7 @@ def ct_mul(a: BFVCiphertext, b: BFVCiphertext, params: CKKSParams, ctx: Context,
 def ct_mod_reduce(ct: BFVCiphertext, params: CKKSParams, ctx: Context) -> BFVCiphertext:
     """Drop q_last by the CKKS rescale's centred exact division: Delta
     shrinks to floor(Q'/t) and the plaintext stays."""
-    ksc = _ckks_ksc(params, ct.level, ctx.device)
-    return BFVCiphertext(dct.rescale_core(ct.c, ctx, ksc, params, ct.level), ct.level - 1)
+    return BFVCiphertext(dct.rescale_core(ct.c, ctx, params, ct.level), ct.level - 1)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,8 @@ Counterpart of gpufhe_tpu/ciphertext/bgv.py, limb for limb. BGV runs on the
 CKKS machinery (ciphertext/ct.py's cores, primitives/keyswitch.py): for BGV
 parameters make_ks_context folds the t-correction of the ModDown by P into
 its conversion tables, so the same key switch, and kernel K3, divide by P
-correctly for BGV. Only ModSwitch, the rescale's counterpart, has its own
-function (primitives/rns.py bgv_modswitch).
+correctly for BGV. ModSwitch, the rescale's counterpart, is the rescale
+kernel's BGV mode (ct.py rescale_core and _mul_core with bgv).
 
 Errors enter times t (c0 + c1 s = m + t e mod Q) and decryption reduces the
 centred value mod t. A ciphertext tracks `pt_factor`, the product of the
@@ -26,10 +26,10 @@ from gpufhe_tpu_torch.golden import ckks as gckks
 from gpufhe_tpu_torch.keys import keys as dkeys
 from gpufhe_tpu_torch.keys.keys import DeviceKSKey, DevicePublicKey, DeviceSecretKey
 from gpufhe_tpu_torch.ops.context import Context
-from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
+from gpufhe_tpu_torch.ops.ntt import ntt_fwd
 from gpufhe_tpu_torch.params.params import CKKSParams
-from gpufhe_tpu_torch.primitives.keyswitch import hoist, key_switch_core
-from gpufhe_tpu_torch.primitives.rns import bgv_modswitch, make_ks_context
+from gpufhe_tpu_torch.primitives.keyswitch import hoist
+from gpufhe_tpu_torch.primitives.rns import make_ks_context
 from gpufhe_tpu_torch.utils.profiling import stage
 
 
@@ -142,36 +142,24 @@ def ct_modswitch(ct: BGVCiphertext, params: CKKSParams, ctx: Context) -> BGVCiph
     """Drop q_last (level K -> K-1), the t-corrected division; one batched
     transform each way. Span `rescale`."""
     level = ct.level
-    with stage("rescale"):
-        ksc = make_ks_context(params, level, device=ctx.device)
-        coeff = ntt_inv(torch.stack(ct.c), ctx, limbs=range(level))
-        down = ntt_fwd(bgv_modswitch(coeff, params, level, ctx, ksc), ctx,
-                       limbs=range(level - 1))
-    return BGVCiphertext(list(down), level - 1, _modswitched_factor(ct.pt_factor, params, level))
+    return BGVCiphertext(dct.rescale_core(ct.c, ctx, params, level, bgv=True), level - 1,
+                         _modswitched_factor(ct.pt_factor, params, level))
 
 
 def ct_mul(a: BGVCiphertext, b: BGVCiphertext, params: CKKSParams, ctx: Context,
            rlk: DeviceKSKey) -> BGVCiphertext:
-    """Tensor, relinearise and ModSwitch fused (reference bgv.py:181-230): the
-    key switch stays in the coefficient domain (eval_out=False), d0 and d1
-    are brought there by one batched iNTT and added in its ModDown, ModSwitch
-    runs there, and one batched NTT brings both components back: by NTT
-    linearity the limbs equal ct_modswitch(ct_relinearize(ct_tensor)). Output
-    at level - 1, pt_factor the factors' product times q_last mod t. Span
-    `bgv.mul`, the ModSwitch inside it `rescale`."""
+    """Tensor, relinearise and ModSwitch fused (reference bgv.py:181-230;
+    ct.py _mul_core with bgv): by NTT linearity the limbs equal
+    ct_modswitch(ct_relinearize(ct_tensor)). Output at level - 1, pt_factor
+    the factors' product times q_last mod t. Span `bgv.mul`, the ModSwitch
+    inside it `rescale`."""
     if a.level != b.level or len(a.c) != 2 or len(b.c) != 2:
         raise ValueError("ct_mul takes two 2-component ciphertexts at one level")
     level = a.level
     with stage("bgv.mul"):
-        d0, d1, d2 = dct.tensor_core(a.c, b.c, ctx, level)
-        ksc = make_ks_context(params, level, device=ctx.device)
-        cc = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False,
-                             addend=ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)))
-        with stage("rescale"):
-            cc = bgv_modswitch(cc, params, level, ctx, ksc)
-        down = ntt_fwd(cc, ctx, limbs=range(level - 1))
+        down = dct._mul_core(a.c, b.c, ctx, rlk, params, level, bgv=True)
     t = params.plain_modulus
-    return BGVCiphertext(list(down), level - 1,
+    return BGVCiphertext(down, level - 1,
                          _modswitched_factor(a.pt_factor * b.pt_factor % t, params, level))
 
 

@@ -23,6 +23,7 @@ have no counterpart.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -31,13 +32,14 @@ import torch
 from gpufhe_tpu_torch.golden import ckks as gckks
 from gpufhe_tpu_torch.keys.keys import DeviceKSKey, DevicePublicKey, DeviceSecretKey
 from gpufhe_tpu_torch.ops.context import Context
+from gpufhe_tpu_torch.ops import rescale_cuda
 from gpufhe_tpu_torch.ops.mac_cuda import mac
 from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, mul_mod, sub_mod
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.keyswitch import (gadget_mac, hoist, key_switch_core, ks_finish,
                                                    qp_indices)
-from gpufhe_tpu_torch.primitives.rns import KSContext, make_ks_context, rescale, rescale_words
+from gpufhe_tpu_torch.primitives.rns import KSContext, make_ks_context
 from gpufhe_tpu_torch.utils.profiling import stage
 
 
@@ -155,13 +157,55 @@ def relin_core(cs, ctx: Context, ksc: KSContext, rlk: DeviceKSKey, params: CKKSP
     return add_mod(cs[0], ks0, q), add_mod(cs[1], ks1, q)
 
 
-def rescale_core(cs, ctx: Context, ksc: KSContext, params: CKKSParams, level: int) -> list:
-    """Divide by the last active prime: level K -> K-1, one batched transform
-    each way. Span `rescale`."""
+def rescale_core(cs, ctx: Context, params: CKKSParams, level: int, words: int = 1,
+                 bgv: bool = False) -> list:
+    """Divide by the last `words` active primes (with bgv, BGV's ModSwitch of
+    one): level K -> K - words, one batched transform each way and one drop
+    (_drop_tail). Span `rescale`."""
     with stage("rescale"):
-        coeff = ntt_inv(torch.stack(list(cs)), ctx, limbs=range(level))
-        return list(ntt_fwd(rescale(coeff, params, level, ctx, ksc), ctx,
-                            limbs=range(level - 1)))
+        return _drop_tail(ntt_inv(torch.stack(list(cs)), ctx, limbs=range(level)), params,
+                          level, words, ctx, bgv, span=False)
+
+
+def _drop_tail(cc: torch.Tensor, params: CKKSParams, level: int, words: int, ctx: Context,
+               bgv: bool = False, span: bool = True) -> list:
+    """The tail of every rescale and ModSwitch: coefficient-domain limbs
+    int64[C, K, N] lose their last `words` limbs in one drop_limbs call (the
+    rescale kernel on the card; BGV's t-corrected ModSwitch where bgv), and
+    one batched NTT brings the C components back, int64[K - words, N] each.
+    Span `rescale` around the drop, unless the caller's holds the tail. The
+    callers hand `cc` over (no reference of theirs), so it is freed before
+    the NTT allocates."""
+    t = params.plain_modulus if bgv else 0
+    with stage("rescale") if span else contextlib.nullcontext():
+        cc = rescale_cuda.drop_limbs(
+            cc, level, rescale_cuda.drop_tables(params.q_primes[:level], words, t, cc.device),
+            bgv)
+    return list(ntt_fwd(cc, ctx, limbs=range(level - words)))
+
+
+def _rescaled_scale(scale: float, params: CKKSParams, level: int, words: int) -> float:
+    """The scale after `words` rescales from `level`: scale / q_{K-1} / q_{K-2},
+    divided in sequence as the reference rounds it."""
+    for q_last in reversed(params.q_primes[level - words : level]):
+        scale = scale / q_last
+    return scale
+
+
+def _mul_core(ca, cb, ctx: Context, rlk: DeviceKSKey, params: CKKSParams, level: int,
+              bgv: bool = False) -> list:
+    """Tensor, relinearise and drop fused, the CKKS ct_mul_full and the BGV
+    ct_mul: the key switch of d2 stays in the coefficient domain
+    (eval_out=False), d0 and d1 come there by one batched iNTT and are added
+    in its ModDown (iNTT(d_i) + ks_i equals iNTT(d_i + NTT(ks_i)) mod q), and
+    the tail drops scale_words limbs (with bgv, one by the ModSwitch) and
+    brings both components back by one batched NTT."""
+    d0, d1, d2 = tensor_core(ca, cb, ctx, level)
+    ksc = make_ks_context(params, level, device=ctx.device)
+    return _drop_tail(key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False,
+                                      addend=ntt_inv(torch.stack([d0, d1]), ctx,
+                                                     limbs=range(level))),
+                      params, level, 1 if bgv else params.scale_words, ctx, bgv)
 
 
 def galois_core(cs, g: int, ctx: Context, ksc: KSContext, key: DeviceKSKey, params: CKKSParams,
@@ -236,10 +280,13 @@ def ct_relinearize(ct: Ciphertext, params: CKKSParams, ctx: Context,
 
 def ct_rescale(ct: Ciphertext, params: CKKSParams, ctx: Context) -> Ciphertext:
     """Divide by the last active prime: level K -> K-1, one batched transform each way."""
-    level = ct.level
-    ksc = make_ks_context(params, level, device=ctx.device)
-    return Ciphertext(rescale_core(ct.c, ctx, ksc, params, level), level - 1,
-                      ct.scale / params.q_primes[level - 1])
+    return _rescale(ct, params, ctx, 1)
+
+
+def _rescale(ct: Ciphertext, params: CKKSParams, ctx: Context, words: int) -> Ciphertext:
+    """Divide by the last `words` active primes (rescale_core)."""
+    return Ciphertext(rescale_core(ct.c, ctx, params, ct.level, words), ct.level - words,
+                      _rescaled_scale(ct.scale, params, ct.level, words))
 
 
 def ct_mul(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
@@ -252,37 +299,13 @@ def ct_mul(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
 def ct_mul_full(a: Ciphertext, b: Ciphertext, params: CKKSParams, ctx: Context,
                 rlk: DeviceKSKey) -> Ciphertext:
     """Tensor + relinearize + scale_words rescales, limb-equal to the reference's
-    _mul_full_core.
-
-    The key switch stays in the coefficient domain (eval_out=False): iNTT(d_i)
-    + ks_i equals iNTT(d_i + NTT(ks_i)) mod q, so the rescales run back to back
-    without an NTT round trip, and one batched NTT brings both components back.
-    The sums iNTT(d_i) + ks_i are formed in the key switch's ModDown.
-    Span `ckks.mul`.
-    """
+    _mul_full_core (_mul_core). Span `ckks.mul`."""
     if a.level != b.level or len(a.c) != 2 or len(b.c) != 2:
         raise ValueError("ct_mul_full takes two 2-component ciphertexts at one level")
     with stage("ckks.mul"):
-        level = a.level
-        d0, d1, d2 = tensor_core(a.c, b.c, ctx, level)
-        ksc = make_ks_context(params, level, device=ctx.device)
-        cc = key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False,
-                             addend=ntt_inv(torch.stack([d0, d1]), ctx, limbs=range(level)))
-        cc, lvl, scale = _rescale_chain(cc, params, level, ctx, a.scale * b.scale)
-        out = ntt_fwd(cc, ctx, limbs=range(lvl))
-        return Ciphertext(list(out), lvl, scale)
-
-
-def _rescale_chain(cc: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
-                   scale: float) -> tuple[torch.Tensor, int, float]:
-    """scale_words rescales of coefficient-domain int64[..., K, N], back to
-    back (one kernel launch on the card). Span `rescale`."""
-    words = params.scale_words
-    with stage("rescale"):
-        cc = rescale_words(cc, params, level, words, ctx)
-    for q_last in reversed(params.q_primes[level - words : level]):  # the sequential rounding
-        scale = scale / q_last
-    return cc, level - words, scale
+        level, words = a.level, params.scale_words
+        return Ciphertext(_mul_core(a.c, b.c, ctx, rlk, params, level), level - words,
+                          _rescaled_scale(a.scale * b.scale, params, level, words))
 
 
 def ct_plain_mac(cts: list, pt_monts: list, const_ntt, params: CKKSParams, ctx: Context,
@@ -303,12 +326,11 @@ def ct_plain_mac(cts: list, pt_monts: list, const_ntt, params: CKKSParams, ctx: 
     rows = ctx.index(range(level), torch.int32)
     acc = mac(torch.stack([pt[:level] for pt in pt_monts]), torch.stack([c.c[0] for c in cts]),
               torch.stack([c.c[1] for c in cts]), rows, rows, ctx)
-    cc = ntt_inv(acc, ctx, limbs=range(level))
-    cc, lvl, scale = _rescale_chain(cc, params, level, ctx, out_scale)
-    out = list(ntt_fwd(cc, ctx, limbs=range(lvl)))
+    words = params.scale_words
+    out = _drop_tail(ntt_inv(acc, ctx, limbs=range(level)), params, level, words, ctx)
     if const_ntt is not None:
-        out[0] = add_mod(out[0], const_ntt, ctx.col("q", range(lvl)))
-    return Ciphertext(out, lvl, scale)
+        out[0] = add_mod(out[0], const_ntt, ctx.col("q", range(level - words)))
+    return Ciphertext(out, level - words, _rescaled_scale(out_scale, params, level, words))
 
 
 def ct_mul_plain(ct: Ciphertext, pt_mont: torch.Tensor, pt_scale: float,
@@ -424,7 +446,7 @@ def ct_diag_fan(
     if len(ct.c) != 2:
         raise ValueError("ct_diag_fan takes a 2-component ciphertext")
     with stage("fan"):
-        level = ct.level
+        level, words = ct.level, params.scale_words
         r_count = len(offsets)
         qp = qp_indices(params, level)
         ksc = make_ks_context(params, level, device=ctx.device)
@@ -448,9 +470,10 @@ def ct_diag_fan(
                 p0 = mac(pt0[:level][None], c0[None], c1[None], rows_q, rows_q, ctx)
                 e = [add_mod(e[0], p0[0], q), p0[1]]
             e_coeff = ntt_inv(torch.stack(e), ctx, limbs=range(level))
-            cc = ks_finish(acc, params, level, ctx, ksc, eval_out=False, addend=e_coeff)
-            cc, lvl, scale = _rescale_chain(cc, params, level, ctx, ct.scale * pt_scale)
-            outs.append(Ciphertext(list(ntt_fwd(cc, ctx, limbs=range(lvl))), lvl, scale))
+            outs.append(Ciphertext(
+                _drop_tail(ks_finish(acc, params, level, ctx, ksc, eval_out=False,
+                                     addend=e_coeff), params, level, words, ctx),
+                level - words, _rescaled_scale(ct.scale * pt_scale, params, level, words)))
         return outs
 
 

@@ -118,6 +118,7 @@ class ChebyshevEvaluator:
         while m // 2 < self.d:
             get(m)
             m *= 2
+        del get  # get's closure holds get: a cycle that would keep T until a collection
         return T
 
     # -- evaluation ---------------------------------------------------------

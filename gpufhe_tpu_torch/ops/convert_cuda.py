@@ -29,10 +29,11 @@ acc int64[B, K + alpha, N], with the P -> Q tables and the epilogue's table
 
     out[b] = (acc[b, :K] - conv(acc[b, K:])) * [P^-1]_q + addend[b]  mod q
 
-canonical, the addend for its B' <= B leading rows only. Its plain version
-is primitives/rns.py's (base_convert_plain, then sub_mod, the P^-1 product
-and add_mod). `MOD_DOWN` counts those launches and the components they
-cover; `KERNEL.launches` counts them with every other launch of the kernel.
+canonical, the addend for its B' <= B leading rows only. `mod_down` runs
+`mod_down_plain` on a CPU tensor (base_convert_plain, then sub_mod, the P^-1
+product and add_mod) and launches `mod_down_cuda` on a CUDA tensor.
+`MOD_DOWN` counts those launches and the components they cover;
+`KERNEL.launches` counts them with every other launch of the kernel.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import torch
 
 from gpufhe_tpu_torch.golden import rns as grns
 from gpufhe_tpu_torch.ops.cuda_build import CudaKernel
-from gpufhe_tpu_torch.ops.modops import add_mod
+from gpufhe_tpu_torch.ops.modops import add_mod, sub_mod
 
 # what the kernel takes (csrc/convert.cu): 32-bit residues of 30-bit primes,
 # a grid row per destination group, and one chunk of conversion rows in its
@@ -226,6 +227,15 @@ def base_convert_cuda(x: torch.Tensor, tabs: ConvertTables, group: int = GROUP,
     return out
 
 
+def mod_down(acc: torch.Tensor, tabs: ConvertTables, table: torch.Tensor,
+             addend: torch.Tensor | None = None) -> torch.Tensor:
+    """ModDown by P: acc int64[B, K + alpha, N] -> int64[B, K, N] canonical,
+    plus addend int64[B', K, N] (B' <= B) on its leading rows."""
+    if acc.device.type == "cpu":
+        return mod_down_plain(acc, tabs, table, addend)
+    return mod_down_cuda(acc, tabs, table, addend)
+
+
 def mod_down_cuda(acc: torch.Tensor, tabs: ConvertTables, table: torch.Tensor,
                   addend: torch.Tensor | None = None, out: torch.Tensor | None = None,
                   group: int = MOD_DOWN_GROUP, cpt: int = MOD_DOWN_CPT) -> torch.Tensor:
@@ -271,3 +281,17 @@ def base_convert_plain(x: torch.Tensor, tabs: ConvertTables) -> torch.Tensor:
         term = torch.remainder(v[..., i : i + 1, :] * tabs.conv[:, i : i + 1], dq)
         acc = term if acc is None else add_mod(acc, term, dq)
     return acc
+
+
+def mod_down_plain(acc: torch.Tensor, tabs: ConvertTables, table: torch.Tensor,
+                   addend: torch.Tensor | None = None) -> torch.Tensor:
+    """The same ModDown in int64: the conversion, sub_mod, the P^-1 product
+    (the table's first row) and add_mod of the addend."""
+    k = tabs.dq.numel()
+    q = tabs.dq[:, None]
+    diff = sub_mod(acc[:, :k], base_convert_plain(acc[:, k:], tabs), q)
+    pinv = table[0].to(torch.int64) & 0xFFFFFFFF  # u32 held in int32
+    down = torch.remainder(diff * pinv[:, None], q)
+    if addend is not None:
+        down[: addend.shape[0]] = add_mod(down[: addend.shape[0]], addend, q)
+    return down

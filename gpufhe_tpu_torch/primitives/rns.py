@@ -10,8 +10,9 @@ ModSwitch use the same centered lift of the dropped limb. base_convert is the
 reference's public conversion from its Montgomery tables, on the plain
 modular ops. Polynomials are int64[K, N] in the coefficient domain;
 rescale, rescale_words and bgv_modswitch also take leading batch axes, and
-on a CUDA tensor launch the rescale kernel (ops/rescale_cuda.py) once, for
-every limb they drop; on a CPU tensor they run their plain int64 version.
+call the rescale kernel's entry (ops/rescale_cuda.py drop_limbs) once,
+whatever the number of limbs they drop. Each kernel's entry in ops/ runs its
+plain int64 version on a CPU tensor.
 
 For BGV parameters (plain_modulus t > 0) the key switch's ModDown must
 divide by P with a correction that is 0 mod t. make_ks_context folds it into
@@ -32,7 +33,7 @@ from gpufhe_tpu_torch.golden import rns as grns
 from gpufhe_tpu_torch.ops.context import Context
 from gpufhe_tpu_torch.ops import convert_cuda, rescale_cuda
 from gpufhe_tpu_torch.ops.convert_cuda import ConvertTables, make_convert_tables
-from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, sub_mod
+from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul
 from gpufhe_tpu_torch.params.params import CKKSParams
 
 R = 1 << 32  # the Montgomery radix
@@ -46,7 +47,7 @@ def ks_groups(params: CKKSParams, level: int) -> list[tuple[int, int]]:
 
 @dataclasses.dataclass(frozen=True)
 class KSContext:
-    """Per-(params, level) device tables for key switching and rescale."""
+    """Per-(params, level) device tables for key switching."""
 
     # ModUp, one per decomposition group: the group's limbs -> the FULL
     # active Q+P chain. The rows of the group's own limbs are the identity
@@ -56,10 +57,6 @@ class KSContext:
     # ModDown's epilogue in K3, [P^-1]_{q_i} first (ops/convert_cuda.py
     # make_mod_down_table; the plain version reads it there too)
     p2q_epilogue: torch.Tensor
-    # the rescale and ModSwitch constants of dropping q_last, in the rescale
-    # kernel's layout (ops/rescale_cuda.py make_drop_table; the plain
-    # versions read them through table_rows)
-    drop: torch.Tensor
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,7 +80,6 @@ def make_ks_context(params: CKKSParams, level: int, *, device: str = "cuda") -> 
         ),
         p2q=p2q,
         p2q_epilogue=convert_cuda.make_mod_down_table(ps, qs, device),
-        drop=rescale_cuda.make_drop_table(qs, t, device),
     )
 
 
@@ -125,67 +121,31 @@ def mod_down(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context
     """Division by P: int64[..., K + alpha, N] -> int64[..., K, N] (coefficient
     domain), plus `addend` (int64[K, N] or int64[B', K, N]: one row for each
     of the first B' components; coefficient domain). One K3 launch on the
-    card for every component; on the CPU its plain int64 version."""
-    if x_coeff.device.type == "cpu":
-        return _mod_down_plain(x_coeff, ksc, addend)
+    card for every component (ops/convert_cuda.py mod_down)."""
     *lead, rows, n = x_coeff.shape
-    out = convert_cuda.mod_down_cuda(
-        x_coeff.reshape(-1, rows, n), ksc.p2q, ksc.p2q_epilogue,
-        None if addend is None else addend.reshape(-1, level, n))
+    out = convert_cuda.mod_down(x_coeff.reshape(-1, rows, n), ksc.p2q, ksc.p2q_epilogue,
+                                None if addend is None else addend.reshape(-1, level, n))
     return out.view(*lead, level, n)
-
-
-def _mod_down_plain(x_coeff: torch.Tensor, ksc: KSContext,
-                    addend: torch.Tensor | None) -> torch.Tensor:
-    k = ksc.p2q.dq.numel()
-    q = ksc.p2q.dq[:, None]
-    p_part = convert_cuda.base_convert_plain(x_coeff[..., k:, :], ksc.p2q)
-    diff = sub_mod(x_coeff[..., :k, :], p_part, q)
-    pinv = ksc.p2q_epilogue[0].to(torch.int64) & 0xFFFFFFFF  # u32 held in int32
-    down = torch.remainder(diff * pinv[:, None], q)
-    if addend is None:
-        return down
-    flat = down.reshape(-1, k, down.shape[-1])
-    add = addend.reshape(-1, k, down.shape[-1])
-    b = add.shape[0]
-    return torch.cat([add_mod(flat[:b], add, q), flat[b:]]).view(down.shape)
 
 
 def rescale(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
             ksc: KSContext) -> torch.Tensor:
     """Drop the last active limb: int64[..., K, N] -> int64[..., K-1, N].
 
-    (x - centered([x]_{q_last})) / q_last on every remaining limb.
+    (x - centered([x]_{q_last})) / q_last on every remaining limb. `ksc`, the
+    reference's parameter, is not read: the drop has tables of its own.
     """
-    if x_coeff.device.type != "cpu":
-        return rescale_cuda.drop_limbs(x_coeff, level, (ksc.drop,), bgv=False)
-    return _rescale_plain(x_coeff, params, level, ctx, ksc)
+    return rescale_words(x_coeff, params, level, 1, ctx)
 
 
 def rescale_words(x_coeff: torch.Tensor, params: CKKSParams, level: int, words: int,
                   ctx: Context) -> torch.Tensor:
     """`words` rescales back to back (a double-word scale drops a limb pair):
     int64[..., K, N] -> int64[..., K-words, N], equal to `words` calls of
-    rescale; one kernel launch on the card."""
-    kscs = [make_ks_context(params, level - d, device=ctx.device) for d in range(words)]
-    if x_coeff.device.type != "cpu":
-        return rescale_cuda.drop_limbs(x_coeff, level, [k.drop for k in kscs], bgv=False)
-    for d, ksc in enumerate(kscs):
-        x_coeff = _rescale_plain(x_coeff, params, level - d, ctx, ksc)
-    return x_coeff
-
-
-def _rescale_plain(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
-                   ksc: KSContext) -> torch.Tensor:
-    k = level
-    q_last = params.q_primes[k - 1]
-    q = ctx.col("q", range(k - 1))
-    c = rescale_cuda.table_rows(ksc.drop)
-    last = x_coeff[..., k - 1 : k, :]
-    r = torch.remainder(last, q)  # [x]_{q_last} mod q_i
-    lifted = torch.where(last > q_last // 2, sub_mod(r, c["ql_mod"][:, None], q), r)
-    diff = sub_mod(x_coeff[..., : k - 1, :], lifted, q)
-    return torch.remainder(diff * c["ql_inv"][:, None], q)
+    rescale."""
+    return rescale_cuda.drop_limbs(
+        x_coeff, level, rescale_cuda.drop_tables(params.q_primes[:level], words, 0,
+                                                 x_coeff.device), bgv=False)
 
 
 def bgv_modswitch(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
@@ -195,22 +155,9 @@ def bgv_modswitch(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Co
 
     out = (x + t * centered([-x t^-1]_{q_last})) / q_last on every remaining
     limb, the centered lift by the rescale's rule (u > q_last // 2 lifts to
-    u - q_last).
+    u - q_last). `ksc` is not read, as in rescale.
     """
-    if x_coeff.device.type != "cpu":
-        return rescale_cuda.drop_limbs(x_coeff, level, (ksc.drop,), bgv=True)
-    return _modswitch_plain(x_coeff, params, level, ctx, ksc)
-
-
-def _modswitch_plain(x_coeff: torch.Tensor, params: CKKSParams, level: int, ctx: Context,
-                     ksc: KSContext) -> torch.Tensor:
-    k = level
-    q_last = params.q_primes[k - 1]
-    q = ctx.col("q", range(k - 1))
-    c = rescale_cuda.table_rows(ksc.drop)
-    u = torch.remainder(x_coeff[..., k - 1 : k, :] * c["negtinv"], q_last)
-    r = torch.remainder(u, q)
-    lifted = torch.where(u > q_last // 2, sub_mod(r, c["ql_mod"][:, None], q), r)
-    summed = add_mod(x_coeff[..., : k - 1, :],
-                     torch.remainder(lifted * c["t"][:, None], q), q)
-    return torch.remainder(summed * c["ql_inv"][:, None], q)
+    return rescale_cuda.drop_limbs(
+        x_coeff, level, rescale_cuda.drop_tables(params.q_primes[:level], 1,
+                                                 params.plain_modulus, x_coeff.device),
+        bgv=True)

@@ -336,11 +336,15 @@ def test_sk_conversion_centred_lift_at_its_boundary(alpha):
 
 def test_key_switch_tables_are_cached_per_scheme():
     """make_ks_context keys on params: a BFV chain's CKKS view and the BGV
-    reading of the same primes get different ModDown tables, the same ModUp."""
+    reading of the same primes get different ModDown tables, the same ModUp;
+    the drop tables key on t, [-t^-1]_{q_l} 0 for the CKKS view."""
     params = preset("bfv_ci")
     plain = prns.make_ks_context(gbfv._ckks_view(params), 6, device="cpu")
     folded = prns.make_ks_context(params, 6, device="cpu")
     assert plain is not folded and not torch.equal(plain.p2q.conv, folded.p2q.conv)
     assert torch.equal(plain.modup[0].conv, folded.modup[0].conv)
-    negtinv = [int(rescale_cuda.table_rows(k.drop)["negtinv"][0]) for k in (plain, folded)]
+    tabs = [rescale_cuda.drop_tables(params.q_primes[:6], 1, p.plain_modulus, "cpu")[0]
+            for p in (gbfv._ckks_view(params), params)]
+    assert tabs[0] is not tabs[1]
+    negtinv = [int(tab[1]) for tab in tabs]  # the header's second word
     assert negtinv[0] == 0 and negtinv[1] != 0

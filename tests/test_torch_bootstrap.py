@@ -17,7 +17,8 @@ Every phase output (mod_raise, coeff_to_slot t0 and t1, evalmod y0 and y1,
 slot_to_coeff) is == limb for limb at an equal level, scales within 1e-12
 relative, and the decode within the reference tests' tolerances. A steady
 call encodes nothing; galois_step_levels and bootstrap_rotations equal the
-reference's. A lean_keys run on a device_keygen chest drops and draws again
+reference's. The backend's rescale drops scale_words limbs in one drop with
+one transform each way, == ct_rescale scale_words times and the reference's. A lean_keys run on a device_keygen chest drops and draws again
 the Galois keys' `a` halves around its first EvalMod, and every phase output
 == a run that keeps them.
 """
@@ -147,6 +148,38 @@ def test_steady_call_encodes_nothing_and_times_its_phases(boot):
     assert be.encode_misses == before, f"{be.encode_misses - before} host encodes"
     assert list(times) == list(PHASES) and all(t >= 0 for t in times.values())
     _assert_ct_equal(out, boot["rout"])
+
+
+def test_backend_rescale_is_one_drop_between_two_transforms(boot, monkeypatch):
+    """DeviceBackend.rescale on CoeffToSlot's first output: two NTT calls
+    (one batched transform each way) and one drop_limbs call for all
+    scale_words limbs; its limbs == ct_rescale applied scale_words times ==
+    the reference's GoldenBackend.rescale."""
+    from gpufhe_tpu_torch.ops import ntt, rescale_cuda
+
+    be, params = boot["be"], boot["params"]
+    ct, rct = boot["got"]["coeff_to_slot"][0], boot["want"]["t"][0]
+    calls = {"fourstep": 0, "drop_limbs": 0}
+
+    def counted(module, name):
+        inner = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return inner(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapped)
+
+    counted(ntt, "fourstep")
+    counted(rescale_cuda, "drop_limbs")
+    out = be.rescale(ct)
+    assert calls == {"fourstep": 2, "drop_limbs": 1}
+    assert out.level == ct.level - params.scale_words
+    seq = ct
+    for _ in range(params.scale_words):
+        seq = pct.ct_rescale(seq, params, be.ctx)
+    assert out.scale == seq.scale and all(torch.equal(a, b) for a, b in zip(out.c, seq.c))
+    _assert_ct_equal(out, boot["rbs"].be.rescale(rct))
 
 
 def test_galois_step_levels_and_rotations_match_reference(boot):

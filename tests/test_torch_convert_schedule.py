@@ -253,8 +253,7 @@ def _synthetic_ks_context(alpha: int, k: int) -> prns.KSContext:
     ps, qs = primes[:alpha], primes[alpha:]
     return prns.KSContext(
         modup=(), p2q=make_convert_tables(ps, qs, "cpu"),
-        p2q_epilogue=convert_cuda.make_mod_down_table(ps, qs, "cpu"),
-        drop=torch.empty(0, dtype=torch.int32))
+        p2q_epilogue=convert_cuda.make_mod_down_table(ps, qs, "cpu"))
 
 
 # each cell's ModDown: ckks_n16_dw 58 -> 48 (alpha 10); n16_int 45 -> 30

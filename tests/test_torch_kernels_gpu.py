@@ -106,8 +106,7 @@ def _mod_down_context(case: str, device):
         ps, qs = primes[:alpha], primes[alpha:]
         return rns.KSContext(
             modup=(), p2q=make_convert_tables(ps, qs, device),
-            p2q_epilogue=convert_cuda.make_mod_down_table(ps, qs, device),
-            drop=torch.empty(0, dtype=torch.int32, device=device)), k
+            p2q_epilogue=convert_cuda.make_mod_down_table(ps, qs, device)), k
     name, level = {"ckks_n16_dw": ("config5_boot_dw", 48), "n16_int_bgv": ("bfv_n16", 30),
                    "n16_int_bfv": ("bfv_n16", 30), "ckks_n16_l30": ("config5_boot", 6)}[case]
     params = preset(name)
@@ -136,7 +135,7 @@ def test_mod_down_kernel_matches_plain(cuda_device, case, b_dim, add_rows, alias
     if add_rows:
         add = torch.from_numpy(np.stack([_rand(primes, range(k), 2**16, 60 + b)
                                          for b in range(add_rows)])).to(cuda_device)
-    want = rns._mod_down_plain(acc, ksc, add)
+    want = convert_cuda.mod_down_plain(acc, ksc.p2q, ksc.p2q_epilogue, add)
     out = None
     if alias:  # the addend as the leading rows of the output buffer
         out = torch.zeros((b_dim, k, 2**16), dtype=torch.int64, device=cuda_device)
@@ -833,29 +832,28 @@ def _drop_input(params, level, limbs, seed):
     ("bfv_n16", 1, 28, 30), ("bfv_n16", 1, 2, 2),
 ])
 def test_rescale_kernel_matches_plain(cuda_device, name, words, level, limbs):
-    """The kernel == `words` calls of the plain rescale (ModSwitch where the
-    chain has a plaintext modulus), one launch a call."""
+    """The kernel == `words` calls of the plain version, one drop each
+    (ModSwitch where the chain has a plaintext modulus), one launch a call."""
     params = preset(name)
-    ctx = make_context(params, device=cuda_device)
     bgv = bool(params.plain_modulus)
-    plain = rns._modswitch_plain if bgv else rns._rescale_plain
     x = torch.from_numpy(_drop_input(params, level, limbs, level + limbs)).to(cuda_device)
-    kscs = [rns.make_ks_context(params, level - d, device=cuda_device) for d in range(words)]
+    tabs = rescale_cuda.drop_tables(params.q_primes[:level], words, params.plain_modulus,
+                                    x.device)
     want = x
-    for d, ksc in enumerate(kscs):
-        want = plain(want, params, level - d, ctx, ksc)
+    for d, tab in enumerate(tabs):
+        want = rescale_cuda.drop_limbs_plain(want, level - d, [tab], bgv)
     before = rescale_cuda.KERNEL.launches
-    got = rescale_cuda.drop_limbs(x, level, [k.drop for k in kscs], bgv)
+    got = rescale_cuda.drop_limbs(x, level, tabs, bgv)
     assert rescale_cuda.KERNEL.launches == before + 1
     assert torch.equal(got, want)
     lead = torch.stack([x, x, x])  # [3, 2, K, N]: the leading axes flattened
-    assert torch.equal(rescale_cuda.drop_limbs(lead, level, [k.drop for k in kscs], bgv),
+    assert torch.equal(rescale_cuda.drop_limbs(lead, level, tabs, bgv),
                        torch.stack([want, want, want]))
 
 
 def test_rescale_kernel_refuses_bad_input(cuda_device):
     params = preset("ci_small")
-    tab = rns.make_ks_context(params, 4, device=cuda_device).drop
+    tab = rescale_cuda.make_drop_table(params.q_primes[:4], 0, cuda_device)
     x = torch.zeros((2, 4, params.n), dtype=torch.int64, device=cuda_device)
     for bad in (x.cpu(), x.int(), x.transpose(1, 2)):
         with pytest.raises(ValueError):
@@ -873,8 +871,7 @@ def test_rescale_kernel_once_per_operation(cuda_device, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain rescale")
 
-    monkeypatch.setattr(rns, "_rescale_plain", refuse)
-    monkeypatch.setattr(rns, "_modswitch_plain", refuse)
+    monkeypatch.setattr(rescale_cuda, "drop_limbs_plain", refuse)
     params = preset("boot_dw_ci")
     ctx = make_context(params, device=cuda_device)
     chest = dkeys.keygen(params, np.random.default_rng(2), ctx=ctx)

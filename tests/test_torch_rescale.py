@@ -1,8 +1,9 @@
 """The rescale layer's entries (primitives/rns.py rescale_words, rescale,
-bgv_modswitch) against the reference's rescale and ModSwitch, exactly, and
-the rescale kernel's arithmetic (csrc/rescale.cu), replayed in numpy from the
-kernel's own tables (ops/rescale_cuda.py make_drop_table), against the plain
-versions. The kernel itself runs only on the card
+bgv_modswitch, and the kernel's entry ops/rescale_cuda.py drop_limbs on a CPU
+tensor, its plain version) against the reference's rescale and ModSwitch,
+exactly, and the rescale kernel's arithmetic (csrc/rescale.cu), replayed in
+numpy from the kernel's own tables (ops/rescale_cuda.py make_drop_table),
+against them. The kernel itself runs only on the card
 (tests/test_torch_kernels_gpu.py)."""
 
 import jax.numpy as jnp
@@ -14,7 +15,8 @@ from gpufhe_tpu.ops.context import make_context as ref_context
 from gpufhe_tpu.params.params import preset as ref_preset
 from gpufhe_tpu.primitives import rns as rrns
 from gpufhe_tpu_torch.ops.context import make_context
-from gpufhe_tpu_torch.ops.rescale_cuda import make_drop_table, table_rows
+from gpufhe_tpu_torch.ops import rescale_cuda
+from gpufhe_tpu_torch.ops.rescale_cuda import make_drop_table
 from gpufhe_tpu_torch.params.params import preset
 from gpufhe_tpu_torch.primitives import rns as prns
 
@@ -98,8 +100,9 @@ def kernel_model(x: np.ndarray, level: int, tables, bgv: bool) -> np.ndarray:
 @pytest.mark.parametrize("at", ["top", "edge"])
 def test_drop_words_matches_reference_and_kernel_model(chain, lead, at):
     """Every leading shape, at the chain's top level and at K = words + 1:
-    the entry == words sequential plain rescales (ModSwitch for BGV) == the
-    reference's, slice for slice, and the kernel's arithmetic == them."""
+    the entry == words sequential rescales (ModSwitch for BGV) == the
+    reference's, slice for slice, drop_limbs on the CPU tensor with the
+    cached tables == the entry, and the kernel's arithmetic == them."""
     params, rparams, ctx, rctx, bgv = chain
     words = 1 if bgv else params.scale_words
     level = params.num_limbs if at == "top" else words + 1
@@ -124,14 +127,18 @@ def test_drop_words_matches_reference_and_kernel_model(chain, lead, at):
             want = ref_fn(want, rparams, level - d, rctx, rrns.make_ks_context(rparams, level - d))
         assert (got[idx].numpy() == np.asarray(want).astype(np.int64)).all()
 
-    tables = [prns.make_ks_context(params, level - d, device="cpu").drop for d in range(words)]
+    tables = rescale_cuda.drop_tables(params.q_primes[:level], words, params.plain_modulus,
+                                      torch.device("cpu"))
+    assert tables is rescale_cuda.drop_tables(params.q_primes[:level], words,
+                                              params.plain_modulus, torch.device("cpu"))
+    assert torch.equal(rescale_cuda.drop_limbs(xt, level, tables, bgv), got)
     assert (kernel_model(x, level, tables, bgv) == got.numpy()).all()
 
 
 def test_drop_table_layout():
     """make_drop_table's words: the header, then each row over the remaining
-    limbs, m_i the least multiple of q_i at or above 2^30; table_rows reads
-    them back as int64; a prime of 2^30 or more is refused."""
+    limbs, m_i the least multiple of q_i at or above 2^30; the plain
+    version reads them back as int64; a prime of 2^30 or more is refused."""
     params = preset("bgv_ci")
     qs, t = params.q_primes, params.plain_modulus
     tab = make_drop_table(qs, t, "cpu").numpy().view(np.uint32).astype(np.int64)
@@ -144,8 +151,8 @@ def test_drop_table_layout():
     assert (qlinv_s == (qlinv << 32) // q).all() and (t_s == (t_mod << 32) // q).all()
     assert (m % q == 0).all() and (m >= 2**30).all() and (m - q < 2**30).all()
     assert (t_mod == t % q).all()
-    assert all(torch.equal(v, torch.from_numpy(w)) for v, w in zip(
-        table_rows(make_drop_table(qs, t, "cpu")).values(),
-        (tab[1:2], q, qlmod, qlinv, qlinv_s, m, t_mod, t_s)))
+    assert all(torch.equal(v.flatten(), torch.from_numpy(w)) for v, w in zip(
+        rescale_cuda._table_rows(make_drop_table(qs, t, "cpu")).values(),
+        (tab[0:1], tab[1:2], q, qlmod, qlinv, qlinv_s, m, t_mod, t_s)))
     with pytest.raises(ValueError):
         make_drop_table((5, 2**30 + 3), 0, "cpu")
