@@ -7,7 +7,8 @@ Builds the CUDA kernels from gpufhe_tpu_torch/csrc with nvcc and holds each
 against its plain PyTorch version on the card: K1 (NTT), K3 (base
 conversion, and ModDown with its epilogue at the dw key switch's shape),
 K4 (key-switch MAC), the rescale kernel (rescale_kernel_run,
-which also times it alone at the benchmark cells' shapes), and the two
+which also times it alone at the benchmark cells' shapes), the tensor
+kernel (tensor_kernel_run, the same at the cells' tensor shapes), and the two
 probes, the integer rate (P2)
 and the K1 ablation builds (P1), and K1's pass entry point (ntt_pass, the
 distributed four-step's stage, `mesh_kernels`). Then it drives the paths
@@ -1073,8 +1074,9 @@ def boot_h_path(dev, smi, counts, reset, launches: dict, bounds) -> dict:
     first_s, first_misses = time.perf_counter() - t1, be.encode_misses - m0
     mark_peak("first call")
     for name, per in per_phase.items():
-        # a single-word ModRaise without encapsulation is two NTTs and no switch
-        need = ("ntt",) if name == "mod_raise" else tuple(per)
+        # a single-word ModRaise without encapsulation is two NTTs and no switch;
+        # the tensor runs only in a phase that multiplies two ciphertexts
+        need = ("ntt",) if name == "mod_raise" else tuple(k for k in per if k != "tensor")
         if min(per[k] for k in need) <= 0:
             raise AssertionError(f"boot_h phase {name}: a kernel did not run ({per})")
     # At full width the decode is printed, not held to DECODE_TOL: the
@@ -3642,6 +3644,65 @@ def rescale_kernel_run(dev, smi) -> dict:
     return {"checked": checked, "timing": timing}
 
 
+TENSOR_NAME = r"tensor_kernel"
+
+
+def tensor_kernel_run(dev, smi) -> dict:
+    """The tensor kernel (csrc/tensor.cu) == its plain version
+    (tensor_cuda.tensor_plain) at the cells' shapes: DW_PRESET's 48 Q limbs
+    (mul8, the refresh's multiplies), INT_PRESET's 30 Q limbs (bgv_mul5,
+    bfv_mul8) and its 34-limb auxiliary basis (bfv_mul8), N = 2^16; the
+    first 81 columns run through every combination of 0, 1 and q - 1 over
+    the four operands. Then each shape timed alone: CUDA events, the
+    profiler's kernel time, the plain version, and the bound by bytes (four
+    residues read and three written a coefficient-limb: 28 B at 4 B a
+    residue, as every bound of the kernels line counts them; the 56 B the
+    int64 interface moves beside it)."""
+    from gpufhe_tpu_torch.golden.bfv import bfv_aux_params
+    from gpufhe_tpu_torch.ops import probes, tensor_cuda
+    from gpufhe_tpu_torch.ops.context import make_context
+    from gpufhe_tpu_torch.params.params import preset
+
+    rng = np.random.default_rng(SEED + 25)
+    int_params = preset(INT_PRESET)
+    chains = {"dw_q": preset(DW_PRESET), "int_q": int_params,
+              "bfv_aux": bfv_aux_params(int_params)}
+    timing = {}
+    for tag, params in chains.items():
+        ctx = make_context(params, device=dev)
+        k_dim, n = params.num_limbs, params.n
+        q = np.asarray(params.q_primes, dtype=np.int64)[:, None]
+        x = rng.integers(0, q, size=(4, k_dim, n), dtype=np.int64)
+        edge = np.stack([np.zeros_like(q), np.ones_like(q), q - 1])[..., 0]
+        for col in range(81):
+            for op in range(4):
+                x[op, :, col] = edge[col // 3**op % 3]
+        a0, a1, b0, b1 = torch.from_numpy(x).to(dev)
+        qcol = ctx.col("q", range(k_dim))
+
+        def kernel():
+            return tensor_cuda.tensor((a0, a1), (b0, b1), ctx, k_dim)
+
+        def plain():
+            return tensor_cuda.tensor_plain(a0, a1, b0, b1, qcol)
+
+        exact(kernel(), plain(), f"tensor kernel {tag} [{k_dim}, 2^{n.bit_length() - 1}]")
+        cells = k_dim * n
+        row = {"shape": [k_dim, n], "ms": probes.cuda_ms(kernel, iters=50),
+               "plain_ms": probes.cuda_ms(plain, iters=10),
+               "bound_ms": 28 * cells / HBM_BYTES_PER_S * 1e3,
+               "int64_bytes_ms": 56 * cells / HBM_BYTES_PER_S * 1e3}
+        row["device_ms"], _ = kernel_ms(kernel, TENSOR_NAME)
+        timing[tag] = row
+        print(f"tensor kernel {tag} [{k_dim}, 2^{n.bit_length() - 1}]: events {row['ms']:.4f} "
+              f"ms, device {row['device_ms']:.4f}, bound {row['bound_ms']:.4f} "
+              f"({28 * cells / 1e6:.1f} MB at 4 B a residue; the int64 interface's "
+              f"{56 * cells / 1e6:.1f} MB {row['int64_bytes_ms']:.4f}, "
+              f"{row['int64_bytes_ms'] / row['device_ms']:.1%} of it), plain "
+              f"{row['plain_ms']:.4f} ms  [{smi}]", flush=True)
+    return {"timing": timing}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -3650,7 +3711,7 @@ def main() -> None:
     from gpufhe_tpu_torch.golden import ckks as gckks
     from gpufhe_tpu_torch.keys import keys as dkeys
     from gpufhe_tpu_torch.ops import (convert_cuda, cuda_build, mac_cuda, ntt_cuda, probes,
-                                      rescale_cuda)
+                                      rescale_cuda, tensor_cuda)
     from gpufhe_tpu_torch.ops.context import make_context
     from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
     from gpufhe_tpu_torch.params.params import preset
@@ -3666,7 +3727,8 @@ def main() -> None:
     # "mod_down": the fused ModDown's launches (K3 with its epilogue, also
     # counted under "convert"), printed beside K3's in every launches line
     kernels = {"ntt": ntt_cuda.KERNEL, "convert": convert_cuda.KERNEL, "mac": mac_cuda.KERNEL,
-               "rescale": rescale_cuda.KERNEL, "mod_down": convert_cuda.MOD_DOWN}
+               "rescale": rescale_cuda.KERNEL, "tensor": tensor_cuda.KERNEL,
+               "mod_down": convert_cuda.MOD_DOWN}
 
     def reset() -> None:
         for k in (*kernels.values(), ntt_cuda.PASS_KERNEL):
@@ -3841,6 +3903,12 @@ def main() -> None:
     resc = rescale_kernel_run(dev, smi)
     say("rescale_vs_plain", "== at (chain level/limbs) " + ", ".join(resc["checked"]), t)
 
+    # 5b. the tensor kernel against its plain version, and timed alone
+    t = time.perf_counter()
+    tens = tensor_kernel_run(dev, smi)
+    say("tensor_vs_plain", "== at " + ", ".join(
+        f"{tag} {r['shape']}" for tag, r in tens["timing"].items()), t)
+
     # 6. P1: K1 and its ablation builds at the 45-limb forward shape; the
     #    copy_only build == its plain version (two bit-reversed transposes),
     #    the natural_store build (the unpadded exchange tile) and the
@@ -3898,9 +3966,9 @@ def main() -> None:
     say("mul_path", f"keygen (rlk, Galois {ROTATIONS}, conj), encode, encrypt x2, ct_mul_full, "
         f"decrypt_decode at {PRESET}; launches {launches['mul']}, per ct_mul_full {per_mul}", t)
     err = decode_err(got, za * zb, params.slots, "ct_mul_full")
-    if kernel_missing(per_mul) or per_mul["rescale"] != 1:
-        raise AssertionError(f"ct_mul_full: a kernel did not run, or the rescale kernel not "
-                             f"once: {per_mul}")
+    if kernel_missing(per_mul) or per_mul["rescale"] != 1 or per_mul["tensor"] != 1:
+        raise AssertionError(f"ct_mul_full: a kernel did not run, or the rescale or tensor "
+                             f"kernel not once: {per_mul}")
 
     # 8. path "dw": the config5_boot_dw multiply
     da, db = dw_inputs(dw)
@@ -3916,9 +3984,9 @@ def main() -> None:
         f"ct_mul_full {per_dw}", t)
     ctx_dw_cpu = make_context(dw, device="cpu")
     err_dw = decode_err(got_dw, da * db, dw.slots, "dw ct_mul_full")
-    if kernel_missing(per_dw) or per_dw["rescale"] != 1:  # both limbs in one launch
-        raise AssertionError(f"dw ct_mul_full: a kernel did not run, or the rescale kernel not "
-                             f"once: {per_dw}")
+    if kernel_missing(per_dw) or per_dw["rescale"] != 1 or per_dw["tensor"] != 1:
+        raise AssertionError(f"dw ct_mul_full: a kernel did not run, or the rescale (both limbs "
+                             f"in one launch) or tensor kernel not once: {per_dw}")
 
     # 9. path "rotate" at config5_boot, on the mul path's keys: three fresh
     #    ciphertexts at 2^ROT_SCALE_BITS and three plaintexts at the preset's scale
@@ -4343,6 +4411,25 @@ def main() -> None:
         "library_ms": None,
         "shapes": {tag: {**v, "device_ms": or_null(v["device_ms"])}
                    for tag, v in resc["timing"].items()},
+    })
+    # the tensor kernel: its launches on the paths and per request of the
+    # cells (8 dw multiplies in mul8, 5 BGV in bgv_mul5, 8 BFV in bfv_mul8);
+    # the dw shape timed alone, each shape in "shapes"
+    r = tens["timing"]["dw_q"]
+    per_req = {"mul8": 8 * per_dw["tensor"],
+               "bgv_mul5": 5 * int_times["bgv"]["per_mul"]["tensor"],
+               "bfv_mul8": 8 * int_times["bfv"]["per_mul"]["tensor"]}
+    if per_req != {"mul8": 8, "bgv_mul5": 5, "bfv_mul8": 16}:
+        raise AssertionError(f"tensor kernel launches per request {per_req}")
+    print(f"tensor kernel launches per request: {per_req}  [{smi}]", flush=True)
+    rows.append({
+        "name": "tensor", "route": "cuda", "source": "gpufhe_tpu_torch/csrc/tensor.cu",
+        "replaces": None, "launches": total["tensor"], "launches_by_path": by_path["tensor"],
+        "launches_per_request": per_req, "max_abs_err": 0, "ms": r["ms"],
+        "device_ms": or_null(r["device_ms"]), "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shapes": {tag: {**v, "device_ms": or_null(v["device_ms"])}
+                   for tag, v in tens["timing"].items()},
     })
     for mix in probes.MIXES:
         r, err, plain, n_launch = rate_rows[mix]

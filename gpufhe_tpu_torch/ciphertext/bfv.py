@@ -218,8 +218,8 @@ def _tensor_coeff(ca, cb, params: CKKSParams, ctx: Context, level: int) -> torch
         ext = ntt_fwd(torch.stack([base_convert(x, tabs.q2aux) for x in coeff]), aux_ctx,
                       limbs=a_rows)
         # 2. tensor over both bases
-        d_q = torch.stack(dct.tensor_core(ca, cb, ctx, level))
-        d_aux = torch.stack(dct.tensor_core(ext[:2], ext[2:], aux_ctx, a_dim))
+        d_q = dct.tensor_core(ca, cb, ctx, level)
+        d_aux = dct.tensor_core(ext[:2], ext[2:], aux_ctx, a_dim)
         dq = ntt_inv(d_q, ctx, limbs=q_rows)
         daux = ntt_inv(d_aux, aux_ctx, limbs=a_rows)
         # 3. y = (t d - [t d]_Q) / Q over aux: an exact division

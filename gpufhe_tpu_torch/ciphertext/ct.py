@@ -32,9 +32,9 @@ import torch
 from gpufhe_tpu_torch.golden import ckks as gckks
 from gpufhe_tpu_torch.keys.keys import DeviceKSKey, DevicePublicKey, DeviceSecretKey
 from gpufhe_tpu_torch.ops.context import Context
-from gpufhe_tpu_torch.ops import rescale_cuda
+from gpufhe_tpu_torch.ops import rescale_cuda, tensor_cuda
 from gpufhe_tpu_torch.ops.mac_cuda import mac
-from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, mul_mod, sub_mod
+from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, sub_mod
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.keyswitch import (gadget_mac, hoist, key_switch_core, ks_finish,
@@ -125,14 +125,12 @@ def sub_core(ca, cb, ctx: Context, level: int) -> list:
     return [sub_mod(x, y, q) for x, y in zip(ca, cb)]
 
 
-def tensor_core(ca, cb, ctx: Context, level: int):
-    """(a0, a1) x (b0, b1) -> (d0, d1, d2), NTT-domain pointwise. Span `tensor`."""
+def tensor_core(ca, cb, ctx: Context, level: int) -> torch.Tensor:
+    """(a0, a1) x (b0, b1) -> (d0, d1, d2), NTT-domain pointwise: one
+    int64[3, level, N] stack (ops/tensor_cuda.py; one kernel launch on the
+    card), which unpacks into the three components. Span `tensor`."""
     with stage("tensor"):
-        q = ctx.col("q", range(level))
-        a0, a1 = ca
-        b0, b1 = cb
-        d1 = add_mod(mul_mod(a0, b1, q), mul_mod(a1, b0, q), q)
-        return mul_mod(a0, b0, q), d1, mul_mod(a1, b1, q)
+        return tensor_cuda.tensor(ca, cb, ctx, level)
 
 
 def mul_plain_core(cs, pt_mont: torch.Tensor, ctx: Context, level: int) -> list:
@@ -199,12 +197,12 @@ def _mul_core(ca, cb, ctx: Context, rlk: DeviceKSKey, params: CKKSParams, level:
     (eval_out=False), d0 and d1 come there by one batched iNTT and are added
     in its ModDown (iNTT(d_i) + ks_i equals iNTT(d_i + NTT(ks_i)) mod q), and
     the tail drops scale_words limbs (with bgv, one by the ModSwitch) and
-    brings both components back by one batched NTT."""
-    d0, d1, d2 = tensor_core(ca, cb, ctx, level)
+    brings both components back by one batched NTT. The iNTT reads d0 and
+    d1 in place: they are the tensor's stack's first two rows."""
+    d = tensor_core(ca, cb, ctx, level)
     ksc = make_ks_context(params, level, device=ctx.device)
-    return _drop_tail(key_switch_core(d2, params, level, ctx, ksc, rlk, eval_out=False,
-                                      addend=ntt_inv(torch.stack([d0, d1]), ctx,
-                                                     limbs=range(level))),
+    return _drop_tail(key_switch_core(d[2], params, level, ctx, ksc, rlk, eval_out=False,
+                                      addend=ntt_inv(d[:2], ctx, limbs=range(level))),
                       params, level, 1 if bgv else params.scale_words, ctx, bgv)
 
 

@@ -1,7 +1,7 @@
 // Modular arithmetic shared by the port's kernels (ntt.cu, convert.cu,
-// mac.cu) and by the integer-rate probe (int_rate.cu), so that the probe's
-// "modmul" mix times the 64-bit Barrett product that convert.cu and mac.cu
-// run, and its "shoup32" mix the 32-bit Shoup product (mul_mod_shoup32) that
+// mac.cu, rescale.cu, tensor.cu) and by the integer-rate probe
+// (int_rate.cu), so that the probe's "modmul" mix times the 64-bit Barrett
+// product that convert.cu, mac.cu and tensor.cu run, and its "shoup32" mix the 32-bit Shoup product (mul_mod_shoup32) that
 // ntt.cu's products are built from.
 //
 // Residues are canonical, below primes q < 2^30, stored as int64. mu is

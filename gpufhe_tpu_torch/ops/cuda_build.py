@@ -34,6 +34,7 @@ LIBS = {
     "convert": ("convert", ()),
     "mac": ("mac", ()),
     "rescale": ("rescale", ()),
+    "tensor": ("tensor", ()),
     "int_rate": ("int_rate", ()),
     **{f"ntt_{variant}": ("ntt", (f"-DNTT_ABLATE={k}",))
        for k, variant in enumerate(("no_modmul", "no_twiddle", "copy_only", "natural_store",

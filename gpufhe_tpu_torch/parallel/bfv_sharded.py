@@ -52,8 +52,8 @@ def _bfv_mult_body(mesh: FheMesh, a0, a1, b0, b1, params: CKKSParams, t_q, t_aux
         ca = [flat(a0[i][c]), flat(a1[i][c])]
         cb = [flat(b0[i][c]), flat(b1[i][c])]
         e = flat(ext[i][c])
-        return (sh._e3(torch.stack(tensor_core(ca, cb, ctx, level)), n2),
-                sh._e3(torch.stack(tensor_core(e[:2], e[2:], aux, a_dim)), n2))
+        return (sh._e3(tensor_core(ca, cb, ctx, level), n2),
+                sh._e3(tensor_core(e[:2], e[2:], aux, a_dim), n2))
 
     d = [[scale_in(i, c) for c in range(len(row))] for i, row in enumerate(a0)]
     dq = sh.ntt_inv_body(mesh.map(lambda x: x[0], d), t_q)

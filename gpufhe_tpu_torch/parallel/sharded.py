@@ -359,11 +359,11 @@ def _mult_body(mesh: FheMesh, a0, a1, b0, b1, params: CKKSParams, t_q, t_qp, t_q
         ctx = t_q.ctx(mesh.devices[i][c])
         d = tensor_core([_flat(x) for x in comps[:2]], [_flat(x) for x in comps[2:]], ctx,
                         level)
-        return [_e3(x, n2) for x in d]
+        return _e3(d, n2)
 
     d = [[tensor(i, c, *cells) for c, cells in enumerate(zip(*rows))]
          for i, rows in enumerate(zip(a0, a1, b0, b1))]
-    d01 = mesh.map(lambda x: torch.stack(x[:2]), d)
+    d01 = mesh.map(lambda x: x[:2], d)
     d2 = mesh.map(lambda x: x[2], d)
     ks01 = _keyswitch_body(mesh, d2, params, t_q, t_qp, ks, level, gmax, eval_out=False)
     coeff = ntt_inv_body(d01, t_q)

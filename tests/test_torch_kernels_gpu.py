@@ -20,7 +20,8 @@ from gpufhe_tpu_torch.encoding import encoder
 from gpufhe_tpu_torch.keys import device_keygen as dkg
 from gpufhe_tpu_torch.keys import keys as dkeys
 from gpufhe_tpu_torch.keys import prng
-from gpufhe_tpu_torch.ops import convert_cuda, mac_cuda, ntt_cuda, probes, rescale_cuda
+from gpufhe_tpu_torch.ops import (convert_cuda, mac_cuda, ntt_cuda, probes, rescale_cuda,
+                                  tensor_cuda)
 from gpufhe_tpu_torch.ops.context import make_context
 from gpufhe_tpu_torch.ops.convert_cuda import make_convert_tables
 from gpufhe_tpu_torch.params.params import gen_ntt_primes, is_prime, preset
@@ -895,3 +896,106 @@ def test_rescale_kernel_once_per_operation(cuda_device, monkeypatch):
     assert rescale_cuda.KERNEL.launches == before + 2
     want = zi * zi % params.plain_modulus
     assert (bgv.decrypt_decode(down, params, chest.device_sk, ctx) == want).all()
+
+
+def _tensor_chain(name, basis, device):
+    """(context, K) of a cell's tensor: the Q chain at its top level, or
+    BFV's auxiliary basis at it."""
+    params = preset(name)
+    if basis == "aux":
+        from gpufhe_tpu_torch.golden.bfv import bfv_aux_params
+
+        params = bfv_aux_params(params)
+    return make_context(params, device=device), params.num_limbs
+
+
+def _tensor_operands(ctx, k_dim, seed):
+    """Four canonical int64[K, N] operands on ctx's device, random but for
+    their first 81 columns: every combination of 0, 1 and q - 1 over the
+    four operands."""
+    q = np.asarray(ctx.primes[:k_dim], dtype=np.int64)[:, None]
+    x = np.random.default_rng(seed).integers(0, q, size=(4, k_dim, ctx.n), dtype=np.int64)
+    edge = np.stack([np.zeros_like(q), np.ones_like(q), q - 1])[..., 0]
+    for col in range(81):
+        for op in range(4):
+            x[op, :, col] = edge[col // 3**op % 3]
+    return [torch.from_numpy(v).to(ctx.device) for v in x]
+
+
+# the cells' tensors: config5_boot_dw's 48 Q limbs (mul8, the refresh),
+# bfv_n16's 30 Q limbs (bgv_mul5, bfv_mul8) and its 34-limb auxiliary basis
+# (bfv_mul8), N = 2^16
+@pytest.mark.parametrize("name,basis", [("config5_boot_dw", "q"), ("bfv_n16", "q"),
+                                        ("bfv_n16", "aux")])
+def test_tensor_kernel_matches_plain(cuda_device, name, basis):
+    """The kernel == tensor_plain limb for limb, one launch a call, on
+    contiguous operands and on views with limb strides of their own."""
+    ctx, k_dim = _tensor_chain(name, basis, cuda_device)
+    a0, a1, b0, b1 = _tensor_operands(ctx, k_dim, k_dim)
+    want = tensor_cuda.tensor_plain(a0, a1, b0, b1, ctx.col("q", range(k_dim)))
+    before = tensor_cuda.KERNEL.launches
+    got = tensor_cuda.tensor((a0, a1), (b0, b1), ctx, k_dim)
+    assert tensor_cuda.KERNEL.launches == before + 1
+    assert got.shape == (3, k_dim, ctx.n) and torch.equal(got, want)
+    wide = torch.zeros((4, k_dim + 1, ctx.n + 2), dtype=torch.int64, device=cuda_device)
+    for w, x in zip(wide, (a0, a1, b0, b1)):
+        w[1:, 2:] = x
+    views = [w[1:, 2:] for w in wide]  # limb stride N + 2, start 16 bytes past a row
+    assert torch.equal(tensor_cuda.tensor(views[:2], views[2:], ctx, k_dim), want)
+
+
+def test_tensor_kernel_once_per_multiply(cuda_device, monkeypatch):
+    """One launch per CKKS ct_mul_full and BGV ct_mul, two per BFV ct_mul
+    (over Q and over the auxiliary basis); each stack reaches its iNTT in
+    place (the transform reads the stack's own pointer); a CUDA tensor never
+    reaches tensor_plain; every product decrypts."""
+    from gpufhe_tpu_torch.ciphertext import bfv, bgv
+    from gpufhe_tpu_torch.golden import bfv as gbfv
+    from gpufhe_tpu_torch.golden import bgv as gbgv
+    from gpufhe_tpu_torch.ops import ntt as ntt_ops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain tensor")
+
+    stacks, inverse_reads = [], []
+    launch, fourstep = tensor_cuda.tensor_cuda, ntt_ops.fourstep
+
+    def record(*args):
+        stacks.append(launch(*args))  # kept alive, so no pointer is reused
+        return stacks[-1]
+
+    def transform(x, idx, ctx, inverse):
+        if inverse:
+            inverse_reads.append(x.data_ptr())
+        return fourstep(x, idx, ctx, inverse)
+
+    monkeypatch.setattr(tensor_cuda, "tensor_plain", refuse)
+    monkeypatch.setattr(tensor_cuda, "tensor_cuda", record)
+    monkeypatch.setattr(ntt_ops, "fourstep", transform)
+
+    params = preset("boot_dw_ci")
+    ctx = make_context(params, device=cuda_device)
+    chest = dkeys.keygen(params, np.random.default_rng(2), ctx=ctx)
+    z = np.random.default_rng(1).normal(size=params.slots)
+    ca = dct.encrypt(encoder.encode(z, params), params, chest.device_pk, ctx,
+                     np.random.default_rng(3), params.scale)
+    before = tensor_cuda.KERNEL.launches
+    out = dct.ct_mul_full(ca, ca, params, ctx, chest.device_rlk)
+    assert tensor_cuda.KERNEL.launches == before + 1
+    assert stacks[-1].data_ptr() in inverse_reads
+    got = dct.decrypt_decode(out, params, chest.device_sk, ctx)
+    assert np.abs(got - z * z).max() < 1e-2
+
+    for scheme, mod, golden, launches in (("bgv_ci", bgv, gbgv, 1), ("bfv_ci", bfv, gbfv, 2)):
+        params = preset(scheme)
+        ctx = make_context(params, device=cuda_device)
+        chest = mod.keygen(params, np.random.default_rng(2), ctx=ctx)
+        zi = np.random.default_rng(4).integers(0, params.plain_modulus, size=params.n)
+        a = mod.encrypt(golden.encode(zi, params), params, chest.device_pk, ctx,
+                        np.random.default_rng(5))
+        before, first = tensor_cuda.KERNEL.launches, len(stacks)
+        prod = mod.ct_mul(a, a, params, ctx, chest.device_rlk)
+        assert tensor_cuda.KERNEL.launches == before + launches
+        assert all(s.data_ptr() in inverse_reads for s in stacks[first:])
+        want = zi * zi % params.plain_modulus
+        assert (mod.decrypt_decode(prod, params, chest.device_sk, ctx) == want).all()
