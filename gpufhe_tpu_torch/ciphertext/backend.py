@@ -56,6 +56,11 @@ def _check_scales(a_scale: float, b_scale: float):
     )
 
 
+# non-uniform vectors whose add_plain encodings a DeviceBackend keeps (the
+# oldest goes first): a 784-128-128-10 MLP's three biases at each entry level
+_ADDV_KEPT = 16
+
+
 def _uniform(z: np.ndarray) -> bool:
     return z.ndim == 0 or (z.ndim == 1 and z.size and (z == z.flat[0]).all())
 
@@ -70,6 +75,7 @@ class DeviceBackend:
         self._ct = dct
         self._const_cache = {}  # (value, scale, level) -> encoded plaintext
         self._addp_cache = {}  # (value, scale, level) -> NTT-domain plaintext
+        self._addv_cache = {}  # (id, scale, level) -> (vector, NTT-domain plaintext)
         self.encode_misses = 0  # host encodes actually performed (cache misses)
 
     # -- plaintext handling -------------------------------------------------
@@ -111,7 +117,10 @@ class DeviceBackend:
         return self._ct.Ciphertext(c, ct.level, ct.scale)
 
     def _addp_pt(self, z, scale: float, level: int):
-        """NTT-domain (non-Montgomery) plaintext, cached for a uniform constant."""
+        """NTT-domain (non-Montgomery) plaintext, cached for a uniform constant
+        and, for the last few vectors, by the array (a model's biases): a hit
+        holds a copy of the vector it encoded and is taken only while the
+        array still equals it."""
         z = np.asarray(z)
         key = None
         if _uniform(z):
@@ -119,6 +128,11 @@ class DeviceBackend:
             hit = self._addp_cache.get(key)
             if hit is not None:
                 return hit
+        else:
+            vkey = (id(z), scale, level)
+            hit = self._addv_cache.get(vkey)
+            if hit is not None and np.array_equal(hit[0], z):
+                return hit[1]
         self.encode_misses += 1
         pt = gckks.encode(
             np.broadcast_to(np.asarray(z, dtype=np.complex128), (self.params.slots,)),
@@ -130,6 +144,10 @@ class DeviceBackend:
                          limbs=range(level))
         if key is not None:
             self._addp_cache[key] = pt_ntt
+        else:
+            if len(self._addv_cache) >= _ADDV_KEPT:
+                self._addv_cache.pop(next(iter(self._addv_cache)))
+            self._addv_cache[vkey] = (z.copy(), pt_ntt)
         return pt_ntt
 
     def plain_mac(self, terms, const=None):
@@ -238,6 +256,30 @@ class DeviceBackend:
         gks = {s: self.chest.galois_key(s) for s in steps_list}
         outs = self._ct.ct_rotate_hoisted(ct, steps_list, self.params, self.ctx, gks)
         return dict(zip(steps_list, outs))
+
+    # -- BSGS inner sums (linalg.BsgsPlan) ------------------------------------
+    def plain_group(self, handles, positions):
+        """One giant group of a BSGS plan for baby_sums: the encoded
+        diagonals (encode_slots handles at one scale and level) stacked into
+        one int64[D, K, N], each to multiply the rotation at its position
+        (0 the input, i + 1 baby_sums' steps[i]). Returns the group and the
+        handles re-pointed into its stack, which then holds the only copy."""
+        scale = handles[0][1]
+        assert all(h[1] == scale for h in handles), "one scale a group"
+        pts = torch.stack([h[0] for h in handles])
+        first = positions[0]
+        index = None
+        if list(positions) != list(range(first, first + len(positions))):
+            index = torch.tensor(positions, dtype=torch.int64, device=pts.device)
+        group = self._ct.PlainGroup(pts, scale, first, index)
+        return group, [(pts[d], scale) for d in range(len(handles))]
+
+    def baby_sums(self, ct, steps, groups):
+        """sum_d pt_d * rot_d(ct) for each plain_group, not rescaled: the
+        rotations by `steps` hoisted and batched, each group one K4 launch
+        (ct.py ct_baby_sums)."""
+        gks = {s: self.chest.galois_key(s) for s in steps}
+        return self._ct.ct_baby_sums(ct, steps, groups, self.params, self.ctx, gks)
 
     def conjugate(self, ct):
         return self._ct.ct_conjugate(ct, self.params, self.ctx, self.chest.conj_key())

@@ -4,7 +4,8 @@ Counterpart of gpufhe_tpu/ciphertext/ct.py: encrypt (host draws in the
 reference's order), decrypt, add/sub, tensor, relinearize, rescale, ct_mul,
 the fused ct_mul_full (ct.py:244-308), key switching, rotations and
 conjugation (one-shot and hoisted), the plaintext multiply, the fused
-plaintext MAC, the fused diagonal fan of the bootstrap's linear transforms
+plaintext MAC, the inner sums of a BSGS product (ct_baby_sums: the port's
+own, batched), the fused diagonal fan of the bootstrap's linear transforms
 and the single- and double-word ModRaise. Ciphertexts are int64[K, N] canonical residues per component
 in the NTT domain, K the level's active q-primes; every component equals the
 reference's limb for limb. The cores that BGV and BFV share with CKKS
@@ -14,7 +15,8 @@ Ciphertext, and a KSContext where the scheme decides the ModDown.
 Every inner product runs through kernel K4 (ops/mac_cuda.py) on the card:
 the key switch's gadget MAC, the hoisted rotation's (with the automorphism
 folded into K4's loads), the plaintext MAC and the plaintext multiply (a MAC
-of one term), and both MAC levels of the diagonal fan.
+of one term), a BSGS group's inner sum, and both MAC levels of the diagonal
+fan.
 
 PyTorch runs eagerly, so the reference's jit cores become plain functions.
 The reference's XLA fences (optimization_barrier) and GPUFHE_* switches
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,8 +40,8 @@ from gpufhe_tpu_torch.ops.mac_cuda import mac
 from gpufhe_tpu_torch.ops.modops import add_mod, mont_mul, sub_mod
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
-from gpufhe_tpu_torch.primitives.keyswitch import (gadget_mac, hoist, key_switch_core, ks_finish,
-                                                   qp_indices)
+from gpufhe_tpu_torch.primitives.keyswitch import (gadget_mac, gadget_macs, hoist,
+                                                   key_switch_core, ks_finish, qp_indices)
 from gpufhe_tpu_torch.primitives.rns import KSContext, make_ks_context
 from gpufhe_tpu_torch.utils.profiling import stage
 
@@ -401,6 +404,74 @@ def ct_rotate_hoisted(ct: Ciphertext, steps_list, params: CKKSParams, ctx: Conte
                                                 ksc, gks[steps], params, level)),
                        level, ct.scale)
             for steps in steps_list]
+
+
+class PlainGroup(NamedTuple):
+    """One giant group of a BSGS product (ct_baby_sums): its encoded
+    diagonals int64[D, K, N] (NTT domain, Montgomery form) at one scale, and
+    the rotations they multiply, rows first .. first + D - 1 of the stack of
+    rotations, or the rows `index` (int64[D]) where those are not one run."""
+
+    pts: torch.Tensor
+    scale: float
+    first: int
+    index: torch.Tensor | None
+
+
+def _galois_perms(steps: tuple, params: CKKSParams, ctx: Context) -> torch.Tensor:
+    """The eval-domain permutations of the steps' automorphisms, one after
+    another: int64[len(steps) * N] (cached)."""
+    key = ("galois_perms", steps)
+    if key not in ctx.cache:
+        ctx.cache[key] = torch.cat([galois_perm(gckks.galois_exponent(s, params.n), ctx)
+                                    for s in steps])
+    return ctx.cache[key]
+
+
+def ct_baby_sums(ct: Ciphertext, steps, groups, params: CKKSParams, ctx: Context,
+                 gks: dict) -> list:
+    """The inner sums of a BSGS product (linalg.BsgsPlan): for each
+    PlainGroup, sum_d pts[d] * rot_d(ct), not rescaled, where rot_d is a row
+    of the stack [ct, rot_{steps[0]}(ct), rot_{steps[1]}(ct), ...].
+
+    The rotations share one ModUp (hoist) and are batched: K4 launches back
+    to back, one a step, read the raised digits through its automorphism and
+    key into one int64[2, len(steps), K+alpha, N] stack (gadget_macs), then
+    one iNTT, ModDown and NTT, one gather of c0 and one add serve every step
+    (span `galois`). Each group is then one K4 launch over its rows of the
+    stack. Equal limb for
+    limb to ct_rotate_hoisted, then ct_mul_plain and ct_add term by term."""
+    if len(ct.c) != 2:
+        raise ValueError("ct_baby_sums takes a 2-component ciphertext")
+    level = ct.level
+    c0, c1 = ct.c
+    ys0, ys1 = c0[None], c1[None]
+    if steps:
+        steps = tuple(steps)
+        ksc = make_ks_context(params, level, device=ctx.device)
+        raised = hoist(c1, params, level, ctx, ksc)
+        with stage("galois"):
+            acc = torch.empty((2, len(steps)) + tuple(raised.shape[1:]), dtype=torch.int64,
+                              device=raised.device)
+            perms = [galois_perm(gckks.galois_exponent(s, params.n), ctx, torch.int32)
+                     for s in steps]
+            gadget_macs(raised, params, level, ctx, [gks[s] for s in steps], perms, acc)
+            ks = ks_finish(acc, params, level, ctx, ksc)
+            del acc
+            c0g = c0.index_select(1, _galois_perms(steps, params, ctx))
+            c0g = c0g.view(level, len(steps), ctx.n).transpose(0, 1)
+            ys0 = torch.cat([ys0, add_mod(c0g, ks[0], ctx.col("q", range(level)))])
+            ys1 = torch.cat([ys1, ks[1]])
+    rows = ctx.index(range(level), torch.int32)
+    out = []
+    for grp in groups:
+        if grp.index is None:
+            y0, y1 = ys0[grp.first:], ys1[grp.first:]
+        else:
+            y0, y1 = ys0.index_select(0, grp.index), ys1.index_select(0, grp.index)
+        s = mac(grp.pts, y0, y1, rows, rows, ctx)
+        out.append(Ciphertext([s[0], s[1]], level, ct.scale * grp.scale))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,11 @@ ceil(slots/G) giant rotations of partial sums:
 Matrices with a conjugate part (out = A z + B conj(z), as in CoeffToSlot)
 share the baby rotations of conj(z). Consumes one level (the final rescale).
 
+On a backend with baby_sums (the port's DeviceBackend) each giant group's
+inner sum is one pass over its stacked diagonals, and the babies' key
+switches finish in one batch (ct.py ct_baby_sums); on the others it is one
+mul_plain and one add a diagonal. Both give the same limbs.
+
 Backend-generic (ciphertext/backend.py). A copy of gpufhe_tpu/ciphertext/
 linalg.py, which imports only numpy: the port keeps its own so that it
 imports nothing of gpufhe_tpu. The port's DeviceBackend runs it on the card
@@ -22,6 +27,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from gpufhe_tpu_torch.utils.profiling import stage
 
 
 def bsgs_rotations(slots: int) -> list[int]:
@@ -195,10 +202,64 @@ class BsgsPlan:
                     if np.abs(d).max() == 0.0:
                         continue
                     self.pt[(gi, bi, is_conj)] = self.be.encode_slots(d, self.scale, self.level)
+        self._group()
+
+    def _group(self):
+        """Where the backend sums a giant group's products in one pass
+        (DeviceBackend.plain_group and baby_sums), stack each group's
+        diagonals once: self.groups[is_conj] = (babies, [(g_idx, group)]).
+        Other backends take the products one by one (self.groups None)."""
+        self.groups = None
+        if not hasattr(self.be, "baby_sums"):
+            return
+        self.groups = {}
+        for is_conj in (False, True) if self.has_conj else (False,):
+            babies = sorted({bi for (_, bi, c) in self.pt if c == is_conj} - {0})
+            pos = {b: i for i, b in enumerate([0] + babies)}
+            groups = []
+            for gi in range(self.n_giant):
+                keys = [k for k in ((gi, bi, is_conj) for bi in range(self.g)) if k in self.pt]
+                if keys:
+                    grp, views = self.be.plain_group([self.pt[k] for k in keys],
+                                                     [pos[k[1]] for k in keys])
+                    self.pt.update(zip(keys, views))
+                    groups.append((gi, grp))
+            if groups:
+                self.groups[is_conj] = (babies, groups)
 
     def apply(self, ct):
+        """M z at the plan's level, rescaled once. Span `linear` around the
+        whole product: the hoists, the plaintext products and adds, the giant
+        rotations and the rescale (their `galois`, `ks.*` and `rescale` spans
+        nest inside)."""
+        with stage("linear"):
+            return self._apply(ct)
+
+    def _apply(self, ct):
         be = self.be
         assert be.level(ct) == self.level, (be.level(ct), self.level)
+        sums = self._products(ct) if self.groups is None else self._group_sums(ct)
+        out = None
+        for gi, acc in sums:
+            if gi > 0:
+                acc = be.rotate_hoisted(acc, [gi * self.g])[gi * self.g]
+            out = acc if out is None else be.add(out, acc)
+        return be.rescale(out)
+
+    def _group_sums(self, ct):
+        """[(g_idx, sum_b diag * rot_b(z))]: each group's products in one
+        pass of the backend (baby_sums), the conjugate part's added."""
+        be = self.be
+        sums = {}
+        for is_conj, (babies, groups) in self.groups.items():
+            src = be.conjugate(ct) if is_conj else ct
+            for (gi, _), s in zip(groups, be.baby_sums(src, babies, [g for _, g in groups])):
+                sums[gi] = s if gi not in sums else be.add(sums[gi], s)
+        return sorted(sums.items())
+
+    def _products(self, ct):
+        """The same sums, one plaintext product and one add a diagonal."""
+        be = self.be
         # hoist only the babies a nonzero diagonal actually uses: block-
         # structured matrices (models/mlp.py, cnn.py, attention.py) keep
         # O(block) of the slots diagonals, so this is the difference between
@@ -215,7 +276,7 @@ class BsgsPlan:
             if babies_c:
                 rots_c.update(be.rotate_hoisted(ctc, babies_c))
 
-        out = None
+        sums = []
         for gi in range(self.n_giant):
             acc = None
             for bi in range(self.g):
@@ -226,12 +287,9 @@ class BsgsPlan:
                     src = rots_c[bi] if is_conj else rots[bi]
                     term = be.mul_plain(src, pt)
                     acc = term if acc is None else be.add(acc, term)
-            if acc is None:
-                continue
-            if gi > 0:
-                acc = be.rotate_hoisted(acc, [gi * self.g])[gi * self.g]
-            out = acc if out is None else be.add(out, acc)
-        return be.rescale(out)
+            if acc is not None:
+                sums.append((gi, acc))
+        return sums
 
 
 def matmul_plain(be, ct, a: np.ndarray, b: np.ndarray | None = None,

@@ -16,14 +16,29 @@ forward pass bootstraps mid-inference whenever the next layer would not fit,
 so depth is unbounded — the composition the whole framework exists for.
 
 Backend-generic (ciphertext/backend.py). A copy of gpufhe_tpu/models/mlp.py
-but for one thing: each layer's plan is built from its (out, in) block
+but for two things. Each layer's plan is built from its (out, in) block
 (linalg.BsgsPlan._from_block), not from the slots x slots embedding, which
-at N=2^15 is 4.3 GB of host memory per layer and at N=2^16 17.2 GB. The
-encoded diagonals are the same, so every output equals the reference's limb
-for limb (tests/test_torch_models.py).
+at N=2^15 is 4.3 GB of host memory per layer and at N=2^16 17.2 GB; the
+encoded diagonals are the same. And a square network without a refresh,
+entered with a limb to spare, carries its activations `lift` times larger
+(`_lift_of`): each baby rotation's key switch ends in a ModDown that rounds
+down, about -alpha/2 a coefficient (the reference's too), which the secret
+spreads into a fixed error of (alpha/2) (2N/pi) sqrt(2N/3) integer units at
+slot 0, 4.6e6 at N = 2^15 and alpha = 3: 1.7e-2 of a slot at Delta = 2^28,
+carried into every product by its row of weights and doubled by each square
+(logits off by up to 4e-2 on an H100). So the input is multiplied by the
+integer `lift` (a plaintext product with no rescale: no level) and each
+layer's diagonals are encoded at Delta / sqrt(lift): a layer's input is at
+lift Delta, its output at sqrt(lift) Delta, and the square brings it back to
+lift Delta. The products, adds, squares and levels are the reference's; the
+output equals the same composition of the reference's backend limb for limb
+(tests/test_torch_models.py), and the reference's own output where the lift
+is 1.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -53,6 +68,30 @@ def mlp_rotations_for(layers, slots: int) -> list[int]:
         diags = set(((j - i) % slots).tolist())
         steps.update(bsgs_steps_from_diags(diags, slots))
     return sorted(steps)
+
+
+# the scale a lifted layer's input is carried at, at least: there the slot-0
+# error of a baby rotation at N = 2^15 (above) is 6.6e-5 of a slot, and the
+# diagonals, at Delta / sqrt(lift) = 2^24 for Delta = 2^28, keep 24 bits
+_LIFT_BITS = 36
+
+
+def _lift_of(scale: float, level: int, levels_used: int) -> int:
+    """The lift of a square network without a refresh that uses levels_used
+    levels, entered at `level`: the smallest power of four that takes
+    `scale` to 2^_LIFT_BITS or more (1 from there on), so that its square
+    root, the diagonals' divisor, is a power of two. Each product then holds
+    sqrt(lift) times what it holds unlifted. Entered at levels_used + 1, the
+    lowest level the forward takes, the last product lies on the two lowest
+    limbs (2^58 at N = 2^15, which hold 2^56 |h| unlifted), and a lift would
+    take log2 sqrt(lift) bits of that margin: there the lift is 1. One level
+    higher, the margin gains a limb's bits."""
+    if level <= levels_used + 1:
+        return 1
+    lift = 1
+    while scale * lift < 2.0**_LIFT_BITS:
+        lift *= 4
+    return lift
 
 
 def _embed(w: np.ndarray, slots: int) -> np.ndarray:
@@ -102,6 +141,10 @@ class EncryptedMLP:
             bz = np.zeros(slots, dtype=np.complex128)
             bz[: b.size] = b
             self.layers.append((w, bz))
+        # a square brings a lifted layer's output back to its input's scale;
+        # a refresh takes its input at Delta
+        self._lifts = activation == "square" and refresh is None
+        self.lift = 1  # the last forward's (_lift_of)
         if activation == "square":
             self.act = lambda be, ct: be.mul(ct, ct)
             self.act_ref = lambda h: h * h
@@ -118,12 +161,14 @@ class EncryptedMLP:
             len(self.layers) + n_hidden * self.act_levels
         )
         self.refreshes = 0  # mid-inference bootstraps in the last forward
-        self._plans: dict[tuple[int, int], BsgsPlan] = {}  # (layer, level)
+        # (layer, level): the level fixes the entry level, and so the lift
+        self._plans: dict[tuple[int, int], BsgsPlan] = {}
 
     def _plan(self, i: int, level: int) -> BsgsPlan:
         plan = self._plans.get((i, level))
         if plan is None:
-            plan = BsgsPlan._from_block(self.be, self.layers[i][0], level)
+            plan = BsgsPlan._from_block(self.be, self.layers[i][0], level,
+                                        self.be.params.scale / math.sqrt(self.lift))
             self._plans[(i, level)] = plan
         return plan
 
@@ -137,7 +182,13 @@ class EncryptedMLP:
                 f"got {lvl} (pass refresh= to bootstrap mid-inference)"
             )
         self.refreshes = 0
+        self.lift = 1
+        if self._lifts:
+            self.lift = _lift_of(be.params.scale, be.level(ct_x), self.levels_used)
         ct = ct_x
+        if self.lift > 1:  # the input times lift, at lift times its scale
+            ones = np.ones(be.params.slots, dtype=np.complex128)
+            ct = be.mul_plain(ct, be.encode_slots(ones, float(self.lift), be.level(ct)))
         last = len(self.layers) - 1
         for i, (_, bz) in enumerate(self.layers):
             # limb budget for this layer: matmul + activation MULTS, each

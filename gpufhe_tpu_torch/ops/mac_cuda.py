@@ -19,7 +19,9 @@ plaintexts, y = the ciphertext components).
 A CPU tensor runs `mac_plain` (ops/modops.py mont_mac); a CUDA tensor
 launches the kernel, one launch for both outputs. `out`, when given, is
 where the outputs go: int64[outputs, T, N] whose every out[j] is contiguous
-(a view such as acc[:, j] of a stack the caller sums over next).
+(a view such as acc[:, j] of a stack the caller sums over next). `mac_each`
+applies one x to many key stacks (a batch of hoisted rotations' steps):
+one launch each, made back to back once the arguments are checked.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def _check_out(out, n_out: int, t_dim: int, n: int, like: torch.Tensor) -> None:
                          "each output contiguous")
 
 
-def mac_cuda(x, y0, y1, rows, chain, ctx: Context, perm=None, out=None):
+def _check(x, y0, y1, rows, chain, ctx: Context, perm) -> None:
     d_dim, t_dim, n = x.shape
     ys = (y0,) if y1 is None else (y0, y1)
     for name, v in (("x", x), *zip(("y0", "y1"), ys)):
@@ -74,6 +76,12 @@ def mac_cuda(x, y0, y1, rows, chain, ctx: Context, perm=None, out=None):
             raise ValueError(f"{name} must be int32[{size}] on the data's device")
     if ctx.device != x.device:
         raise ValueError("the context's tables lie on another device")
+
+
+def mac_cuda(x, y0, y1, rows, chain, ctx: Context, perm=None, out=None):
+    _check(x, y0, y1, rows, chain, ctx, perm)
+    d_dim, t_dim, n = x.shape
+    ys = (y0,) if y1 is None else (y0, y1)
     if out is None:
         out = torch.empty((len(ys), t_dim, n), dtype=torch.int64, device=x.device)
     else:
@@ -86,6 +94,35 @@ def mac_cuda(x, y0, y1, rows, chain, ctx: Context, perm=None, out=None):
         None if perm is None else perm.data_ptr(),
         ctx.q.data_ptr(), ctx.mu.data_ptr(), ctx.qinv_neg.data_ptr(), stream,
     )
+    return out
+
+
+def mac_each(x: torch.Tensor, pairs, rows, chain: torch.Tensor, ctx: Context, perms,
+             out: torch.Tensor) -> torch.Tensor:
+    """out[:, i] = mac(x, *pairs[i], rows[i], chain, ctx, perms[i]) for every
+    i: one x against many key stacks, as a hoisted rotation's steps read the
+    raised digits through their automorphisms and keys. out is int64[2,
+    len(pairs), T, N], contiguous. On the card one K4 launch a pair, made
+    back to back once every argument is checked."""
+    if x.device.type == "cpu":
+        for i, ((y0, y1), r, p) in enumerate(zip(pairs, rows, perms, strict=True)):
+            mac_plain(x, y0, y1, r, chain, ctx, p, out[:, i])
+        return out
+    d_dim, t_dim, n = x.shape
+    if out.shape != (2, len(pairs), t_dim, n) or out.dtype != torch.int64 \
+            or not out.is_contiguous() or out.device != x.device:
+        raise ValueError(f"out must be contiguous int64[2, {len(pairs)}, {t_dim}, {n}] on the "
+                         "data's device")
+    for (y0, y1), r, p in zip(pairs, rows, perms, strict=True):
+        _check(x, y0, y1, r, chain, ctx, p)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    base, step, half = out.data_ptr(), out.stride(1) * 8, out.stride(0) * 8
+    x_ptr, chain_ptr = x.data_ptr(), chain.data_ptr()
+    tabs = (ctx.q.data_ptr(), ctx.mu.data_ptr(), ctx.qinv_neg.data_ptr(), stream)
+    for i, ((y0, y1), r, p) in enumerate(zip(pairs, rows, perms)):
+        o = base + i * step
+        KERNEL.launch(x_ptr, y0.data_ptr(), y1.data_ptr(), o, o + half, d_dim, t_dim, n,
+                      y0.shape[1] * n, r.data_ptr(), chain_ptr, p.data_ptr(), *tabs)
     return out
 
 

@@ -23,7 +23,7 @@ import torch
 
 from gpufhe_tpu_torch.keys.keys import DeviceKSKey
 from gpufhe_tpu_torch.ops.context import Context
-from gpufhe_tpu_torch.ops.mac_cuda import mac
+from gpufhe_tpu_torch.ops.mac_cuda import mac, mac_each
 from gpufhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from gpufhe_tpu_torch.params.params import CKKSParams
 from gpufhe_tpu_torch.primitives.rns import KSContext, mod_down, mod_up
@@ -58,6 +58,21 @@ def gadget_mac(raised: torch.Tensor, params: CKKSParams, level: int, ctx: Contex
         rows = ctx.index(key_row_index(params, level, ksk.b_mont.shape[1]), torch.int32)
         chain = ctx.index(qp_indices(params, level), torch.int32)
         return mac(raised, ksk.b_mont, ksk.a_mont, rows, chain, ctx, perm, out)
+
+
+def gadget_macs(raised: torch.Tensor, params: CKKSParams, level: int, ctx: Context, keys,
+                perms, out: torch.Tensor) -> torch.Tensor:
+    """gadget_mac for each key over the same raised digits, each through its
+    perm: out[:, i] (int64[2, len(keys), K+alpha, N]) the i-th key's pair,
+    one K4 launch a key (ops/mac_cuda.py mac_each). Span `ks.inner` around
+    all of them."""
+    with stage("ks.inner"):
+        by_rows = {k.b_mont.shape[1] for k in keys}
+        by_rows = {r: ctx.index(key_row_index(params, level, r), torch.int32) for r in by_rows}
+        rows = [by_rows[k.b_mont.shape[1]] for k in keys]
+        chain = ctx.index(qp_indices(params, level), torch.int32)
+        return mac_each(raised, [(k.b_mont, k.a_mont) for k in keys], rows, chain, ctx, perms,
+                        out)
 
 
 def hoist(d2: torch.Tensor, params: CKKSParams, level: int, ctx: Context, ksc: KSContext,

@@ -9,7 +9,8 @@ there the row names are compared). The reference runs its own subcommand
 code over its golden model: its DeviceBackend, BGVDeviceBackend and
 BFVDeviceBackend are the golden backends of the scheme and its three
 device encrypts the golden ones (the same draws, from the canonical public
-key), so no jit compile runs; security, keygen and demo-threshold are host
+key), so no jit compile runs, and its EncryptedMLP lifts as the port's does
+(tests/lifted_mlp.py); security, keygen and demo-threshold are host
 code in the reference already. keygen's two files are also held equal, and
 the written chest loads in the port's Session.
 """
@@ -32,8 +33,10 @@ from gpufhe_tpu.ciphertext import ct as rct
 from gpufhe_tpu.golden import bfv as rgbfv
 from gpufhe_tpu.golden import bgv as rgbgv
 from gpufhe_tpu.golden import ckks as rgckks
+from gpufhe_tpu.models import mlp as rmlp
 from gpufhe_tpu_torch import cli
 from gpufhe_tpu_torch.api import Session
+from lifted_mlp import LiftedMLP
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -74,6 +77,9 @@ def golden_reference(monkeypatch):
     monkeypatch.setattr(rbfv_backend, "BFVDeviceBackend",
                         lambda params, ctx, chest: rbfv_backend.BFVGoldenBackend(params, chest))
     monkeypatch.setattr(rct, "encrypt", ckks_encrypt)
+    # the port's square networks lift their activations (models/mlp.py
+    # _lift_of): the reference's model with the port's lift
+    monkeypatch.setattr(rmlp, "EncryptedMLP", LiftedMLP)
     monkeypatch.setattr(rbgv, "encrypt", integer_encrypt(rgbgv))
     monkeypatch.setattr(rbfv, "encrypt", integer_encrypt(rgbfv))
 

@@ -610,6 +610,33 @@ def test_mac_kernel_at_the_mlp_n15_shape(cuda_device):
                        mac_cuda.mac_plain(x, y0, y1, rows, chain, ctx, perm))
 
 
+def test_mac_each_at_the_mlp_n15_shape(cuda_device):
+    """K4 back to back over one x (ct.py ct_baby_sums' babies): three keys,
+    one stored a level lower, each through its own automorphism, into one
+    int64[2, 3, T, N] stack == plain, pair by pair."""
+    params = preset("config3_ckks")
+    ctx = make_context(params, device=cuda_device)
+    level = params.num_limbs - 1
+    chain_rows = keyswitch.qp_indices(params, level)
+    chain = ctx.index(chain_rows, torch.int32)
+    x = torch.from_numpy(np.stack([_rand(ctx.primes, chain_rows, params.n, 14 + d)
+                                   for d in range(params.dnum)])).to(cuda_device)
+    pairs, rows, perms = [], [], []
+    alpha = len(params.p_primes)
+    for i, stored in enumerate((ctx.num_total, ctx.num_total, ctx.num_total - 1)):
+        held = list(range(stored - alpha)) + list(range(params.num_limbs, ctx.num_total))
+        y0, y1 = (torch.from_numpy(np.stack([_rand(ctx.primes, held, params.n, s + 7 * i + d)
+                                             for d in range(params.dnum)])).to(cuda_device)
+                  for s in (30, 50))
+        pairs.append((y0, y1))
+        rows.append(ctx.index(keyswitch.key_row_index(params, level, stored), torch.int32))
+        perms.append(dct.galois_perm(5 ** (i + 1) % (2 * params.n), ctx, torch.int32))
+    out = torch.empty((2, 3, len(chain_rows), params.n), dtype=torch.int64, device=cuda_device)
+    got = mac_cuda.mac_each(x, pairs, rows, chain, ctx, perms, out)
+    for i, ((y0, y1), r, p) in enumerate(zip(pairs, rows, perms)):
+        assert torch.equal(got[:, i], mac_cuda.mac_plain(x, y0, y1, r, chain, ctx, p))
+
+
 def test_mlp_forward_on_card_equals_cpu_path(cuda_device):
     """A two-layer EncryptedMLP at ci_small (its plans built from the
     blocks): the card's logits ciphertext == the CPU path's limb for limb,

@@ -9,7 +9,12 @@ weights and inputs, and the presets of the reference's own tests. Outputs are
 == limb for limb at an equal level, scales within 1e-12 relative; each decode
 is held to the tolerance of the reference test it mirrors (file:line beside
 it); PIR's records are exact. The MLP's plans, built from each layer's block,
-are == the dense route's (a slots x slots embedding), handle for handle.
+are == the dense route's (a slots x slots embedding), handle for handle. The
+port's square networks without a refresh (the MLP, the CNN over it), entered
+with a limb to spare, carry their activations `lift` times larger
+(models/mlp.py _lift_of): they are held == the reference's EncryptedMLP
+given the port's lift (tests/lifted_mlp.py `LiftedMLP`), and == the
+reference's own where the lift is 1.
 """
 
 import numpy as np
@@ -57,6 +62,7 @@ from gpufhe_tpu_torch.models import pir as ppir
 from gpufhe_tpu_torch.models import transformer as pxf
 from gpufhe_tpu_torch.ops.context import make_context
 from gpufhe_tpu_torch.params.params import preset
+from lifted_mlp import LiftedMLP
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -153,11 +159,12 @@ def test_mlp_builds_its_plans_from_the_block(small, monkeypatch):
 def test_mlp_matches_reference(small):
     pair, layers, x = small
     model = pmlp.EncryptedMLP(pair.be, layers)
-    rmodel = rmlp.EncryptedMLP(pair.rbe, layers)
+    rmodel = LiftedMLP(pair.rbe, layers)
     assert model.levels_used == rmodel.levels_used == 3
     ct, rct = pair.encrypt(x)
     out = model(ct)
     assert_ct_equal(out, rmodel(rct))
+    assert model.lift == rmodel.lift == 256
     # tests/test_models_utils.py:73
     assert np.abs(decoded(pair, out, 4) - rmodel.reference(x)).max() < 1e-2
     for i in range(2):  # the block-built plans == the reference's dense ones
@@ -167,6 +174,20 @@ def test_mlp_matches_reference(small):
         for key, (pt, scale) in want.items():
             assert got[key][1] == scale
             assert (pt_limbs(pair, got[key][0]) == np.asarray(pt).astype(np.int64)).all()
+
+
+def test_mlp_at_its_lowest_level_is_the_reference(small):
+    """Entered at levels_used + 1 the forward has no limb to spare for a
+    lift (models/mlp.py _lift_of): == the reference's own EncryptedMLP."""
+    pair, layers, x = small
+    model = pmlp.EncryptedMLP(pair.be, layers)
+    rmodel = rmlp.EncryptedMLP(pair.rbe, layers)
+    ct, rct = pair.encrypt(x, level=model.levels_used + 1)
+    out = model(ct)
+    assert model.lift == 1 and out.level == 1
+    assert_ct_equal(out, rmodel(rct))
+    # tests/test_models_utils.py:73
+    assert np.abs(decoded(pair, out, 4) - rmodel.reference(x)).max() < 1e-2
 
 
 def pt_limbs(pair, pt_mont):
@@ -226,7 +247,9 @@ def test_cnn_matches_reference(small):
         assert (a[0] == b[0]).all() and (a[1] == b[1]).all()
     ct, rct = pair.encrypt(img)
     out = model(ct)
-    assert_ct_equal(out, rmodel(rct))
+    lifted = LiftedMLP(pair.rbe, rcnn.compile_cnn(kernels, bias, (8, 8), dense_w, dense_b))
+    assert_ct_equal(out, lifted(rct))
+    assert model.mlp.lift == lifted.lift == 256
     # tests/test_cnn.py:81
     assert np.abs(decoded(pair, out, 4) - rmodel.reference(img)).max() < 1e-2
 

@@ -658,9 +658,9 @@ PORT_ONLY = {
     "bench": {"bench_int_mult", "bench_ntt", "bench_bootstrap", "bench_mlp",
               "bench_deep_mlp", "bench_mesh_parity"},
     "ciphertext.bfv": {"sk_convert_to_q"},
-    "ciphertext.ct": {"add_core", "decrypt_core", "encrypt_core", "galois_core", "galois_perm",
-                      "hoisted_galois_core", "mul_plain_core", "relin_core", "rescale_core",
-                      "sub_core", "tensor_core"},
+    "ciphertext.ct": {"PlainGroup", "add_core", "ct_baby_sums", "decrypt_core", "encrypt_core",
+                      "galois_core", "galois_perm", "hoisted_galois_core", "mul_plain_core",
+                      "relin_core", "rescale_core", "sub_core", "tensor_core"},
     "golden.ckks": {"host_limbs", "inner_product_coeff", "ntt_small"},
     "golden.native": {"lib_path"},
     "keys.keys": {"IntegerKeyChest", "default_context", "host", "integer_chest_fields",
@@ -668,7 +668,8 @@ PORT_ONLY = {
     "ops.context": {"K1Tables", "k1_refusal", "ntt_tables_np", "pow_table", "shoup",
                     "stage_root_exponents"},
     "parallel.sharded": {"mesh_contexts"},
-    "primitives.keyswitch": {"gadget_mac", "hoist", "key_row_index", "ks_finish"},
+    "primitives.keyswitch": {"gadget_mac", "gadget_macs", "hoist", "key_row_index",
+                             "ks_finish"},
     "primitives.rns": {"rescale_words"},
     "utils.benchkit": {"Bounds", "measured_bounds"},
 }
